@@ -5,17 +5,21 @@ H100.  The layout mirrors the JAX package module for module, so each
 module's counterpart is found by path; the JAX package stays the
 reference every port module is tested against at matched seeds.
 
-What this package covers so far is the main path: the Cornell box under
-NEE with balance-heuristic MIS, through two entry points:
+What this package covers so far: the sampling techniques 0-7 (brute
+force, uniform, cosine, GGX, BRDF, light-source sampling, NEE+MIS and
+ReSTIR DI) on untextured scenes, through three entry points:
 
-  * ``render.renderer.Renderer`` — the wavefront renderer; on CUDA
-    tensors its closest-hit trace is the hand-written kernel
+  * ``render.renderer.Renderer`` — the wavefront renderer for techniques
+    0-7; on CUDA tensors its closest-hit trace is the hand-written kernel
     ``csrc/trace.cu`` (``ops.traverse.trace_closest``);
-  * ``render.megakernel.MegakernelRenderer`` — N frames of NEE+MIS per
-    pixel in one hand-written kernel, ``csrc/megakernel_nee.cu``.
+  * ``render.megakernel.MegakernelRenderer`` — N frames of techniques 0-6
+    per pixel in one hand-written kernel, ``csrc/megakernel.cu``;
+  * ``render.megakernel_restir.MegakernelReSTIRDI`` — ReSTIR DI as two
+    hand-written kernels a frame, ``csrc/restir_di.cu``.
 
-On CPU tensors both run their plain PyTorch versions; on CUDA tensors
-they launch the kernel or raise.  The package imports ``torch``
+ReSTIR GI and textured materials raise ``NotImplementedError``.  On CPU
+tensors the entry points run their plain PyTorch versions; on CUDA
+tensors they launch the kernels or raise.  The package imports ``torch``
 and ``numpy`` only: the host builders (BVH, light tree, scene compiler)
 are NumPy copies, so it imports on a machine without JAX.
 """

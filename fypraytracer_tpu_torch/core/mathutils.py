@@ -3,7 +3,7 @@
 The torch counterpart of ``fypraytracer_tpu/core/mathutils.py`` (itself a
 re-implementation of the reference's ``MathUtils.cuh``).  Every formula
 keeps the JAX package's operation order, so the two agree to float32
-rounding; ``csrc/megakernel_nee.cu`` repeats the same formulas per thread.
+rounding; ``csrc/shading.cuh`` repeats the same formulas per thread.
 
 Conventions (as in the JAX package):
   * vectors are ``(..., 3)`` float32 tensors; functions broadcast;
@@ -85,6 +85,21 @@ def cosine_sample_hemisphere(normal, u1, u2):
 def cosine_hemisphere_pdf(cos_theta):
     """pdf = cosθ/π (MathUtils.cuh:92-95)."""
     return cos_theta * INV_PI
+
+
+def uniform_sample_hemisphere(normal, u1, u2):
+    """Uniform direction in the hemisphere (MathUtils.cuh:97-114)."""
+    u1 = _tail1(u1, normal)
+    u2 = _tail1(u2, normal)
+    phi = TWO_PI * u1
+    cos_theta = u2
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    return to_world(normal, sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
+
+
+def uniform_hemisphere_pdf():
+    """pdf = 1/(2π) (MathUtils.cuh:116)."""
+    return 1.0 / TWO_PI
 
 
 def ggx_sample_hemisphere(normal, view, roughness, u1, u2):
@@ -212,3 +227,43 @@ def cook_torrance_brdf(normal, view, l, albedo, metallic, roughness):
 
     specular = (d * g * f) / torch.clamp_min(4.0 * n_dot_v * n_dot_l, 1e-12)
     return torch.where((n_dot_l > 0.0) & (n_dot_v > 0.0), diffuse + specular, 0.0)
+
+
+def encode_octahedral(v):
+    """Unit vec3 -> vec2 in [-1, 1]² (MathUtils.cuh:328-352)."""
+    denom = torch.abs(v[..., 0:1]) + torch.abs(v[..., 1:2]) + torch.abs(v[..., 2:3])
+    p = v / torch.clamp_min(denom, 1e-20)
+    ex, ey, ez = p[..., 0:1], p[..., 1:2], p[..., 2:3]
+    sx = torch.where(ex >= 0.0, 1.0, -1.0)
+    sy = torch.where(ey >= 0.0, 1.0, -1.0)
+    out_x = torch.where(ez < 0.0, (1.0 - torch.abs(ey)) * sx, ex)
+    out_y = torch.where(ez < 0.0, (1.0 - torch.abs(ex)) * sy, ey)
+    return torch.cat([out_x, out_y], dim=-1)
+
+
+def decode_octahedral(e):
+    """vec2 -> unit vec3 (MathUtils.cuh:354-374)."""
+    ex, ey = e[..., 0:1], e[..., 1:2]
+    z = 1.0 - torch.abs(ex) - torch.abs(ey)
+    sx = torch.where(ex >= 0.0, 1.0, -1.0)
+    sy = torch.where(ey >= 0.0, 1.0, -1.0)
+    x = torch.where(z < 0.0, (1.0 - torch.abs(ey)) * sx, ex)
+    y = torch.where(z < 0.0, (1.0 - torch.abs(ex)) * sy, ey)
+    return normalize(torch.cat([x, y, z], dim=-1))
+
+
+def world_to_ndc(proj_view, world_pos):
+    """World position -> NDC xy through a combined 4×4, rows = output
+    components (MathUtils.cuh:376-390); 0 where |w| < 1e-20."""
+    pv = torch.as_tensor(proj_view, dtype=world_pos.dtype, device=world_pos.device)
+    hom = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], dim=-1)
+    clip = (pv * hom[..., None, :]).sum(dim=-1)
+    w = clip[..., 3:4]
+    small = torch.abs(w) < 1e-20
+    ndc = clip[..., 0:2] / torch.where(small, 1.0, w)
+    return torch.where(small, 0.0, ndc)
+
+
+def ndc_to_uv(ndc):
+    """NDC [-1, 1] -> UV [0, 1] (MathUtils.cuh:398-402)."""
+    return ndc * 0.5 + 0.5

@@ -1,0 +1,330 @@
+// megakernel: N frames of one sampling technique in one kernel launch (K2).
+//
+// Replaces the TPU kernel fypraytracer_tpu/render/megakernel.py::make_megakernel
+// -> kernel (:1788, launched at :2404) for every entry of MegakernelRenderer.
+// SAMPLER_OF (:2566): the hemisphere family (uniform, cosine, ggx, brdf), light-
+// source sampling and NEE+MIS.  The kernel is a template over the sampler, so
+// each technique compiles to its own code with no per-bounce dispatch; one C
+// entry takes the sampler as an int.  Brute force is UNIFORM at 1 sample, chosen
+// by the host (megakernel.py:2603).  One thread owns one pixel and runs the
+// frame loop and the sample loop inside; each ray is traced with the BVH walk of
+// traverse.cuh.  It works from the scene's SoA arrays, not from the TPU's packed
+// P/AT/L tables, which existed for one-hot MXU fetches.
+//
+// Semantics kept from the JAX kernel (and from render/integrators.py, whose
+// frame the PyTorch plain version sums):
+//   * the primary hit is traced once per launch and reused by every frame
+//     (megakernel.py:1962-1971); a pixel whose primary ray misses outputs
+//     n_frames * sky, an emissive primary hit n_frames * emission (:2290-2292);
+//   * keys are fold(fold(fold(pcg(pix), frame), s), 0) (core/rng.py::path_key);
+//   * per scatter the draws are 2 uniforms for uniform, cosine and ggx and 3 for
+//     the BRDF mixture, u_sel first (:1843-1870); a scatter with pdf <= 0 ends
+//     the path; a miss adds throughput * sky, an emitter hit throughput *
+//     emission, and ends it;
+//   * LIGHT (radiance_light_source, :2213-2281) is one bounce of direct light:
+//     light-tree pick, a uniform point on the triangle, pdf = pmf * dist^2 /
+//     area with cos_y clamped at 0, visibility by identity, and the sky added
+//     when the shadow ray escapes.  NEE's bounces == 1 branch differs from it
+//     (cos_y clamped at 1e-12, no sky term), so it is a branch of its own;
+//   * NEE (radiance_nee_mis): per bounce the draws are u_pick, lu1, lu2 for the
+//     light sample, then u_sel, u1, u2 for the mixture continuation; the shadow
+//     ray is a closest-hit trace checked by identity (sh_tri == lt_tri), cos_y
+//     is clamped at 1e-12, pdf_brdf at 1e-12; the continuation's MIS takes
+//     cos_y2, area2 and pmf2 at the actual hit; bounces == 1 is plain light
+//     sampling with no MIS weight.
+//
+// What bounds it on an H100: the traversal's dependent loads and divergence
+// (traverse.cuh), multiplied by the traces per frame (1 + 2 * bounces for NEE,
+// bounces for the hemisphere family, 1 for LIGHT), plus for NEE and LIGHT the
+// light-tree descent, whose importance evaluation (8 box corners per child) is
+// the main arithmetic.  Output is one float3 store per pixel per launch, so
+// device-memory traffic is the scene's, which stays in L2 for Cornell.  Path
+// regeneration, ray sorting and a persistent-thread schedule are later work.
+//
+// C interface (loaded with ctypes by render/megakernel.py::megakernel): writes
+// the (H*W, 3) float32 HDR summed over n_frames, returns cudaGetLastError()
+// after the asynchronous launch (cudaErrorInvalidValue for an unknown sampler).
+#include "shading.cuh"
+
+namespace {
+
+using namespace fyp;
+
+enum Sampler { UNIFORM = 0, COSINE = 1, GGX = 2, BRDF = 3, LIGHT = 4, NEE = 5 };
+
+struct Params {
+  const float* cam;  // (2, 4, 4): inv_projection, inv_view, row-major
+  int width, height;
+  uint32_t frame0;
+  int n_frames, bounces, samples;
+  float3 sky;
+  Geo geo;
+  Mats mats;
+  Bvh bvh;
+  LightTree lt;
+};
+
+// integrators.py::_scatter: a direction at surface s seen along view, and its pdf
+template <int S>
+__device__ __forceinline__ float scatter(uint32_t& key, const Surf& s, float3 view, float3& l) {
+  if (S == BRDF || S == NEE) {
+    float u_sel = next_uniform(key);
+    float u1 = next_uniform(key);
+    float u2 = next_uniform(key);
+    return mixture_sample(s.n, view, s.alb, s.metal, s.rough, u_sel, u1, u2, l);
+  }
+  float u1 = next_uniform(key);
+  float u2 = next_uniform(key);
+  if (S == UNIFORM) {
+    l = uniform_dir(s.n, u1, u2);
+    return 1.0f / kTwoPi;
+  }
+  if (S == COSINE) {
+    l = cosine_dir(s.n, u1, u2);
+    return fmaxf(dot(s.n, l), 0.0f) * kInvPi;
+  }
+  return ggx_sample(s.n, view, s.rough, u1, u2, l);
+}
+
+// A uniform point on light triangle tid (Triangle.cuh:20-51): point, averaged
+// normal, area; integrators.py::_sample_point_on_triangle.
+__device__ __forceinline__ void light_point(const Params& P, int tid, float u1, float u2, float3& point,
+                                            float3& ln, float& area) {
+  int ia = __ldg(P.geo.tri_v + 3 * tid), ib = __ldg(P.geo.tri_v + 3 * tid + 1), ic = __ldg(P.geo.tri_v + 3 * tid + 2);
+  float3 p0 = ldg3(P.geo.positions, ia), p1 = ldg3(P.geo.positions, ib), p2 = ldg3(P.geo.positions, ic);
+  float su = sqrtf(u1);
+  point = p0 * (1.0f - su) + p1 * (su * (1.0f - u2)) + p2 * (su * u2);
+  ln = normalize(ldg3(P.geo.normals, ia) + ldg3(P.geo.normals, ib) + ldg3(P.geo.normals, ic));
+  float3 cr = cross(p1 - p0, p2 - p0);
+  area = 0.5f * sqrtf(dot(cr, cr));
+}
+
+// integrators.py::radiance_hemisphere, one sample of one frame
+template <int S>
+__device__ float3 hemisphere_path(const Params& P, const Tris& tris, uint32_t key, const Surf& prim, float3 dir) {
+  float3 rad = make_float3(0.0f, 0.0f, 0.0f);
+  float3 view = -dir;
+  float3 l;
+  float pdf = scatter<S>(key, prim, view, l);
+  float3 f = cook_torrance(prim.n, view, l, prim.alb, prim.metal, prim.rough);
+  float3 thr = f * fmaxf(dot(l, prim.n), 0.0f) / pdf;
+  if (!(pdf > 0.0f)) return rad;
+  float3 ray_o = prim.pos + prim.n * kOriginEps;
+  float3 ray_d = l;
+  for (int b = 0; b < P.bounces; ++b) {
+    Hit hh = trace_closest(P.bvh, tris, ray_o, ray_d, kBig);
+    if (hh.tri < 0) return rad + thr * P.sky;
+    Surf s = surface(P.geo, P.mats, hh, ray_o, ray_d);
+    float3 em = emission_of(P.mats, s.mat);
+    if (dot(em, em) > 0.0f) return rad + thr * em;
+    view = -ray_d;
+    pdf = scatter<S>(key, s, view, l);
+    f = cook_torrance(s.n, view, l, s.alb, s.metal, s.rough);
+    thr = thr * f * fmaxf(dot(l, s.n), 0.0f) / pdf;
+    if (!(pdf > 0.0f)) return rad;
+    ray_o = s.pos + s.n * kOriginEps;
+    ray_d = l;
+  }
+  return rad;
+}
+
+// integrators.py::radiance_light_source, one sample of one frame
+__device__ float3 light_sample(const Params& P, const Tris& tris, uint32_t key, const Surf& prim, float3 dir) {
+  float u_pick = next_uniform(key);
+  float u1 = next_uniform(key);
+  float u2 = next_uniform(key);
+  float pmf;
+  int lt_tri = pick_light(P.lt, prim.pos, u_pick, pmf);
+  float3 point, ln;
+  float area;
+  light_point(P, max(lt_tri, 0), u1, u2, point, ln, area);
+  float3 tl = point - prim.pos;
+  float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
+  float3 l_dir = tl / dist;
+  float3 fd = cook_torrance(prim.n, -dir, l_dir, prim.alb, prim.metal, prim.rough);
+  float cos_x = fmaxf(dot(l_dir, prim.n), 0.0f);
+  float cos_y = fmaxf(dot(-l_dir, ln), 0.0f);
+  float pdf = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist;
+  float3 contrib = fd * (cos_x * cos_y / fmaxf(pdf, 1e-20f));
+  Hit sh = trace_closest(P.bvh, tris, prim.pos + prim.n * kOriginEps, l_dir, kBig);
+  float3 rad = make_float3(0.0f, 0.0f, 0.0f);
+  if (lt_tri >= 0 && sh.tri == lt_tri && pmf > 0.0f)
+    rad = contrib * emission_of(P.mats, __ldg(P.geo.tri_mat + lt_tri));
+  if (sh.tri < 0) rad = rad + contrib * P.sky;
+  return rad;
+}
+
+// integrators.py::radiance_nee_mis, one sample of one frame
+__device__ float3 nee_path(const Params& P, const Tris& tris, uint32_t key, const Surf& prim, float3 dir) {
+  const bool single = P.bounces == 1;
+  float3 rad = make_float3(0.0f, 0.0f, 0.0f);
+  float3 thr = make_float3(1.0f, 1.0f, 1.0f);
+  Surf surf = prim;
+  float3 ray_d = dir;
+
+  for (int b = 0; b < P.bounces; ++b) {
+    const float3 view = -ray_d;
+
+    // ---- direct light sample + shadow ray (integrators.py:279-305)
+    float u_pick = next_uniform(key);
+    float lu1 = next_uniform(key);
+    float lu2 = next_uniform(key);
+    float pmf;
+    int lt_tri = pick_light(P.lt, surf.pos, u_pick, pmf);
+    {
+      float3 point, ln;
+      float area;
+      light_point(P, max(lt_tri, 0), lu1, lu2, point, ln, area);
+      float3 tl = point - surf.pos;
+      float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
+      float3 l_dir = tl / dist;
+      Hit sh = trace_closest(P.bvh, tris, surf.pos + surf.n * kOriginEps, l_dir, kBig);
+      if (lt_tri >= 0 && sh.tri == lt_tri && pmf > 0.0f) {
+        float3 fd = cook_torrance(surf.n, view, l_dir, surf.alb, surf.metal, surf.rough);
+        float cos_x = fmaxf(dot(l_dir, surf.n), 0.0f);
+        float cos_y = fmaxf(dot(-l_dir, ln), 1e-12f);
+        float pdf_direct = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist / cos_y;
+        float w_direct = 1.0f;
+        if (!single) {
+          float pdf_brdf_l = mixture_pdf(surf.n, view, l_dir, surf.alb, surf.metal, surf.rough);
+          w_direct = pdf_direct / fmaxf(pdf_brdf_l + pdf_direct, 1e-12f);
+        }
+        float dscale = w_direct / fmaxf(pdf_direct, 1e-20f) * cos_x;
+        float3 l_em = emission_of(P.mats, __ldg(P.geo.tri_mat + lt_tri));
+        rad = rad + thr * ((dscale * fd) * l_em);
+      }
+    }
+    if (single) break;
+
+    // ---- BRDF continuation (integrators.py:310-345)
+    float3 l;
+    float pdf_brdf = scatter<NEE>(key, surf, view, l);
+    float3 fc = cook_torrance(surf.n, view, l, surf.alb, surf.metal, surf.rough);
+    float cos_t = fmaxf(dot(l, surf.n), 0.0f);
+    thr = thr * fc * cos_t / fmaxf(pdf_brdf, 1e-12f);
+    if (!(pdf_brdf > 0.0f)) break;
+
+    float3 ray_o = surf.pos + surf.n * kOriginEps;
+    ray_d = l;
+    Hit hh = trace_closest(P.bvh, tris, ray_o, ray_d, kBig);
+    if (hh.tri < 0) {
+      rad = rad + thr * P.sky;
+      break;
+    }
+    Surf next = surface(P.geo, P.mats, hh, ray_o, ray_d);
+    float3 em = emission_of(P.mats, next.mat);
+    if (dot(em, em) > 0.0f) {
+      // MIS with the light pdf at the actual hit point
+      float cos_y2 = fmaxf(dot(-ray_d, next.n), 1e-12f);
+      float3 q0, q1, q2;
+      triangle(tris, hh.tri, q0, q1, q2);
+      float3 cr2 = cross(q1 - q0, q2 - q0);
+      float area2 = 0.5f * sqrtf(fmaxf(dot(cr2, cr2), 1e-20f));
+      float dist2 = fmaxf(hh.t, 0.0f);
+      float pmf2 = emitter_pmf(P.lt, hh.tri, surf.pos);
+      float pdf_direct2 = pmf2 * (1.0f / area2) * dist2 * dist2 / cos_y2;
+      float w_brdf = pdf_brdf / fmaxf(pdf_brdf + pdf_direct2, 1e-12f);
+      rad = rad + thr * em * w_brdf;
+      break;
+    }
+    surf = next;
+  }
+  return rad;
+}
+
+template <int S>
+__global__ void __launch_bounds__(128) frames_kernel(Params P, float* __restrict__ out) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= P.width * P.height) return;
+  Tris tris{P.geo.positions, P.geo.tri_v};
+  float3 orig, dir;
+  camera_ray(P.cam, P.width, P.height, pix, orig, dir);
+
+  // ---- primary hit, traced once and reused by every frame
+  const float nf = static_cast<float>(P.n_frames);
+  Hit h0 = trace_closest(P.bvh, tris, orig, dir, kBig);
+  if (h0.tri < 0) {
+    out[3 * pix + 0] = nf * P.sky.x;
+    out[3 * pix + 1] = nf * P.sky.y;
+    out[3 * pix + 2] = nf * P.sky.z;
+    return;
+  }
+  const Surf prim = surface(P.geo, P.mats, h0, orig, dir);
+  const float3 em0 = emission_of(P.mats, prim.mat);
+  if (dot(em0, em0) > 0.0f) {
+    out[3 * pix + 0] = nf * em0.x;
+    out[3 * pix + 1] = nf * em0.y;
+    out[3 * pix + 2] = nf * em0.z;
+    return;
+  }
+
+  const uint32_t pix_key = pcg(static_cast<uint32_t>(pix));
+  float3 acc = make_float3(0.0f, 0.0f, 0.0f);
+  for (int f = 0; f < P.n_frames; ++f) {
+    const uint32_t key_f = fold(pix_key, P.frame0 + static_cast<uint32_t>(f));
+    float3 rad = make_float3(0.0f, 0.0f, 0.0f);
+    for (int s = 0; s < P.samples; ++s) {
+      const uint32_t key = fold(fold(key_f, static_cast<uint32_t>(s)), 0u);
+      if (S == NEE) {
+        rad = rad + nee_path(P, tris, key, prim, dir);
+      } else if (S == LIGHT) {
+        rad = rad + light_sample(P, tris, key, prim, dir);
+      } else {
+        rad = rad + hemisphere_path<S>(P, tris, key, prim, dir);
+      }
+    }
+    acc = acc + rad / static_cast<float>(P.samples);
+  }
+  out[3 * pix + 0] = acc.x;
+  out[3 * pix + 1] = acc.y;
+  out[3 * pix + 2] = acc.z;
+}
+
+}  // namespace
+
+extern "C" int fyp_megakernel(
+    int sampler, const void* cam, int width, int height, unsigned int frame0, int n_frames, int bounces,
+    int samples, float sky_r, float sky_g, float sky_b,
+    const void* positions, const void* normals, const void* tri_v, const void* tri_mat,
+    const void* albedo, const void* roughness, const void* metallic, const void* emission,
+    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
+    const void* bvh_prim_idx, int n_nodes, int leaf_size,
+    const void* lt_energy, const void* lt_axis, const void* lt_cos_o, const void* lt_sin_o,
+    const void* lt_cos_e, const void* lt_sin_e, const void* lt_box_lo, const void* lt_box_hi,
+    const void* lt_left, const void* lt_right, const void* lt_tri, const void* lt_parent,
+    const void* lt_leaf_of_tri, int lt_max_depth,
+    void* out, void* stream) {
+  const int n_pix = width * height;
+  if (n_pix <= 0) return 0;
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto I = [](const void* p) { return static_cast<const int*>(p); };
+  Params P;
+  P.cam = F(cam);
+  P.width = width;
+  P.height = height;
+  P.frame0 = frame0;
+  P.n_frames = n_frames;
+  P.bounces = bounces;
+  P.samples = samples;
+  P.sky = make_float3(sky_r, sky_g, sky_b);
+  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
+  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
+  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.lt = LightTree{F(lt_energy), F(lt_axis), F(lt_cos_o), F(lt_sin_o), F(lt_cos_e), F(lt_sin_e),
+                   F(lt_box_lo), F(lt_box_hi), I(lt_left), I(lt_right), I(lt_tri), I(lt_parent),
+                   I(lt_leaf_of_tri), lt_max_depth};
+  const int block = 128;
+  const int grid = (n_pix + block - 1) / block;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  switch (sampler) {
+    case UNIFORM: frames_kernel<UNIFORM><<<grid, block, 0, st>>>(P, o); break;
+    case COSINE: frames_kernel<COSINE><<<grid, block, 0, st>>>(P, o); break;
+    case GGX: frames_kernel<GGX><<<grid, block, 0, st>>>(P, o); break;
+    case BRDF: frames_kernel<BRDF><<<grid, block, 0, st>>>(P, o); break;
+    case LIGHT: frames_kernel<LIGHT><<<grid, block, 0, st>>>(P, o); break;
+    case NEE: frames_kernel<NEE><<<grid, block, 0, st>>>(P, o); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

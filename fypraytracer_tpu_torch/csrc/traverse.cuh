@@ -1,8 +1,8 @@
 // Closest-hit traversal of the threaded BVH, one thread per ray.
 //
-// Device code shared by trace.cu (the standalone trace kernel) and
-// megakernel_nee.cu (which calls trace_closest for its primary, shadow
-// and continuation rays).  It replaces the TPU's dense ray x triangle tile
+// Device code shared by trace.cu (the standalone trace kernel),
+// megakernel.cu and restir_di.cu (which call trace_closest for their
+// primary, shadow and continuation rays).  It replaces the TPU's dense ray x triangle tile
 // sweep (fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel) with the
 // reference's own per-ray walk (Renderer.cu:460-561), in the stackless
 // form of fypraytracer_tpu/ops/traverse.py:75-113:
@@ -29,7 +29,7 @@
 // the plain PyTorch version's operation order (core/mathutils.py::dot3,
 // cross3), so a triangle hit and an exact tie on a shared edge are decided
 // bit for bit as the plain version decides them.  Scalar shading code in
-// megakernel_nee.cu may still be FMA-contracted.
+// shading.cuh may still be FMA-contracted.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,11 +1,12 @@
-"""Wavefront NEE+MIS integrator on tensors.
+"""Wavefront path-tracing integrators on tensors — the technique zoo.
 
-The torch counterpart of ``radiance_nee_mis`` in
-``fypraytracer_tpu/render/integrators.py`` (PerPixel_NextEventEstimation,
-Renderer.cu:1411-1626), with its helpers.  Divergent CUDA ``break``s are
-per-lane ``active`` masks; the bounce and sample loops are Python loops
-over whole ray batches.  The other techniques of that module come with a
-later slice.
+The torch counterpart of ``fypraytracer_tpu/render/integrators.py``:
+``radiance_hemisphere`` (brute force, uniform, cosine, GGX and BRDF,
+Renderer.cu:565-1284), ``radiance_light_source`` (Renderer.cu:1287-1408)
+and ``radiance_nee_mis`` (Renderer.cu:1411-1626), with their helpers.
+Divergent CUDA ``break``s are per-lane ``active`` masks; the bounce and
+sample loops are Python loops over whole ray batches.  Textured albedo is
+not ported: ``fetch_albedo`` reads the flat albedo.
 
 Kept exactly as the JAX package has them (see its docstring for why):
 the next-ray origin offset ``ORIGIN_EPS`` (a no-op in float32 at |p| ≈ 1;
@@ -23,9 +24,14 @@ from fypraytracer_tpu_torch.core.mathutils import (
     brdf_hemisphere_pdf,
     brdf_sample_hemisphere,
     cook_torrance_brdf,
+    cosine_hemisphere_pdf,
+    cosine_sample_hemisphere,
     cross3,
     dot3,
+    ggx_sample_hemisphere,
     normalize,
+    uniform_hemisphere_pdf,
+    uniform_sample_hemisphere,
 )
 from fypraytracer_tpu_torch.ops.hit import hit_payload
 from fypraytracer_tpu_torch.ops.lighttree import emitter_pmf, pick_light
@@ -45,6 +51,121 @@ def fetch_albedo(scene: Scene, mat_id):
     """Flat albedo (Renderer.cu:609-621).  Textured materials are refused
     by the renderers until textures are ported."""
     return scene.materials.albedo[torch.clamp_min(mat_id, 0).long()]
+
+
+def _scatter(scene: Scene, pay, view, key, sampler: str):
+    """Draw one scatter direction at a hit; returns (key, L, pdf, albedo,
+    roughness, metallic).  Uniform, cosine and GGX take two uniforms, the
+    BRDF mixture three (u_sel first)."""
+    normal = pay["normal"]
+    m = torch.clamp_min(pay["mat"], 0).long()
+    rough = scene.materials.roughness[m]
+    metal = scene.materials.metallic[m]
+    albedo = fetch_albedo(scene, pay["mat"])
+
+    if sampler == "uniform":
+        key, (u1, u2) = rng.uniforms(key, 2)
+        l = uniform_sample_hemisphere(normal, u1, u2)
+        pdf = torch.full(normal.shape[:-1], uniform_hemisphere_pdf(), dtype=normal.dtype,
+                         device=normal.device)
+    elif sampler == "cosine":
+        key, (u1, u2) = rng.uniforms(key, 2)
+        l = cosine_sample_hemisphere(normal, u1, u2)
+        pdf = cosine_hemisphere_pdf(torch.clamp_min(dot3(normal, l, keepdims=False), 0.0))
+    elif sampler == "ggx":
+        key, (u1, u2) = rng.uniforms(key, 2)
+        l, pdf = ggx_sample_hemisphere(normal, view, rough, u1, u2)
+    elif sampler == "brdf":
+        key, (u_sel, u1, u2) = rng.uniforms(key, 3)
+        l, pdf = brdf_sample_hemisphere(normal, view, albedo, metal, rough, u_sel, u1, u2)
+    else:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    return key, l, pdf, albedo, rough, metal
+
+
+def sampler_pdf(scene: Scene, pay, view, l, sampler: str):
+    """pdf the scatter sampler assigns to direction ``l`` (for MIS)."""
+    normal = pay["normal"]
+    m = torch.clamp_min(pay["mat"], 0).long()
+    cos_t = torch.clamp_min(dot3(normal, l, keepdims=False), 0.0)
+    if sampler == "uniform":
+        return torch.full_like(cos_t, uniform_hemisphere_pdf())
+    if sampler == "cosine":
+        return cosine_hemisphere_pdf(cos_t)
+    if sampler == "brdf":
+        return brdf_hemisphere_pdf(normal, view, l, fetch_albedo(scene, pay["mat"]),
+                                   scene.materials.metallic[m], scene.materials.roughness[m])
+    raise ValueError(f"unknown sampler {sampler!r}")
+
+
+def _primary(scene: Scene, trace_fn, origins, directions):
+    """Primary payload and its early-out lanes (Renderer.cu:589-598)."""
+    prim = hit_payload(scene.geometry, origins, directions, trace_fn(origins, directions))
+    prim_miss = prim["t"] < 0.0
+    prim_emission = material_emission(scene, prim["mat"])
+    prim_emissive = dot3(prim_emission, prim_emission, keepdims=False) > 0.0
+    return prim, prim_miss, prim_emission, prim_emissive
+
+
+def radiance_hemisphere(scene: Scene, trace_fn, origins, directions, pixel_ids,
+                        frame, settings, sampler: str):
+    """Shared body of the brute-force / uniform / cosine / GGX / BRDF
+    kernels (Renderer.cu:565-1284), (B, 3) HDR radiance of one frame.
+
+    ``sampler="brute"`` is the uniform sampler at exactly one path per
+    frame whatever ``settings.samples`` says (Renderer.cu:565-701).
+    """
+    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    brute = sampler == "brute"
+    eff_sampler = "uniform" if brute else sampler
+    num_samples = 1 if brute else settings.samples
+
+    prim, prim_miss, prim_emission, prim_emissive = _primary(scene, trace_fn, origins, directions)
+    path_lanes = ~(prim_miss | prim_emissive)
+    radiance = torch.zeros_like(origins)
+
+    for s in range(num_samples):
+        key = rng.path_key(pixel_ids, frame, s)
+        active = path_lanes
+        throughput = torch.ones_like(origins)
+
+        pay = prim
+        view = -directions
+        key, l, pdf, albedo, rough, metal = _scatter(scene, pay, view, key, eff_sampler)
+        brdf = cook_torrance_brdf(pay["normal"], view, l, albedo, metal, rough)
+        cos_t = torch.clamp_min(dot3(l, pay["normal"]), 0.0)
+        ok = pdf > 0.0
+        throughput = throughput * brdf * cos_t / torch.where(ok, pdf, 1.0)[..., None]
+        active = active & ok
+        ray_o = pay["position"] + pay["normal"] * ORIGIN_EPS
+        ray_d = l
+
+        for _b in range(settings.bounces):
+            pay = hit_payload(scene.geometry, ray_o, ray_d, trace_fn(ray_o, ray_d))
+            miss = pay["t"] < 0.0
+            radiance = radiance + torch.where((active & miss)[..., None], throughput * sky, 0.0)
+            active = active & ~miss
+
+            emission = material_emission(scene, pay["mat"])
+            is_emissive = dot3(emission, emission, keepdims=False) > 0.0
+            radiance = radiance + torch.where((active & is_emissive)[..., None],
+                                              throughput * emission, 0.0)
+            active = active & ~is_emissive
+
+            view = -ray_d
+            key, l, pdf, albedo, rough, metal = _scatter(scene, pay, view, key, eff_sampler)
+            brdf = cook_torrance_brdf(pay["normal"], view, l, albedo, metal, rough)
+            cos_t = torch.clamp_min(dot3(l, pay["normal"]), 0.0)
+            ok = pdf > 0.0
+            throughput = throughput * brdf * cos_t / torch.where(ok, pdf, 1.0)[..., None]
+            active = active & ok
+            ray_o = pay["position"] + pay["normal"] * ORIGIN_EPS
+            ray_d = l
+
+    if num_samples > 1:
+        radiance = radiance / float(num_samples)
+    out = torch.where(prim_miss[..., None], sky, radiance)
+    return torch.where(prim_emissive[..., None], prim_emission, out)
 
 
 def _sample_point_on_triangle(geometry, tri_ids, u1, u2):
@@ -68,6 +189,56 @@ def _sample_point_on_triangle(geometry, tri_ids, u1, u2):
     return point, normal, area
 
 
+def radiance_light_source(scene: Scene, trace_fn, origins, directions, pixel_ids,
+                          frame, settings):
+    """Light-tree direct-light sampling (PerPixel_LightSourceSampling,
+    Renderer.cu:1287-1408), (B, 3) HDR radiance of one frame: one bounce
+    of direct light; emitter picked by importance descent, uniform point
+    on the triangle, pdf = pmf·dist²/area with both geometry cosines in the
+    contribution, visibility by identity check; a shadow ray that escapes
+    adds the sky (Renderer.cu:1388-1392)."""
+    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    prim, prim_miss, prim_emission, prim_emissive = _primary(scene, trace_fn, origins, directions)
+    path_lanes = ~(prim_miss | prim_emissive)
+
+    albedo = fetch_albedo(scene, prim["mat"])
+    m = torch.clamp_min(prim["mat"], 0).long()
+    rough = scene.materials.roughness[m]
+    metal = scene.materials.metallic[m]
+    view = -directions
+
+    radiance = torch.zeros_like(origins)
+    for s in range(settings.samples):
+        key = rng.path_key(pixel_ids, frame, s)
+        key, (u_pick, u1, u2) = rng.uniforms(key, 3)
+        lt_tri, pmf = pick_light(scene.light_tree, prim["position"], u_pick)
+
+        point, l_normal, area = _sample_point_on_triangle(scene.geometry, lt_tri, u1, u2)
+        to_light = point - prim["position"]
+        dist = torch.sqrt(torch.clamp_min(dot3(to_light, to_light, keepdims=False), 1e-20))
+        l_dir = to_light / dist[..., None]
+
+        brdf = cook_torrance_brdf(prim["normal"], view, l_dir, albedo, metal, rough)
+        cos_x = torch.clamp_min(dot3(l_dir, prim["normal"], keepdims=False), 0.0)
+        cos_y = torch.clamp_min(dot3(-l_dir, l_normal, keepdims=False), 0.0)
+        pdf = pmf * (1.0 / torch.clamp_min(area, 1e-20)) * dist * dist
+        contrib = brdf * (cos_x * cos_y / torch.clamp_min(pdf, 1e-20))[..., None]
+
+        vis_tri = trace_fn(prim["position"] + prim["normal"] * ORIGIN_EPS, l_dir)
+        visible = (vis_tri == lt_tri) & (lt_tri >= 0)
+        lt_mat = torch.where(lt_tri >= 0,
+                             scene.geometry.tri_mat[torch.clamp_min(lt_tri, 0).long()], -1)
+        emission = material_emission(scene, lt_mat)
+        lane = path_lanes & visible & (pmf > 0.0)
+        radiance = radiance + torch.where(lane[..., None], contrib * emission, 0.0)
+        sky_lane = path_lanes & (vis_tri < 0)
+        radiance = radiance + torch.where(sky_lane[..., None], contrib * sky, 0.0)
+
+    radiance = radiance / float(settings.samples)
+    out = torch.where(prim_miss[..., None], sky, radiance)
+    return torch.where(prim_emissive[..., None], prim_emission, out)
+
+
 def radiance_nee_mis(scene: Scene, trace_fn, origins, directions, pixel_ids,
                      frame, settings):
     """One frame of NEE with balance-heuristic MIS, (B, 3) HDR radiance.
@@ -85,11 +256,7 @@ def radiance_nee_mis(scene: Scene, trace_fn, origins, directions, pixel_ids,
     sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     mats = scene.materials
 
-    prim_tri = trace_fn(origins, directions)
-    prim = hit_payload(scene.geometry, origins, directions, prim_tri)
-    prim_miss = prim["t"] < 0.0
-    prim_emission = material_emission(scene, prim["mat"])
-    prim_emissive = dot3(prim_emission, prim_emission, keepdims=False) > 0.0
+    prim, prim_miss, prim_emission, prim_emissive = _primary(scene, trace_fn, origins, directions)
     path_lanes = ~(prim_miss | prim_emissive)
 
     radiance = torch.zeros_like(origins)

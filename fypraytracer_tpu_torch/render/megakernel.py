@@ -1,42 +1,101 @@
-"""NEE+MIS megakernel renderer: N frames per pixel in one kernel launch.
+"""Megakernel renderer: N frames per pixel in one kernel launch.
 
 The torch counterpart of ``fypraytracer_tpu/render/megakernel.py``'s
-``MegakernelRenderer`` for ``sampler="nee"``.  ``nee_megakernel`` wraps the
-hand-written CUDA kernel ``csrc/megakernel_nee.cu``, which replaces the
-TPU kernel ``make_megakernel(..., sampler="nee")`` (megakernel.py:1788,
+``MegakernelRenderer`` for every entry of its ``SAMPLER_OF`` (:2566):
+brute force, uniform, cosine, GGX, BRDF, light-source sampling and NEE+MIS.
+``megakernel`` wraps the hand-written CUDA kernel ``csrc/megakernel.cu``,
+which replaces the TPU kernel ``make_megakernel`` (megakernel.py:1788,
 launched at :2404): one thread per pixel runs raygen, a primary hit traced
-once per launch, and for each frame and sample the light-tree NEE sample
-with its shadow ray, the mixture continuation and the MIS weights.
+once per launch, and for each frame and sample the technique's path.
 
-``nee_megakernel_plain`` is its plain PyTorch version: the sum of
-``n_frames`` frames of ``radiance_nee_mis`` with the plain BVH walk.  The
-wrapper takes it for CPU tensors only; for CUDA tensors it launches the
-kernel or raises.  ``nee_megakernel.launches`` counts kernel launches.
+``megakernel_plain`` is its plain PyTorch version: the sum of ``n_frames``
+frames of the matching wavefront integrator (``renderer.frame_hdr``) with
+the plain BVH walk.  The wrapper takes it for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.  ``megakernel.launches`` counts
+kernel launches.
 
-The TPU kernel's packed tables (``P``/``AT``/``L``), frames-in-sublanes,
-dispatch planning and Morton reordering exist for the TPU and are not
-carried over: the kernel reads the scene's SoA tensors directly.
+The TPU kernel's packed tables (``P``/``AT``/``L``), frames-in-sublanes and
+dispatch planning exist for the TPU and are not carried over: the kernel
+reads the scene's SoA tensors directly.  ``morton_permuted_scene`` is kept
+as a host function: the JAX megakernels render with the triangles in that
+order, and exact t-ties go to the lowest id, so a caller that wants the
+JAX megakernel's images hands the port the same numbering.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
-from fypraytracer_tpu_torch.config import RenderSettings
+from fypraytracer_tpu_torch.accel.morton import morton3d
+from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.traverse import trace_rays
 from fypraytracer_tpu_torch.render.renderer import check_supported, frame_hdr
 from fypraytracer_tpu_torch.scene.types import Scene
 
+# megakernel.py:2566; the int is csrc/megakernel.cu's Sampler
+SAMPLER_OF = {
+    SamplingTechnique.BRUTE_FORCE: "uniform",
+    SamplingTechnique.UNIFORM: "uniform",
+    SamplingTechnique.COSINE: "cosine",
+    SamplingTechnique.GGX: "ggx",
+    SamplingTechnique.BRDF: "brdf",
+    SamplingTechnique.LIGHT_SOURCE: "light",
+    SamplingTechnique.NEE_MIS: "nee",
+}
+_SAMPLER_ID = {"uniform": 0, "cosine": 1, "ggx": 2, "brdf": 3, "light": 4, "nee": 5}
 
-def nee_megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
-                         settings: RenderSettings) -> torch.Tensor:
+
+def morton_permuted_scene(scene: Scene):
+    """Host scene with its triangles reordered along the Z-order curve of
+    their centroids, every triangle-id field remapped (megakernel.py:
+    271-314); returns ``(scene', perm)``.  ``scene`` holds NumPy arrays (or
+    CPU tensors), as ``SceneBuilder.compile`` returns it."""
+    g = scene.geometry
+    tv = np.asarray(g.tri_v)
+    if tv.shape[0] == 0:
+        return scene, np.zeros((0,), np.int64)
+    pos = np.asarray(g.positions)
+    cent = (pos[tv[:, 0]] + pos[tv[:, 1]] + pos[tv[:, 2]]) / 3.0
+    code = morton3d(cent, lo=cent.min(axis=0), hi=cent.max(axis=0) + 1e-6)
+    perm = np.argsort(code, kind="stable")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+
+    def remap(ids):
+        ids = np.asarray(ids)
+        return np.where(ids >= 0, inv[np.maximum(ids, 0)], -1).astype(np.int32)
+
+    lt = scene.light_tree
+    new_lt = dataclasses.replace(lt, tri=remap(lt.tri), leaf_of_tri=np.asarray(lt.leaf_of_tri)[perm])
+    new_g = dataclasses.replace(g, tri_v=tv[perm], tri_mat=np.asarray(g.tri_mat)[perm])
+    new_bvh = dataclasses.replace(scene.bvh, prim_idx=remap(scene.bvh.prim_idx))
+    new_scene = dataclasses.replace(scene, geometry=new_g, light_tree=new_lt, bvh=new_bvh,
+                                    emissive_tris=remap(scene.emissive_tris))
+    return new_scene, perm
+
+
+def _sampler(settings: RenderSettings) -> str:
+    tech = SamplingTechnique(settings.technique)
+    if tech not in SAMPLER_OF:
+        raise NotImplementedError(
+            f"MegakernelRenderer renders techniques 0-6, not {tech.name}; "
+            "ReSTIR DI is render.megakernel_restir.MegakernelReSTIRDI")
+    return SAMPLER_OF[tech]
+
+
+def megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
+                     settings: RenderSettings) -> torch.Tensor:
     """(H*W, 3) HDR summed over frames ``frame0 .. frame0+n_frames-1``:
-    the wavefront NEE frame with the plain BVH walk, in PyTorch."""
+    the wavefront frame of ``settings.technique`` with the plain BVH walk,
+    in PyTorch."""
+    _sampler(settings)
+
     def trace(o, d):
         return trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
 
@@ -47,9 +106,9 @@ def nee_megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: in
     return out
 
 
-_NEE_ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+_ARGTYPES = (
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p] * 4          # geometry
     + [ctypes.c_void_p] * 4          # materials
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2            # bvh
@@ -57,53 +116,57 @@ _NEE_ARGTYPES = (
     + [ctypes.c_void_p] * 2)         # out, stream
 
 
-def nee_megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
-                   settings: RenderSettings) -> torch.Tensor:
-    """(H*W, 3) HDR summed over ``n_frames`` frames starting at ``frame0``,
-    through the CUDA kernel ``csrc/megakernel_nee.cu`` (plain version for
-    CPU tensors)."""
+def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
+               settings: RenderSettings) -> torch.Tensor:
+    """(H*W, 3) HDR summed over ``n_frames`` frames of ``settings.technique``
+    starting at ``frame0``, through the CUDA kernel ``csrc/megakernel.cu``
+    (plain version for CPU tensors)."""
+    sampler = _sampler(settings)
     dev = scene.geometry.positions.device
     if dev.type == "cpu":
-        return nee_megakernel_plain(scene, camera, frame0, n_frames, settings)
+        return megakernel_plain(scene, camera, frame0, n_frames, settings)
     g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
     cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
                           device=dev)
     emission = m.emission().contiguous()
     kernels.check_inputs(
-        "nee_megakernel",
+        "megakernel",
         floats=(cam, g.positions, g.normals, m.albedo, m.roughness, m.metallic, emission,
                 b.lo, b.hi, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi),
         ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx,
               lt.left, lt.right, lt.tri, lt.parent, lt.leaf_of_tri))
-    return _launch_nee(scene, camera, cam, emission, frame0, n_frames, settings,
-                       kernels.stream_ptr(dev))
+    # brute force traces exactly 1 path a frame whatever the sample count
+    # (megakernel.py:2603, Renderer.cu:565-701)
+    samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
+    return _launch(scene, camera, cam, emission, _SAMPLER_ID[sampler], frame0, n_frames,
+                   settings.bounces, samples, settings.sky_color, kernels.stream_ptr(dev))
 
 
-def _launch_nee(scene, camera, cam, emission, frame0, n_frames, settings, stream):
-    """Allocate the output and launch ``fyp_nee_megakernel`` on ``stream``
+def _launch(scene, camera, cam, emission, sampler, frame0, n_frames, bounces, samples, sky, stream):
+    """Allocate the output and launch ``fyp_megakernel`` on ``stream``
     (inputs already checked)."""
-    fn = kernels.load("megakernel_nee", "fyp_nee_megakernel", _NEE_ARGTYPES)
+    fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
     g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
     out = torch.empty((camera.height * camera.width, 3), dtype=torch.float32, device=cam.device)
     P = kernels.ptr
-    rc = fn(P(cam), camera.width, camera.height, int(frame0) & 0xFFFFFFFF, n_frames,
-            settings.bounces, settings.samples, *(float(c) for c in settings.sky_color),
+    rc = fn(sampler, P(cam), camera.width, camera.height, int(frame0) & 0xFFFFFFFF, n_frames,
+            bounces, samples, *(float(c) for c in sky),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
             P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size,
             P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
             P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
             P(out), stream)
-    nee_megakernel.launches += 1
-    kernels.check(rc, "nee_megakernel")
+    megakernel.launches += 1
+    kernels.check(rc, "megakernel")
     return out
 
 
-nee_megakernel.launches = 0
+megakernel.launches = 0
 
 
 class MegakernelRenderer:
-    """N frames of NEE+MIS per launch, accumulated on the device.
+    """N frames of techniques 0-6 per launch, accumulated on the device.
 
     Usage::
         mk = MegakernelRenderer(scene, camera, settings, device="cuda")
@@ -112,6 +175,7 @@ class MegakernelRenderer:
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device):
         check_supported(scene, settings)
+        _sampler(settings)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.camera = camera
@@ -127,8 +191,8 @@ class MegakernelRenderer:
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Add ``n_frames`` frames to the accumulator; return the running
         average HDR image (H, W, 3)."""
-        self.accum += nee_megakernel(self.scene, self.camera, self.frame_index, n_frames,
-                                     self.settings)
+        self.accum += megakernel(self.scene, self.camera, self.frame_index, n_frames,
+                                 self.settings)
         self.frame_index += n_frames
         h, w = self.camera.height, self.camera.width
         return (self.accum / float(self.frame_index - 1)).reshape(h, w, 3)

@@ -1,12 +1,13 @@
 """Wavefront renderer — frame orchestration with device-resident state.
 
 The torch counterpart of ``fypraytracer_tpu/render/renderer.py``
-(``Renderer::Render``, Renderer.cu:13-284) for the NEE+MIS technique: the
-scene is uploaded once, camera rays are made on the device from two 4×4
+(``Renderer::Render``, Renderer.cu:13-284) for techniques 0-7: the scene
+is uploaded once, camera rays are made on the device from two 4×4
 matrices, and the accumulation buffer stays on the device, updated in
-place.  Each frame is ``radiance_nee_mis`` over all pixels; on a CUDA
-device every trace in it is the kernel ``csrc/trace.cu``
-(``ops.traverse.pick_tracer``).
+place.  A frame of techniques 0-6 is one integrator over all pixels
+(``frame_hdr``); ReSTIR DI is stateful: its reservoirs and G-buffer stay
+on the device between frames (``render_step_stateful``).  On a CUDA device
+every trace is the kernel ``csrc/trace.cu`` (``ops.traverse.pick_tracer``).
 """
 
 from __future__ import annotations
@@ -18,16 +19,30 @@ from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
 from fypraytracer_tpu_torch.core.color import finalize_pixels, pack_abgr
 from fypraytracer_tpu_torch.ops.traverse import pick_tracer
-from fypraytracer_tpu_torch.render.integrators import radiance_nee_mis
+from fypraytracer_tpu_torch.render import restir_di
+from fypraytracer_tpu_torch.render.integrators import (
+    radiance_hemisphere,
+    radiance_light_source,
+    radiance_nee_mis,
+)
 from fypraytracer_tpu_torch.scene.types import Scene
+
+_SAMPLER_OF = {
+    SamplingTechnique.BRUTE_FORCE: "brute",
+    SamplingTechnique.UNIFORM: "uniform",
+    SamplingTechnique.COSINE: "cosine",
+    SamplingTechnique.GGX: "ggx",
+    SamplingTechnique.BRDF: "brdf",
+}
 
 
 def check_supported(scene: Scene, settings: RenderSettings) -> None:
-    """Refuse what this slice of the port does not render yet."""
-    if settings.technique != SamplingTechnique.NEE_MIS:
+    """Refuse what this slice of the port does not render yet: ReSTIR GI
+    and textured materials."""
+    if settings.technique == SamplingTechnique.RESTIR_GI:
         raise NotImplementedError(
             f"technique {SamplingTechnique(settings.technique).name} is not ported yet; "
-            "the port renders NEE_MIS")
+            "the port renders techniques 0-7 (BRUTE_FORCE .. RESTIR_DI)")
     albedo_map = torch.as_tensor(scene.materials.albedo_map)
     if bool((albedo_map >= 0).any()):
         raise NotImplementedError("textured materials (albedo_map >= 0) are not ported yet")
@@ -41,8 +56,31 @@ def frame_hdr(scene: Scene, camera: Camera, frame: int, settings: RenderSettings
     origins, directions = generate_rays(camera.inv_projection, camera.inv_view, w, h, device=dev)
     pixel_ids = torch.arange(w * h, device=dev)
     trace = trace_fn or pick_tracer(scene)
-    hdr = radiance_nee_mis(scene, trace, origins, directions, pixel_ids, frame, settings)
+    tech = settings.technique
+    args = (scene, trace, origins, directions, pixel_ids, frame, settings)
+    if tech in _SAMPLER_OF:
+        hdr = radiance_hemisphere(*args, _SAMPLER_OF[tech])
+    elif tech == SamplingTechnique.LIGHT_SOURCE:
+        hdr = radiance_light_source(*args)
+    elif tech == SamplingTechnique.NEE_MIS:
+        hdr = radiance_nee_mis(*args)
+    else:
+        raise NotImplementedError(f"technique {tech} is stateful: see render_step_stateful")
     return hdr.reshape(h, w, 3)
+
+
+def render_step_stateful(scene: Scene, camera: Camera, prev_proj_view, frame: int,
+                         settings: RenderSettings, state: dict, trace_fn=None):
+    """One ReSTIR DI frame (the reference's per-frame kernel pair,
+    Renderer.cu:166-224): returns ((H, W, 3) HDR, new state)."""
+    dev = scene.geometry.positions.device
+    w, h = camera.width, camera.height
+    origins, directions = generate_rays(camera.inv_projection, camera.inv_view, w, h, device=dev)
+    pixel_ids = torch.arange(w * h, device=dev)
+    trace = trace_fn or pick_tracer(scene)
+    hdr, state = restir_di.render_restir_di(scene, trace, origins, directions, pixel_ids, frame,
+                                            settings, state, w, h, prev_proj_view)
+    return hdr.reshape(h, w, 3), state
 
 
 class Renderer:
@@ -62,21 +100,42 @@ class Renderer:
         self.frame_index = 1
         self.accum = torch.zeros((camera.height, camera.width, 3), dtype=torch.float32,
                                  device=self.device)
+        self.aux_state = self._init_aux_state()
+
+    def _is_stateful(self) -> bool:
+        return self.settings.technique == SamplingTechnique.RESTIR_DI
+
+    def _init_aux_state(self):
+        """Per-pixel reservoir/G-buffer state (ResizeReservoirs etc.,
+        Renderer.cu:286-420); None for the stateless techniques."""
+        if not self._is_stateful():
+            return None
+        return restir_di.init_state(self.camera.width * self.camera.height, self.device)
 
     def reset(self):
         """ResetFrameIndex + clear accumulation (Renderer.h:46)."""
         self.frame_index = 1
         self.accum.zero_()
+        self.aux_state = self._init_aux_state()
 
     def resize(self, width: int, height: int):
         """OnResize (Renderer.cpp:5-41): reallocate buffers, restart."""
         self.camera.resize(width, height)
         self.accum = torch.zeros((height, width, 3), dtype=torch.float32, device=self.device)
         self.frame_index = 1
+        self.aux_state = self._init_aux_state()
+
+    def _frame(self, frame: int, prev_proj_view) -> torch.Tensor:
+        """HDR of frame ``frame``; a stateful technique advances its state."""
+        if not self._is_stateful():
+            return frame_hdr(self.scene, self.camera, frame, self.settings)
+        hdr, self.aux_state = render_step_stateful(self.scene, self.camera, prev_proj_view, frame,
+                                                   self.settings, self.aux_state)
+        return hdr
 
     def render_hdr(self) -> torch.Tensor:
         """Render one frame; returns the running-average HDR image."""
-        hdr = frame_hdr(self.scene, self.camera, self.frame_index, self.settings)
+        hdr = self._frame(self.frame_index, self.camera.prev_proj_view)
         if self.settings.accumulate:
             self.accum += hdr
             avg = self.accum / float(self.frame_index)
@@ -92,8 +151,9 @@ class Renderer:
         """Accumulate ``n_frames`` frames and return the running-average
         HDR image (the offline-rendering path)."""
         assert self.settings.accumulate, "render_many requires accumulation"
+        ppv = self.camera.prev_proj_view      # every frame of the call, as the JAX renderer
         for i in range(n_frames):
-            self.accum += frame_hdr(self.scene, self.camera, self.frame_index + i, self.settings)
+            self.accum += self._frame(self.frame_index + i, ppv)
         self.frame_index += n_frames
         self.camera.commit_frame()
         return self.accum / float(self.frame_index - 1)

@@ -1,10 +1,11 @@
 """Procedural geometry and the Cornell box.
 
-A copy of the parts of ``fypraytracer_tpu/scene/procedural.py`` the main
-path needs: ``quad``, ``box``, ``uv_sphere`` (Mesh.cpp:7-95 semantics) and
-``cornell_box``, the structural analog of the reference's hard-coded room
-(WalnutApp.cpp:43-521).  The ``room`` and ``stress`` scenes come with a
-later slice.
+A copy of the parts of ``fypraytracer_tpu/scene/procedural.py`` that need
+no asset from outside the repository: ``quad``, ``box``, ``uv_sphere``
+(Mesh.cpp:7-95 semantics), ``cornell_box`` (the structural analog of the
+reference's hard-coded room, WalnutApp.cpp:43-521), the 200,712-triangle
+``stress`` scene and ``single_triangle``.  The ``room`` scene reads the
+reference's OBJ and PNG files and is not copied.
 """
 
 from __future__ import annotations
@@ -117,4 +118,54 @@ def cornell_box(width: int = 256, height: int = 256, light_power: float = 5.0,
 
     cam = Camera(position=(0.0, 1.0, 2.6), forward=(0.0, 0.0, -1.0),
                  vfov_deg=45.0, width=width, height=height)
+    return b, cam
+
+
+def stress(width: int = 256, height: int = 256, grid: int = 7,
+           sphere_res: tuple = (32, 32)):
+    """Large-scene stress benchmark: a 2-layer grid² lattice of UV spheres
+    (2·grid²·2·rows·cols triangles, 200,712 in all at the defaults) inside a
+    lit Cornell shell (fypraytracer_tpu/scene/procedural.py:221-258)."""
+    b = SceneBuilder()
+    white = b.add_material(albedo=(0.73, 0.73, 0.73), roughness=1.0)
+    light = b.add_material(albedo=(0.0, 0.0, 0.0),
+                           emission_color=(1.0, 1.0, 1.0),
+                           emission_power=8.0)
+    q = quad(4.0, 4.0)
+    b.add_mesh(*q, material=white, position=(0, 0, 0))
+    b.add_mesh(*q, material=white, position=(0, 4, 0), rotation=(180, 0, 0))
+    b.add_mesh(*q, material=white, position=(0, 2, -2), rotation=(90, 0, 0))
+    lq = quad(1.2, 1.2)
+    b.add_mesh(*lq, material=light, position=(0, 3.96, 0),
+               rotation=(180, 0, 0))
+
+    s = uv_sphere(0.16, *sphere_res)     # 2*rows*cols tris each
+    rng = np.random.default_rng(7)
+    mats = [b.add_material(albedo=tuple(c), roughness=float(r),
+                           metallic=float(m))
+            for c, r, m in zip(rng.uniform(0.2, 0.9, (8, 3)),
+                               rng.uniform(0.1, 1.0, 8),
+                               rng.uniform(0.0, 1.0, 8))]
+    n = 0
+    for iz in range(2):
+        for iy in range(grid):
+            for ix in range(grid):
+                b.add_mesh(*s, material=mats[n % len(mats)],
+                           position=(-1.5 + ix * 0.5, 0.5 + iy * 0.45,
+                                     -1.2 + iz * 0.8))
+                n += 1
+    cam = Camera(position=(0.0, 2.0, 4.5), forward=(0.0, -0.1, -1.0),
+                 vfov_deg=50.0, width=width, height=height)
+    return b, cam
+
+
+def single_triangle():
+    """Minimal scene for unit tests: one diffuse triangle, no emitter."""
+    b = SceneBuilder()
+    mat = b.add_material(albedo=(1.0, 0.0, 0.0), roughness=1.0)
+    positions = np.float32([[-1, -1, 0], [1, -1, 0], [0, 1, 0]])
+    tri_v = np.int32([[0, 1, 2]])
+    normals = np.tile(np.float32([0, 0, 1]), (3, 1))
+    b.add_mesh(positions, tri_v, normals, material=mat)
+    cam = Camera(position=(0, 0, 3), forward=(0, 0, -1), width=64, height=64)
     return b, cam

@@ -1,14 +1,31 @@
 """core/ of the port against the JAX package on the same seeded inputs.
 
-Tolerance: rtol 1e-5 / atol 1e-6.  Both sides run float32; they differ by
-the rounding of cos/sin and of fused operations (XLA's and PyTorch's CPU
-kernels), a few ulp.  The GGX terms are ill-conditioned for some inputs:
-near the lobe's peak D amplifies a 1-ulp change of n·h by 1/(1 - (n·h)²(1-α²)),
-up to ~2000 at roughness 0.15, and a reflected direction whose component
-cancels to ~0.06 carries ~2e-6 of float32 error in either package.  Where
-float32 cannot hold the tolerance, the port must instead be about as close
-to the float64 evaluation of the JAX formula as the JAX float32 result is
-(within a factor 4), and such elements may be at most 0.5% of the total.
+Two checks for every mathutils function:
+
+1. The formula, in float64 on both sides: the port's function on float64
+   tensors against the JAX module's function on float64 NumPy arrays
+   (``_xp`` returns numpy for them), rtol 1e-10.  A wrong formula fails
+   here whatever the machine.
+2. The float32 accuracy, measured against that float64 result ``r``: the
+   port's float32 error |g - r| and the JAX float32 error |w - r| over the
+   whole array.  The port's largest error may be at most 4x JAX's largest
+   (plus 1e-6), its 99.9th percentile at most 4x JAX's, and its mean error
+   in units of the tolerance (atol 1e-6 + rtol 1e-5 |r|) at most 1.75x
+   JAX's, so a port twice as inaccurate as JAX across the array fails.
+   The share of its elements within that tolerance of ``r`` or of ``w``
+   must reach the share of JAX's elements within it of ``r`` (capped at
+   99%): float32 itself cannot hold 1e-5 on the ill-conditioned GGX pdfs,
+   where only ~85% of JAX's own elements do.
+
+The criterion this replaces held each element to "within 4x of the JAX
+float32 error" wherever the two float32 results differed by more than
+1e-5.  That error depends on how XLA compiles cos/sin/sqrt for the
+machine's CPU: where XLA lands near float64 on an ill-conditioned GGX
+element (near the lobe's peak D amplifies a 1-ulp change of n·h by
+1/(1 - (n·h)²(1-α²)), up to ~2000 at roughness 0.15), the port's ordinary
+float32 error exceeds 4x of a near-zero one.  On one x86 CPU 48 of 4,096
+ggx_sample_hemisphere pdfs failed so (port 185.391, JAX 185.346, float64
+185.332), and the GGX and BRDF cases passed or failed with the machine.
 """
 
 import jax.numpy as jnp
@@ -53,6 +70,10 @@ def inputs():
         u1=r.uniform(size=N).astype(np.float32), u2=r.uniform(size=N).astype(np.float32),
         u_sel=r.uniform(size=N).astype(np.float32),
         cos=r.uniform(-0.2, 1.0, (N, 1)).astype(np.float32),
+        oct=r.uniform(-1.0, 1.0, (N, 2)).astype(np.float32),
+        pos=r.uniform(-2.0, 2.0, (N, 3)).astype(np.float32),
+        proj_view=jcamera.Camera(position=(0.3, 1.1, 2.4), forward=(-0.1, -0.05, -1.0),
+                                 width=48, height=32).proj_view,
     )
 
 
@@ -71,6 +92,11 @@ CASES = {
     "brdf_sample_hemisphere": ("normal", "view", "albedo", "metallic", "roughness", "u_sel", "u1", "u2"),
     "brdf_hemisphere_pdf": ("normal", "view", "l", "albedo", "metallic", "roughness"),
     "cook_torrance_brdf": ("normal", "view", "l", "albedo", "metallic", "roughness"),
+    "uniform_sample_hemisphere": ("normal", "u1", "u2"),
+    "encode_octahedral": ("l",),
+    "decode_octahedral": ("oct",),
+    "world_to_ndc": ("proj_view", "pos"),
+    "ndc_to_uv": ("oct",),
 }
 
 
@@ -87,17 +113,33 @@ def _as_tuple(x):
 @pytest.mark.parametrize("fn", sorted(CASES))
 def test_mathutils_matches_jax(inputs, fn):
     args = [_arg(inputs, a) for a in CASES[fn]]
+    args64 = [np.asarray(a, np.float64) for a in args]
+    # 1. the formula, float64 on both sides
+    got64 = _as_tuple(getattr(tm, fn)(*[torch.as_tensor(a) for a in args64]))
+    ref64 = _as_tuple(getattr(jm, fn)(*args64))
+    assert len(got64) == len(ref64)
+    for g, r in zip(got64, ref64):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-10, atol=1e-12)
+    # 2. float32 accuracy against float64, over the whole array
     want = _as_tuple(getattr(jm, fn)(*[jnp.asarray(a) for a in args]))
     got = _as_tuple(getattr(tm, fn)(*[torch.as_tensor(a) for a in args]))
-    ref64 = _as_tuple(getattr(jm, fn)(*[np.asarray(a, np.float64) for a in args]))
     assert len(got) == len(want) == len(ref64)
     for g, w, r in zip(got, want, ref64):
         assert g.dtype == torch.float32
         g, w = g.numpy().astype(np.float64), np.asarray(w, np.float64)
-        close = np.abs(g - w) <= ATOL + RTOL * np.abs(w)
-        as_accurate = np.abs(g - r) <= 4.0 * np.abs(w - r) + ATOL
-        assert (close | as_accurate).all(), np.abs(g - w).max()
-        assert close.mean() >= 0.995
+        err_g, err_w = np.abs(g - r), np.abs(w - r)
+        tol = ATOL + RTOL * np.abs(r)
+        assert err_g.max() <= 4.0 * err_w.max() + ATOL, (err_g.max(), err_w.max())
+        assert np.quantile(err_g, 0.999) <= 4.0 * np.quantile(err_w, 0.999) + 1e-12
+        assert np.mean(err_g / tol) <= 1.75 * np.mean(err_w / tol) + 1e-6, \
+            (np.mean(err_g / tol), np.mean(err_w / tol))
+        close = (err_g <= tol) | (np.abs(g - w) <= ATOL + RTOL * np.abs(w))
+        assert close.mean() >= min(0.99, (err_w <= tol).mean()), close.mean()
+
+
+def test_uniform_hemisphere_pdf_matches_jax():
+    assert tm.uniform_hemisphere_pdf() == jm.uniform_hemisphere_pdf()
 
 
 def test_dot3_order_and_shape():

@@ -7,9 +7,10 @@ imports nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit;
-K2 and the renderers under tests/test_render_parity.py:111-114 (median |Δ|
-< 1e-5, fewer than 1% of pixels off by more than 1e-3, mean within 1%).
-Isolated pixels may differ by FMA contraction in the kernels' shading code.
+K2, K3+K4 and the renderers under tests/test_render_parity.py:111-114
+(median |Δ| < 1e-5, fewer than 1% of pixels off by more than 1e-3, mean
+within 1%).  Isolated pixels may differ by FMA contraction in the kernels'
+shading code, which can flip a RIS or lobe decision.
 """
 
 import numpy as np
@@ -19,8 +20,11 @@ import torch
 from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import generate_rays
 from fypraytracer_tpu_torch.ops import traverse as ttrav
+from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.render import megakernel as tmk
+from fypraytracer_tpu_torch.render import megakernel_restir as tmr
 from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
+from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
 from fypraytracer_tpu_torch.render.renderer import Renderer
 from fypraytracer_tpu_torch.scene import procedural as tproc
 
@@ -78,11 +82,11 @@ def test_megakernel_matches_its_plain_version(cuda, bounces, samples):
     scene, cam = _scene()
     scene = scene.to(cuda)
     settings = SETTINGS.replace(bounces=bounces, samples=samples)
-    before = tmk.nee_megakernel.launches
-    got = tmk.nee_megakernel(scene, cam, 1, 4, settings)
-    ref = tmk.nee_megakernel_plain(scene, cam, 1, 4, settings)
+    before = tmk.megakernel.launches
+    got = tmk.megakernel(scene, cam, 1, 4, settings)
+    ref = tmk.megakernel_plain(scene, cam, 1, 4, settings)
     torch.cuda.synchronize()
-    assert tmk.nee_megakernel.launches == before + 1
+    assert tmk.megakernel.launches == before + 1
     _gates(got.cpu().numpy().reshape(H, W, 3), ref.cpu().numpy().reshape(H, W, 3))
 
 
@@ -93,3 +97,80 @@ def test_cuda_renderer_matches_cpu_renderer(cuda, cls):
     got = cls(scene, cam, SETTINGS, device=cuda).render_many(FRAMES)
     assert got.device.type == "cuda" and got.shape == (H, W, 3)
     _gates(got.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("tech", [SamplingTechnique.BRUTE_FORCE, SamplingTechnique.UNIFORM,
+                                  SamplingTechnique.COSINE, SamplingTechnique.GGX,
+                                  SamplingTechnique.BRDF, SamplingTechnique.LIGHT_SOURCE],
+                         ids=lambda t: t.name)
+def test_megakernel_sampler_matches_its_plain_version(cuda, tech):
+    scene, cam = _scene()
+    scene = scene.to(cuda)
+    settings = RenderSettings(technique=tech, bounces=2, samples=2, sky_color=(0.1, 0.15, 0.2))
+    before = tmk.megakernel.launches
+    got = tmk.megakernel(scene, cam, 1, 4, settings)
+    ref = tmk.megakernel_plain(scene, cam, 1, 4, settings)
+    torch.cuda.synchronize()
+    assert tmk.megakernel.launches == before + 1
+    _gates(got.cpu().numpy().reshape(H, W, 3), ref.cpu().numpy().reshape(H, W, 3))
+
+
+DI = RenderSettings(technique=SamplingTechnique.RESTIR_DI, sky_color=(0.05, 0.06, 0.08))
+
+
+def _di_setup(cuda):
+    scene, _ = _scene()
+    scene = tmk.morton_permuted_scene(scene)[0].to(cuda)
+    return scene, tmr.prepare_emissive_table(scene), Camera(position=(0.0, 1.0, 2.6),
+                                                          forward=(0, 0, -1), width=W, height=H)
+
+
+def test_restir_di_kernels_match_plain_on_same_inputs(cuda):
+    """K3 and K4 each against its plain version, fed the same state and stage
+    after two frames of history."""
+    scene, em, cam = _di_setup(cuda)
+    state = torch.zeros((tmr.ST_ROWS, W * H), device=cuda)
+    tmr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
+    k3, k4 = tmr.restir_di_k3.launches, tmr.restir_di_k4.launches
+    stage = tmr.restir_di_k3(scene, em, cam, 3, DI, state, cam.proj_view)
+    ref_stage = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, cam.proj_view)
+    out, ref_out = (torch.zeros((W * H, 3), device=cuda) for _ in range(2))
+    st_k, st_p = state.clone(), state.clone()
+    tmr.restir_di_k4(scene, em, cam, 3, DI, ref_stage, st_k, out)
+    tmr.restir_di_k4_plain(scene, em, cam, 3, DI, ref_stage, st_p, ref_out)
+    torch.cuda.synchronize()
+    assert (tmr.restir_di_k3.launches, tmr.restir_di_k4.launches) == (k3 + 1, k4 + 1)
+    off = (stage - ref_stage).abs() > 1e-3 * torch.clamp_min(ref_stage.abs(), 1.0)
+    assert off.any(0).float().mean().item() < 0.01
+    _gates(out.cpu().numpy(), ref_out.cpu().numpy())
+
+
+@pytest.mark.parametrize("move", [False, True], ids=["static", "move"])
+def test_restir_di_kernels_match_plain_over_frames(cuda, move):
+    scene, em, cam = _di_setup(cuda)
+    states = [torch.zeros((tmr.ST_ROWS, W * H), device=cuda) for _ in range(2)]
+    outs = []
+    for fn, state in zip((tmr.restir_di_megakernel, tmr.restir_di_megakernel_plain), states):
+        c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+        out = fn(scene, em, c, state, 1, 3, DI, c.proj_view, c.proj_view)
+        if move:
+            ppv = c.proj_view
+            c.move_to((0.15, 1.0, 2.6))
+            out = out + fn(scene, em, c, state, 4, 3, DI, ppv, c.proj_view)
+        outs.append(out.cpu().numpy())
+    _gates(outs[0], outs[1])
+
+
+def test_restir_di_state_carries_across_calls(cuda):
+    """Two ``render_many(2)`` calls of the renderer against four plain frames
+    that carry one state, both on the card (the CPU's float32 sqrt rounds
+    differently, which moves ReSTIR's history decisions)."""
+    scene, em, cam = _di_setup(cuda)
+    mk = MegakernelReSTIRDI(scene, cam, DI, device=cuda)
+    mk.render_many(2)
+    got = mk.render_many(2)
+    state = torch.zeros((tmr.ST_ROWS, W * H), device=cuda)
+    ref = sum(tmr.restir_di_megakernel_plain(scene, em, cam, state, f0, 2, DI, cam.proj_view,
+                                             cam.proj_view) for f0 in (1, 3)) / 4.0
+    assert mk.frame_index == 5 and float(mk.state[tmr.ST_RM].max()) > 16.0
+    _gates(got.cpu().numpy(), ref.reshape(H, W, 3).cpu().numpy())

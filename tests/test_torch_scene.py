@@ -142,3 +142,63 @@ def test_port_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
+
+
+def _assert_scenes_equal(ts, js, light_atol=1e-6):
+    for part in ("geometry", "materials", "bvh", "textures"):
+        jf, tf = _fields(getattr(js, part)), _fields(getattr(ts, part))
+        assert jf.keys() == tf.keys()
+        for name in jf:
+            j, t = jf[name], tf[name]
+            if isinstance(j, int):
+                assert j == t, name
+            else:
+                np.testing.assert_array_equal(np.asarray(t), np.asarray(j), err_msg=f"{part}.{name}")
+    for name, j in _fields(js.light_tree).items():
+        j, t = np.asarray(j), np.asarray(getattr(ts.light_tree, name))
+        if j.dtype.kind == "f":
+            np.testing.assert_allclose(t, j, rtol=0, atol=light_atol, err_msg=name)
+        else:
+            np.testing.assert_array_equal(t, j, err_msg=name)
+    np.testing.assert_array_equal(np.asarray(ts.emissive_tris), np.asarray(js.emissive_tris))
+
+
+@pytest.mark.parametrize("kw", [dict(grid=1, sphere_res=(4, 6)), dict(grid=2, sphere_res=(6, 8))])
+def test_stress_scene_matches_jax_builder(kw):
+    """The stress scene (procedural.py:221-258) at a reduced lattice; the
+    card builds the full 200,712-triangle scene with the same code."""
+    jb, jcam = jproc.stress(32, 32, **kw)
+    tb, tcam = tproc.stress(32, 32, **kw)
+    js, ts = jb.compile(native=False), tb.compile()
+    n = kw["grid"]
+    assert ts.geometry.tri_v.shape[0] == 6 + 2 + 2 * n * n * 2 * kw["sphere_res"][0] * kw["sphere_res"][1]
+    _assert_scenes_equal(ts, js)
+    np.testing.assert_array_equal(tcam.inv_view, jcam.inv_view)
+    np.testing.assert_array_equal(tcam.inv_projection, jcam.inv_projection)
+
+
+def test_single_triangle_matches_jax_builder():
+    jb, jcam = jproc.single_triangle()
+    tb, tcam = tproc.single_triangle()
+    _assert_scenes_equal(tb.compile(), jb.compile(native=False))
+    assert (tcam.width, tcam.height) == (jcam.width, jcam.height) == (64, 64)
+
+
+@pytest.mark.parametrize("scene", ["cornell", "stress"])
+def test_morton_permuted_scene_matches_jax(scene):
+    """The port's Morton order numbers triangles as the JAX megakernels do
+    (megakernel.py:271-314): every id-valued field remapped alike."""
+    from fypraytracer_tpu.render.megakernel import morton_permuted_scene as jmorton
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+
+    if scene == "cornell":
+        jb, _ = jproc.cornell_box(32, 32, sphere_res=(6, 10))
+        tb, _ = tproc.cornell_box(32, 32, sphere_res=(6, 10))
+    else:
+        jb, _ = jproc.stress(32, 32, grid=2, sphere_res=(6, 8))
+        tb, _ = tproc.stress(32, 32, grid=2, sphere_res=(6, 8))
+    js, jperm = jmorton(jb.compile(native=False))
+    ts, tperm = morton_permuted_scene(tb.compile())
+    np.testing.assert_array_equal(tperm, jperm)
+    assert not np.array_equal(tperm, np.arange(tperm.shape[0]))
+    _assert_scenes_equal(ts, js)
