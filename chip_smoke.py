@@ -3,12 +3,12 @@
 
 Drives ``fypraytracer_tpu_torch`` — and nothing of the JAX package — through
 its main paths: the Cornell box under NEE+MIS (2 bounces, 1 spp), every other
-technique 0-7, and the 200,712-triangle stress scene under NEE and ReSTIR DI,
-in phases:
+technique 0-8, and the 200,712-triangle stress scene under NEE, ReSTIR DI and
+ReSTIR GI, in phases:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN;
-  2. build: the three kernel sources compiled from ``csrc/`` with nvcc, one
+  2. build: the four kernel sources compiled from ``csrc/`` with nvcc, one
      nvcc per source, started together;
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card;
   4. K2 ``megakernel`` against its plain version under the parity gates of
@@ -21,6 +21,12 @@ in phases:
      version on the same inputs, and the frame loop of both against
      ``restir_di_megakernel_plain``: 128², 8 frames on the stress scene, and
      64², 4 + 4 frames on Cornell with a camera move in between;
+  5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``), K6
+     ``restir_gi_k1`` and K7 ``restir_gi_k2`` each against its plain version
+     on the same inputs (Cornell 256², one frame after two of history); the
+     K5 frame loop against ``restir_gi_megakernel_plain`` at Cornell 256², 8
+     frames, and stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at
+     Cornell 64², 4 + 4 frames with a camera move;
   6. the main paths, each with the kernels' launch counters reset just before
      and read just after: Cornell at 256² through ``Renderer`` and
      ``MegakernelRenderer`` under NEE, 8 frames, scored against
@@ -29,15 +35,36 @@ in phases:
      scene at 128², 8 frames, through ``MegakernelRenderer`` (NEE) and
      ``MegakernelReSTIRDI``, scored against ``stress_nee.png`` and
      ``stress_di.png``; and ReSTIR DI's image mean over 64 frames against the
-     light-sampling megakernel's over 256 frames (within 5%);
+     light-sampling megakernel's over 256 frames (within 5%); Cornell at 256²,
+     8 frames, through ``MegakernelReSTIRGI`` (mono per-neighbour, mono
+     ``final_vis``, ``mono=False``) and the wavefront ``Renderer`` under
+     ReSTIR GI; and GI's unbiasedness at 64² without spheres: mono and
+     ``mono=False`` against the K2 BRDF path tracer at 4 spp (mean within 6%,
+     quadrants within 15%), ``final_vis`` against per-neighbour visibility
+     with spheres (5%, 12%), tests/test_megakernel_restir.py:158-286;
   7. timing with CUDA events: the median of 5 reps after a warm-up, of
      ``render_many(64)`` for the K1 wavefront and the K2 megakernel (every
-     technique) at 256², NEE also at 1920x1088, ``MegakernelReSTIRDI`` at
-     256² and 1920x1088, both stress paths at 128², and of ``render_many(8)``
-     for the plain PyTorch wavefront (NEE) and the K1 wavefront under ReSTIR
-     DI at 256²; for the NEE K1 and K2 paths and the ReSTIR DI paths on
-     Cornell, the card's busy time per frame from torch.profiler and the
-     idle share it implies.
+     technique) at 256², NEE also at 1920x1088, ``MegakernelReSTIRDI`` and
+     ``MegakernelReSTIRGI`` (mono in both visibility modes) at 256² and
+     1920x1088, GI ``mono=False`` at 256², the stress paths at 128², and of
+     ``render_many(8)`` for the plain PyTorch wavefront (NEE) and the K1
+     wavefront under ReSTIR DI and GI at 256²; for the NEE K1 and K2 paths and
+     the ReSTIR paths on Cornell, the card's busy time per frame from
+     torch.profiler and the idle share it implies.  The profiler's first
+     step is a warm-up it discards; the kept step is "not measured" (null)
+     unless its trace holds every launch of the port's kernels that the
+     wrappers counted in it.
+
+Every kernel's summary carries ``bound_ms``: the larger of its operations
+over the card's float32 rate and its bytes over its memory rate.  The
+operations are those of its BVH walks, counted in the plain version's run
+on the same inputs (``trace_rays(..., counts=...)``: box tests and
+Möller–Trumbore tests, NODE_FLOPS and TRI_FLOPS each; the plain time is
+taken with the counting on, one reduction a leaf step); shading arithmetic
+is not counted, so the bound is low.  The bytes are what the kernel reads,
+once, and what it writes, once: the scene tables it reads, the camera,
+the rows of the state and stage it reads (a ReSTIR GI state row at the
+pixels that shade, since only they read it) and its outputs.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -49,6 +76,7 @@ the last is the kernels' summary, the last line is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -66,6 +94,17 @@ PSNR_FLOOR = 35.0   # benchmarks/tpu_smoke.py:34
 MEAN_FLOOR = 3.0    # benchmarks/tpu_smoke.py:36
 
 CARD: dict = {}
+
+# H100 SXM, dense, at 700 W (NVIDIA data sheet): float32 outside the tensor
+# cores, and HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# float operations of one box test and of one Möller–Trumbore test as
+# csrc/traverse.cuh writes them (6 subtractions and 6 products, 10 min/max,
+# 3 compares; 2 edge differences, 2 crosses, 3 dots, 1 division, 3 products,
+# the difference o - p0 and 6 compares/sums)
+NODE_FLOPS = 25
+TRI_FLOPS = 59
 
 
 def emit(phase: str, **row) -> None:
@@ -100,6 +139,57 @@ def parity(got, ref) -> dict:
     row["ok"] = bool(row["median_abs"] < 1e-5 and row["frac_px_over_1e3"] < 0.01
                      and row["mean_rel"] < 0.01)
     return row
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def scene_bytes(scene, surfaces=True, lights=False) -> int:
+    """Bytes of the scene tables a kernel reads: the triangles and the BVH;
+    with ``surfaces`` the normals, material ids and materials; with
+    ``lights`` the light tree."""
+    import dataclasses
+
+    g, m, b = scene.geometry, scene.materials, scene.bvh
+    ts = [g.positions, g.tri_v, b.lo, b.hi, b.miss, b.first, b.prim_idx]
+    if surfaces:
+        ts += [g.normals, g.tri_mat, m.albedo, m.roughness, m.metallic, m.emission_color, m.emission_power]
+    if lights:
+        lt = scene.light_tree
+        ts += [t for t in (getattr(lt, f.name) for f in dataclasses.fields(lt)) if hasattr(t, "numel")]
+    return nbytes(*ts)
+
+
+def bound(walks: dict, n_bytes: int) -> dict:
+    """The least time of the work: the BVH walks' operations over the
+    float32 rate against the bytes over the memory rate."""
+    flops = walks["nodes"] * NODE_FLOPS + walks["tris"] * TRI_FLOPS
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=n_bytes, library_ms=None)
+
+
+@contextlib.contextmanager
+def count_walks():
+    """Count the node visits and triangle tests of every plain BVH walk
+    inside the block: the port's plain modules' ``trace_rays`` is swapped
+    for one that passes a ``counts`` dict.  Yields the dict, whose values
+    are ints once the block has ended."""
+    from unittest import mock
+
+    from fypraytracer_tpu_torch.ops import traverse
+    from fypraytracer_tpu_torch.render import megakernel, megakernel_restir, megakernel_restir_gi
+
+    counts = {"nodes": 0, "tris": 0}
+    walk = functools.partial(traverse.trace_rays, counts=counts)
+    with contextlib.ExitStack() as stack:
+        for mod in (traverse, megakernel, megakernel_restir, megakernel_restir_gi):
+            stack.enter_context(mock.patch.object(mod, "trace_rays", walk))
+        yield counts
+    counts["tris"] = int(counts["tris"])
+    if counts["nodes"] == 0:
+        raise AssertionError("count_walks: the block ran no plain walk")
 
 
 def settings_for(technique: str, **kw):
@@ -178,7 +268,7 @@ def phase_build() -> None:
     from fypraytracer_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    names = ("trace", "megakernel", "restir_di")
+    names = ("trace", "megakernel", "restir_di", "restir_gi")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(kernels.build, names))      # raises if any build failed
     secs = time.perf_counter() - t0
@@ -217,7 +307,13 @@ def phase_k1(summary: dict) -> None:
     ms = statistics.median(gpu_ms(lambda: trace_closest(scene.bvh, scene.geometry, o_cam, d_cam), 20))
     plain_ms = statistics.median(gpu_ms(lambda: trace_rays(scene.bvh, scene.geometry, o_cam, d_cam), 3))
     ok = same >= 0.9999 and dt <= 1e-5
-    summary["trace_closest"] = dict(max_abs_err=dt, ms=ms, plain_ms=plain_ms, ids_equal=same)
+    walks = {"nodes": 0, "tris": 0}
+    trace_rays(scene.bvh, scene.geometry, o_cam, d_cam, counts=walks)
+    walks["tris"] = int(walks["tris"])
+    # rays in, (tri, t, u, v) out
+    io = nbytes(o_cam, d_cam) + 16 * o_cam.shape[0]
+    summary["trace_closest"] = dict(max_abs_err=dt, ms=ms, plain_ms=plain_ms, ids_equal=same,
+                                    **bound(walks, scene_bytes(scene, surfaces=False) + io))
     emit("k1_vs_plain", rays=int(o.shape[0]), ids_equal=same, max_abs_dt=dt, hit_frac=both.float().mean().item(),
          ms_per_call_65536=ms, plain_ms_per_call_65536=plain_ms, ok=ok)
     if not ok:
@@ -225,6 +321,8 @@ def phase_k1(summary: dict) -> None:
 
 
 def phase_k2(summary: dict) -> None:
+    from fypraytracer_tpu_torch.core.camera import generate_rays
+    from fypraytracer_tpu_torch.ops.traverse import trace_rays
     from fypraytracer_tpu_torch.render.megakernel import megakernel, megakernel_plain
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
@@ -242,14 +340,22 @@ def phase_k2(summary: dict) -> None:
         megakernel(scene, cam, 1, frames, st)                 # warm-up
         out = {}
         ms = statistics.median(gpu_ms(lambda: out.update(got=megakernel(scene, cam, 1, frames, st)), 5))
-        plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=megakernel_plain(scene, cam, 1, frames, st)), 1))
+        with count_walks() as walks:
+            plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=megakernel_plain(scene, cam, 1, frames, st)), 1))
         row = parity(out["got"].cpu().numpy(), out["ref"].cpu().numpy())
         emit("k2_vs_plain", technique=tech, scene=scene_name, size=f"{size}x{size}", frames=frames,
              bounces=st.bounces, samples=st.samples, ms_per_launch=ms, plain_ms=plain_ms, **row)
         if not row["ok"]:
             raise AssertionError(f"K2 disagrees with its plain version: {tech} on {scene_name} at {size}², {kw}")
+        # K2 walks the primary rays once a launch, the plain version once a frame
+        o, d = generate_rays(cam.inv_projection, cam.inv_view, size, size, device="cuda")
+        prim = {"nodes": 0, "tris": 0}
+        trace_rays(scene.bvh, scene.geometry, o, d, counts=prim)
+        walks = {k: walks[k] - (frames - 1) * int(prim[k]) for k in walks}
+        io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE")) + 2 * 16 * 4 + size * size * 12
         return dict(max_abs_err=row["max_abs"], ms=ms, plain_ms=plain_ms, median_abs_err=row["median_abs"],
-                    frac_px_over_1e3=row["frac_px_over_1e3"], parity_shape=f"{scene_name} {size}x{size}x{frames}f")
+                    frac_px_over_1e3=row["frac_px_over_1e3"], parity_shape=f"{scene_name} {size}x{size}x{frames}f",
+                    **bound(walks, io))
 
     # every technique at the main path's shape, Cornell 256² and 8 frames
     # (the summary's rows); NEE also on the stress scene at 128², 8 frames,
@@ -271,23 +377,28 @@ def phase_restir(summary: dict) -> None:
     import torch
 
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
     st = settings_for("RESTIR_DI")
     scene, cam = stress_scene(128, 128)
     em = mr.prepare_emissive_table(scene)
     B = cam.width * cam.height
-    ppv = cam.proj_view
+    # the camera and proj @ view on the card, as the frame loop passes them
+    ppv = torch.as_tensor(cam.proj_view, device="cuda")
+    k3 = functools.partial(mr.restir_di_k3, cam=camera_matrices(cam, "cuda"))
+    k4 = functools.partial(mr.restir_di_k4, cam=camera_matrices(cam, "cuda"))
 
     # each kernel against its plain version on the same inputs, after two
     # frames of history
     state = torch.zeros((mr.ST_ROWS, B), device="cuda")
     mr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, st, ppv, ppv)
     out = {}
-    mr.restir_di_k3(scene, em, cam, 3, st, state, ppv)                 # warm-up
-    k3_ms = statistics.median(gpu_ms(lambda: out.update(stage=mr.restir_di_k3(scene, em, cam, 3, st, state, ppv)), 5))
-    k3_plain_ms = statistics.median(gpu_ms(
-        lambda: out.update(ref=mr.restir_di_k3_plain(scene, em, cam, 3, st, state, ppv)), 1))
+    k3(scene, em, cam, 3, st, state, ppv)                              # warm-up
+    k3_ms = statistics.median(gpu_ms(lambda: out.update(stage=k3(scene, em, cam, 3, st, state, ppv)), 5))
+    with count_walks() as k3_walks:
+        k3_plain_ms = statistics.median(gpu_ms(
+            lambda: out.update(ref=mr.restir_di_k3_plain(scene, em, cam, 3, st, state, ppv)), 1))
     d = (out["stage"] - out["ref"]).abs()
     k3_off = ((d > 1e-3 * torch.clamp_min(out["ref"].abs(), 1.0)).any(0)).float().mean().item()
     k3_row = dict(max_abs_err=d.max().item(), frac_px_over_1e3=k3_off, ok=k3_off < 0.01)
@@ -295,21 +406,31 @@ def phase_restir(summary: dict) -> None:
 
     acc_k, acc_p = (torch.zeros((B, 3), device="cuda") for _ in range(2))
     st_k, st_p = state.clone(), state.clone()
-    mr.restir_di_k4(scene, em, cam, 3, st, out["ref"], st_k, acc_k)
+    k4(scene, em, cam, 3, st, out["ref"], st_k, acc_k)
     mr.restir_di_k4_plain(scene, em, cam, 3, st, out["ref"], st_p, acc_p)
     k4_row = parity(acc_k.cpu().numpy(), acc_p.cpu().numpy())
     k4_row["state_frac_px_over_1e3"] = ((st_k - st_p).abs() > 1e-3 * torch.clamp_min(st_p.abs(), 1.0)).any(0).float().mean().item()
     k4_row["ok"] = bool(k4_row["ok"] and k4_row["state_frac_px_over_1e3"] < 0.01)
     scratch = torch.zeros((B, 3), device="cuda")
-    k4_ms = statistics.median(gpu_ms(lambda: mr.restir_di_k4(scene, em, cam, 3, st, out["ref"], st_k, scratch), 5))
-    k4_plain_ms = statistics.median(gpu_ms(
-        lambda: mr.restir_di_k4_plain(scene, em, cam, 3, st, out["ref"], st_p, scratch), 1))
+    k4_ms = statistics.median(gpu_ms(lambda: k4(scene, em, cam, 3, st, out["ref"], st_k, scratch), 5))
+    with count_walks() as k4_walks:
+        k4_plain_ms = statistics.median(gpu_ms(
+            lambda: mr.restir_di_k4_plain(scene, em, cam, 3, st, out["ref"], st_p, scratch), 1))
     emit("k4_vs_plain", size="128x128", scene="stress", ms_per_launch=k4_ms, plain_ms=k4_plain_ms, **k4_row)
+    em_bytes = nbytes(em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid, em.tri)
+    # K3 reads the camera, the previous proj @ view and 6 of the 9 state rows
+    # (ST_NRM, ST_RM, ST_RIDX, ST_RW) and writes the stage; K4 reads the
+    # camera and every stage row, writes the state and adds to the image
+    k3_io = scene_bytes(scene) + em_bytes + 3 * 16 * 4 + 6 * B * 4 + nbytes(out["stage"])
+    k4_io = scene_bytes(scene, surfaces=False) + em_bytes + 2 * 16 * 4 + nbytes(out["stage"]) \
+        + nbytes(state) + 2 * B * 12
     summary["restir_di_k3"] = dict(max_abs_err=k3_row["max_abs_err"], ms=k3_ms, plain_ms=k3_plain_ms,
-                                   frac_px_over_1e3=k3_off, parity_shape="128x128 stress, 1 frame")
+                                   frac_px_over_1e3=k3_off, parity_shape="128x128 stress, 1 frame",
+                                   **bound(k3_walks, k3_io))
     summary["restir_di_k4"] = dict(max_abs_err=k4_row["max_abs"], ms=k4_ms, plain_ms=k4_plain_ms,
                                    median_abs_err=k4_row["median_abs"],
-                                   frac_px_over_1e3=k4_row["frac_px_over_1e3"], parity_shape="128x128 stress, 1 frame")
+                                   frac_px_over_1e3=k4_row["frac_px_over_1e3"], parity_shape="128x128 stress, 1 frame",
+                                   **bound(k4_walks, k4_io))
     if not (k3_row["ok"] and k4_row["ok"]):
         raise AssertionError("K3 or K4 disagrees with its plain version")
 
@@ -341,23 +462,144 @@ def phase_restir(summary: dict) -> None:
             raise AssertionError(f"K3+K4 disagree with restir_di_megakernel_plain on {name}")
 
 
+def phase_restir_gi(summary: dict) -> None:
+    import torch
+
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    st = settings_for("RESTIR_GI")
+
+    def cornell(size):
+        builder, cam = cornell_box(size, size)
+        return morton_permuted_scene(builder.compile())[0].to("cuda"), cam
+
+    def zeros(n_pix):
+        return (torch.zeros((mg.GT_ROWS, n_pix), device="cuda"), torch.zeros((mg.GS_ROWS, n_pix), device="cuda"))
+
+    def off(got, ref):
+        """Share of pixels with an element off by more than 1e-3 relative."""
+        return ((got - ref).abs() > 1e-3 * torch.clamp_min(ref.abs(), 1.0)).any(0).float().mean().item()
+
+    # each kernel against its plain version on the same inputs: Cornell 256²,
+    # frame 3 after two frames of history; the camera and proj @ view on the
+    # card, as the frame loop passes them
+    scene, cam = cornell(256)
+    B = cam.width * cam.height
+    ppv = torch.as_tensor(cam.proj_view, device="cuda")
+    cam_t = camera_matrices(cam, "cuda")
+    _, state, stage = mg.restir_gi_megakernel_plain(scene, cam, *zeros(B), 1, 2, st, ppv, ppv)
+    ref_stage = mg.restir_gi_k1_plain(scene, cam, 3, st, state, ppv)
+
+    def acc():
+        return torch.zeros((B, 3), device="cuda")
+
+    def k1(fn):
+        return (fn(scene, cam, 3, st, state, ppv),)
+
+    def k2(fn):
+        a, s_ = acc(), torch.empty_like(state)
+        fn(scene, cam, 3, st, ref_stage, s_, a)
+        return s_, a.T
+
+    def mono(final_vis):
+        def run(fn):
+            a, s_, g_ = acc(), torch.empty_like(state), torch.empty_like(stage)
+            fn(scene, cam, 3, st, state, stage, ppv, a, s_, g_, final_vis=final_vis)
+            return s_, g_, a.T
+        return run
+
+    # bytes read besides the outputs (csrc/restir_gi.cu): K5 and K6 read the
+    # camera, proj @ view and the surfaces, and 15 of the 16 state rows (not
+    # GT_WSUM) only at pixels that shade; K5 reads 19 of the 33 rows of the
+    # previous stage at neighbour pixels (GS_T, GS_NRM, GS_SHADE, GS_M, GS_SP,
+    # GS_SN, GS_RAD, GS_POS, GS_W); K7 reads every stage row, the camera and
+    # the triangles and BVH only; K5 and K7 add to the image (read it too)
+    n_shade = int((ref_stage[mg.GS_SHADE] > 0.5).sum())
+    state_rows = 15 * n_shade * 4
+    k5_in = scene_bytes(scene) + 3 * 16 * 4 + state_rows + 19 * B * 4 + B * 12
+    cases = [("restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t), mg.restir_gi_k1_plain,
+              scene_bytes(scene) + 3 * 16 * 4 + state_rows),
+             ("restir_gi_k2", k2, functools.partial(mg.restir_gi_k2, cam=cam_t), mg.restir_gi_k2_plain,
+              scene_bytes(scene, surfaces=False) + 2 * 16 * 4 + nbytes(ref_stage) + B * 12),
+             ("restir_gi_mono", mono(False), functools.partial(mg.restir_gi_mono, cam=cam_t),
+              mg.restir_gi_mono_plain, k5_in),
+             ("restir_gi_mono[final_vis]", mono(True), functools.partial(mg.restir_gi_mono, cam=cam_t),
+              mg.restir_gi_mono_plain, k5_in)]
+    for name, run, kernel, plain, in_bytes in cases:
+        run(kernel)                                          # warm-up
+        out = {}
+        # 10 launches a rep, back to back, so that the host's work for one
+        # launch overlaps the card's for the one before
+        ms = statistics.median(gpu_ms(lambda: [out.update(got=run(kernel)) for _ in range(10)], 5)) / 10
+        with count_walks() as walks:
+            plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=run(plain)), 1))
+        frac = max(off(a, b) for a, b in zip(out["got"], out["ref"]))
+        err = max((a - b).abs().max().item() for a, b in zip(out["got"], out["ref"]))
+        summary[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, frac_px_over_1e3=frac,
+                             parity_shape="cornell 256x256, frame 3 after 2 of history",
+                             **bound(walks, in_bytes + nbytes(*out["ref"])))
+        emit("gi_kernel_vs_plain", kernel=name, size="256x256", ms_per_launch=ms, plain_ms=plain_ms,
+             frac_px_over_1e3=frac, max_abs_err=err, shading_pixels=n_shade, ok=frac < 0.01)
+        if not frac < 0.01:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    # the frame loops: K5 at the main path's shape and on the stress scene;
+    # K5 final_vis and K6+K7 at 64² with a camera move in between
+    def frames(fn, scn, make_cam, moves, mode):
+        camera = make_cam()
+        n_pix = camera.width * camera.height
+        state, stage = zeros(n_pix)
+        total, f0, ppv0 = 0.0, 1, camera.proj_view
+        for n, pos in moves:
+            if pos is not None:
+                camera.move_to(pos)
+            out, state, stage = fn(scn, camera, state, stage, f0, n, st, ppv0, camera.proj_view, **mode)
+            total = total + out
+            f0, ppv0 = f0 + n, camera.proj_view
+        return total.cpu().numpy()
+
+    small, _ = cornell(64)
+    stress, stress_cam = stress_scene(128, 128)
+    move = [(4, None), (4, (0.15, 1.0, 2.6))]
+    loops = [("cornell", "256x256", scene, lambda: cornell_box(256, 256)[1], [(8, None)], dict(mono=True)),
+             ("stress", "128x128", stress, lambda: stress_cam, [(4, None)], dict(mono=True)),
+             ("cornell", "64x64", small, lambda: cornell_box(64, 64)[1], move, dict(mono=True, final_vis=True)),
+             ("cornell", "64x64", small, lambda: cornell_box(64, 64)[1], move, dict(mono=False))]
+    for name, size, scn, make_cam, moves, mode in loops:
+        got = frames(mg.restir_gi_megakernel, scn, make_cam, moves, mode)
+        ref = frames(mg.restir_gi_megakernel_plain, scn, make_cam, moves, mode)
+        row = parity(got, ref)
+        emit("gi_frames_vs_plain", scene=name, size=size, frames=[n for n, _ in moves], moved=len(moves) > 1,
+             mode=mode, **row)
+        if not row["ok"]:
+            raise AssertionError(f"the GI frame loop {mode} disagrees with its plain version on {name} {size}")
+
+
 def phase_main(summary: dict) -> None:
     import torch
 
     from fypraytracer_tpu_torch.ops.traverse import trace_closest
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
     from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, megakernel
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
+    from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
     from fypraytracer_tpu_torch.render.renderer import Renderer
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
+    wrappers = dict(trace_closest=trace_closest, megakernel=megakernel, restir_di_k3=mr.restir_di_k3,
+                    restir_di_k4=mr.restir_di_k4, restir_gi_mono=mg.restir_gi_mono,
+                    restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2)
+
     def reset():
-        trace_closest.launches = megakernel.launches = 0
-        mr.restir_di_k3.launches = mr.restir_di_k4.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
 
     def counts():
-        return dict(trace_closest=trace_closest.launches, megakernel=megakernel.launches,
-                    restir_di_k3=mr.restir_di_k3.launches, restir_di_k4=mr.restir_di_k4.launches)
+        return {name: w.launches for name, w in wrappers.items()}
 
     def path(name, make, golden, expect, needs):
         """Drive one entry point with the counters reset just before and read
@@ -416,30 +658,108 @@ def phase_main(summary: dict) -> None:
     if not ok:
         raise AssertionError("ReSTIR DI's mean is off light-source sampling's by 5% or more")
 
+    # ReSTIR GI at the main path's shape: the three kernel paths (no golden
+    # for Cornell GI in the repository; the room's wait for its assets) and
+    # the K1 wavefront; mono on the stress scene
+    def gi(**mode):
+        return functools.partial(MegakernelReSTIRGI, **mode)
 
-def device_busy(fn) -> tuple[float, int, list]:
-    """Milliseconds the card spent in kernels during ``fn()``, the number of
-    kernels it ran, and the three kernels that took most time, by
-    torch.profiler."""
+    n = path("MegakernelReSTIRGI cornell RESTIR_GI mono", cornell(gi(), "RESTIR_GI"), None, (256, 256, 3),
+             ["restir_gi_mono"])
+    summary["restir_gi_mono"]["launches"] = n["restir_gi_mono"]
+    n = path("MegakernelReSTIRGI cornell RESTIR_GI mono final_vis", cornell(gi(final_vis=True), "RESTIR_GI"), None,
+             (256, 256, 3), ["restir_gi_mono"])
+    summary["restir_gi_mono[final_vis]"]["launches"] = n["restir_gi_mono"]
+    n = path("MegakernelReSTIRGI cornell RESTIR_GI mono=False", cornell(gi(mono=False), "RESTIR_GI"), None,
+             (256, 256, 3), ["restir_gi_k1", "restir_gi_k2"])
+    summary["restir_gi_k1"]["launches"] = n["restir_gi_k1"]
+    summary["restir_gi_k2"]["launches"] = n["restir_gi_k2"]
+    path("Renderer cornell RESTIR_GI", cornell(Renderer, "RESTIR_GI"), None, (256, 256, 3), ["trace_closest"])
+    path("MegakernelReSTIRGI stress RESTIR_GI mono",
+         lambda: MegakernelReSTIRGI(*stress_scene(128, 128), settings_for("RESTIR_GI"), device="cuda").render_many(8),
+         None, (128, 128, 3), ["restir_gi_mono"])
+
+    # ReSTIR GI is unbiased: against the BRDF path tracer at 4 spp, image mean
+    # and quadrants (tests/test_megakernel_restir.py:158-257), and final_vis
+    # against per-neighbour visibility with spheres (:260-286)
+    def gi_avg(spheres, **mode):
+        builder, cam = cornell_box(64, 64, with_spheres=spheres)
+        return MegakernelReSTIRGI(builder.compile(), cam, settings_for(
+            "RESTIR_GI", spatial_neighbors=3, spatial_radius=8, sky_color=(0.0, 0.0, 0.0)), device="cuda",
+            **mode).render_many(256)
+
+    def close(a, b, mean_tol, quad_tol):
+        a, b = a.cpu().double(), b.cpu().double()
+        quads = [abs(a[ys, xs].mean() - b[ys, xs].mean()).item() / max(b[ys, xs].mean().item(), 1e-9)
+                 for ys in (slice(0, 32), slice(32, 64)) for xs in (slice(0, 32), slice(32, 64))]
+        rel = abs(a.mean() - b.mean()).item() / b.mean().item()
+        return dict(a_mean=a.mean().item(), b_mean=b.mean().item(), rel=rel, quadrant_rel=quads,
+                    ok=bool(torch.isfinite(a).all()) and rel < mean_tol and max(quads) < quad_tol)
+
+    builder, cam = cornell_box(64, 64, with_spheres=False)
+    brdf = MegakernelRenderer(builder.compile(), cam, settings_for("BRDF", samples=4, sky_color=(0.0, 0.0, 0.0)),
+                              device="cuda").render_many(256)
+    checks = [("mono vs brdf", close(gi_avg(False), brdf, 0.06, 0.15)),
+              ("mono=False vs brdf", close(gi_avg(False, mono=False), brdf, 0.06, 0.15)),
+              ("final_vis vs per-neighbour", close(gi_avg(True, final_vis=True), gi_avg(True), 0.05, 0.12))]
+    for name, row in checks:
+        emit("restir_gi_unbiased", check=name, size="64x64", frames=256, **row)
+    if not all(row["ok"] for _, row in checks):
+        raise AssertionError("ReSTIR GI's mean is off its reference beyond the JAX package's bounds")
+
+
+# the __global__ names of csrc/*.cu, to count the port's kernels in a trace
+PORT_KERNELS = ("trace_closest_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1",
+                "gi_stage2")
+
+
+def device_busy(fn, launches) -> dict:
+    """The card's time in kernels during ``fn()`` by torch.profiler: its
+    milliseconds, the number of kernels, the three that took most time, and
+    how many launches of the port's kernels the trace holds beside how many
+    the wrappers counted (``launches()``: their total).  The profiler runs
+    ``fn`` twice and keeps the second step; the first is its warm-up, and
+    50 ms of idle host before and after each step keep the kernels off the
+    edges of the trace's window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kept: dict = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: kept.update(events=p.events())) as prof:
+        for _ in range(2):
+            time.sleep(0.05)
+            before = launches()
+            fn()
+            torch.cuda.synchronize()
+            launched = launches() - before
+            time.sleep(0.05)
+            prof.step()
+    if "events" not in kept:
+        raise RuntimeError("torch.profiler handed over no trace")
+    # the card's events, less the profiler's own span of the step on the
+    # card's timeline ("ProfilerStep*"), which is no kernel
+    kernels = [e for e in kept["events"] if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1000.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return sum(by_name.values()), len(kernels), [[name[:60], ms] for name, ms in top]
+    traced = sum(1 for e in kernels if any(k in e.name for k in PORT_KERNELS))
+    return dict(busy_ms=sum(by_name.values()), n_kernels=len(kernels),
+                top=[[name[:60], ms] for name, ms in top], traced=traced, launched=launched)
 
 
 def phase_timing() -> None:
     import torch
 
-    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, megakernel_plain
+    from fypraytracer_tpu_torch.ops.traverse import trace_closest
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, megakernel, megakernel_plain
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
+    from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
     from fypraytracer_tpu_torch.render.renderer import Renderer
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
     from fypraytracer_tpu_torch.utils import metrics
@@ -449,11 +769,15 @@ def phase_timing() -> None:
         scene = scene.to(device)
         return lambda n: megakernel_plain(scene, cam, 1, n, settings)
 
-    def render_many(cls):
-        return lambda scene, cam, settings, device: cls(scene, cam, settings, device=device).render_many
+    def render_many(cls, **kw):
+        return lambda scene, cam, settings, device: cls(scene, cam, settings, device=device, **kw).render_many
 
-    def rays(tech, w, h, st):
-        """Rays a frame as bench.py counts them (primary + bounce + shadow)."""
+    def rays(tech, w, h, st, final_vis=False):
+        """Rays a frame as bench.py counts them (primary + bounce + shadow);
+        ReSTIR GI adds its visibility rays."""
+        if tech == "RESTIR_GI":
+            return metrics.rays_per_frame(w, h, 1, st.bounces,
+                                          visibility_rays=1 if final_vis else st.spatial_neighbors)
         if tech == "NEE_MIS":
             return metrics.rays_per_frame(w, h, st.samples, st.bounces, shadow_rays_per_bounce=1)
         if tech == "LIGHT_SOURCE":
@@ -486,6 +810,15 @@ def phase_timing() -> None:
               ("k1_wavefront", k1, "RESTIR_DI", cornell, 256, 256, 8, 2),
               ("k2_megakernel", k2, "NEE_MIS", stress_scene, 128, 128, 64, 0),
               ("k3k4_megakernel_di", di, "RESTIR_DI", stress_scene, 128, 128, 64, 0)]
+    gi, gi_fv = render_many(MegakernelReSTIRGI), render_many(MegakernelReSTIRGI, final_vis=True)
+    cases += [("k5_megakernel_gi", gi, "RESTIR_GI", cornell, 256, 256, 64, 16),
+              ("k5_megakernel_gi_final_vis", gi_fv, "RESTIR_GI", cornell, 256, 256, 64, 16),
+              ("k5_megakernel_gi", gi, "RESTIR_GI", cornell, 1920, 1088, 64, 8),
+              ("k5_megakernel_gi_final_vis", gi_fv, "RESTIR_GI", cornell, 1920, 1088, 64, 8),
+              ("k6k7_megakernel_gi", render_many(MegakernelReSTIRGI, mono=False), "RESTIR_GI", cornell, 256, 256,
+               64, 16),
+              ("k5_megakernel_gi", gi, "RESTIR_GI", stress_scene, 128, 128, 64, 8),
+              ("k1_wavefront", k1, "RESTIR_GI", cornell, 256, 256, 8, 2)]
     for name, make, tech, scene_of, w, h, frames, prof_frames in cases:
         st = settings_for(tech)
         scene, cam = scene_of(w, h)
@@ -496,16 +829,21 @@ def phase_timing() -> None:
         ms_frame = statistics.median(reps) / frames
         row = dict(path=name, technique=tech, scene="stress" if scene_of is stress_scene else "cornell",
                    size=f"{w}x{h}", frames_per_rep=frames, reps_ms=reps, ms_per_frame=ms_frame,
-                   rays_per_s=rays(tech, w, h, st) / (ms_frame / 1000.0))
+                   rays_per_s=rays(tech, w, h, st, name.endswith("final_vis")) / (ms_frame / 1000.0))
         if prof_frames:
-            busy, n_kernels, top = device_busy(lambda: run(prof_frames))
-            # the profiler at times records no kernel of a dispatch that surely ran
-            # some; such a reading is "not measured" (null), not an idle card
-            seen = n_kernels > 0
-            row.update(profiled_frames=prof_frames,
-                       device_busy_ms_per_frame=busy / prof_frames if seen else None,
-                       idle_share=1.0 - busy / prof_frames / ms_frame if seen else None,
-                       kernels_per_frame=n_kernels / prof_frames if seen else None, top_kernels_ms=top)
+            wrappers = (trace_closest, megakernel, mr.restir_di_k3, mr.restir_di_k4, mg.restir_gi_mono,
+                        mg.restir_gi_k1, mg.restir_gi_k2)
+            prof = device_busy(lambda: run(prof_frames), lambda: sum(w.launches for w in wrappers))
+            # a trace that lacks some of the port's launches, or holds no
+            # kernel, is "not measured" (null), not an idle card
+            seen = prof["traced"] == prof["launched"] and prof["n_kernels"] > 0
+            busy = prof["busy_ms"] / prof_frames
+            row.update(profiled_frames=prof_frames, port_launches=prof["launched"],
+                       port_kernels_traced=prof["traced"],
+                       device_busy_ms_per_frame=busy if seen else None,
+                       idle_share=1.0 - busy / ms_frame if seen else None,
+                       kernels_per_frame=prof["n_kernels"] / prof_frames if seen else None,
+                       top_kernels_ms=prof["top"])
         emit("timing", **row)
         del run
         torch.cuda.empty_cache()
@@ -521,6 +859,7 @@ def main() -> int:
         phase_k1(summary)
         phase_k2(summary)
         phase_restir(summary)
+        phase_restir_gi(summary)
         phase_main(summary)
         if not quick:
             phase_timing()
@@ -537,7 +876,13 @@ def main() -> int:
                 "restir_di_k3": ("fypraytracer_tpu_torch/csrc/restir_di.cu",
                                  "fypraytracer_tpu/render/megakernel_restir.py:243"),
                 "restir_di_k4": ("fypraytracer_tpu_torch/csrc/restir_di.cu",
-                                 "fypraytracer_tpu/render/megakernel_restir.py:417")}
+                                 "fypraytracer_tpu/render/megakernel_restir.py:417"),
+                **{k: ("fypraytracer_tpu_torch/csrc/restir_gi.cu", "fypraytracer_tpu/render/megakernel_restir_gi.py:917")
+                   for k in ("restir_gi_mono", "restir_gi_mono[final_vis]")},
+                "restir_gi_k1": ("fypraytracer_tpu_torch/csrc/restir_gi.cu",
+                                 "fypraytracer_tpu/render/megakernel_restir_gi.py:169"),
+                "restir_gi_k2": ("fypraytracer_tpu_torch/csrc/restir_gi.cu",
+                                 "fypraytracer_tpu/render/megakernel_restir_gi.py:447+:544")}
     kern = [dict(name=k, route="cuda", source=src, replaces=rep, **summary[k]) for k, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

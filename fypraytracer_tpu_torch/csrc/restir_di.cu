@@ -14,7 +14,7 @@
 //
 // The semantics are the megakernel's, not the wavefront's (render/restir_di.py):
 //   * pixels are linear; a tile is C consecutive pixels (one block of C threads,
-//     C = render/megakernel_restir.py::pick_ray_lanes(B));
+//     C = render/restir_common.py::pick_ray_lanes(B));
 //   * candidates are uniform over the emissive list with p-hat at the emitter's
 //     centroid (:219-240, :313-325), dist^-1 by rsqrtf;
 //   * temporal reuse: each shading pixel reprojects its hit point through ppv;

@@ -1,0 +1,541 @@
+// ReSTIR GI: K5 (the whole frame in one kernel, spatial reuse lagged by one
+// frame), K6 (primary hit, BRDF path sample, temporal reuse) and K7 (same-frame
+// spatial reuse, shade).
+//
+// Replaces the TPU kernels of fypraytracer_tpu/render/megakernel_restir_gi.py:
+//   * K5 restir_gi_mono: make_restir_gi_mono -> kernel (:917, launched at
+//     :1490), a template over final_vis (one visibility ray for the spatial
+//     winner instead of one per neighbour);
+//   * K6 restir_gi_k1: make_restir_gi_megakernel::k1 (:169, launched at :748);
+//   * K7 restir_gi_k2: k2a (:447 -> :758) and k2b (:544 -> :794).  k2a only
+//     gathers each tile's neighbour rows into a buffer for k2b; a thread here
+//     reads its neighbours' rows itself, so both are one kernel.
+// K6 + K7 is the reference's two-stage split (mono=False): the launch boundary
+// orders them, so one stage and one state buffer suffice (K6 reads the state,
+// writes the stage; K7 reads the stage, writes the state at its own pixel).
+// K5 reads the previous frame's state at the reprojected tile and its stage at
+// the neighbour tiles while other blocks write this frame's: it takes separate
+// input and output buffers, which the host swaps every frame.
+//
+// Buffers are SoA, (rows, B) float32, B = width * height, rows named by the
+// GS_* (stage) and GT_* (state) constants below, the JAX rows without padding
+// (megakernel_restir_gi.py:67-96).  The semantics are the JAX megakernels' (see
+// render/megakernel_restir_gi.py): a tile is C consecutive pixels, one block of
+// C threads; the tile reads the previous state at one offset, rint(mean(
+// prev_pix - pix)) over its shading pixels (summed as integers), and a pixel
+// keeps history only where that read is its own reprojected pixel; the N
+// spatial offsets are shared by the frame, drawn in every thread from
+// path_key(0xD1CE, frame, 0, 8002); a neighbour counts where it is in the
+// image, the tile's read is unclamped, its depth is within +-10%, its raw
+// normal's dot is >= 0.906, it shades and M > 0; visibility is
+// segment_visible from the neighbour's sample point (+ n * 1e-12) to this
+// pixel's visible point.
+//
+// RNG: fold(fold(fold(pcg(pix), frame), 0), 8001), drawn u_sel, u1, u2, three a
+// bounce after the first, u0, and ut under temporal reuse; K5 then folds 8002
+// into that key, K7 starts from fold(..., 8002); one u_acc per neighbour.  A
+// pixel that does not shade draws nothing (none of its outputs depends on its
+// draws), and a visibility ray is traced only where it can change the merge
+// (the neighbour counts and its p-hat > 0): both exact.
+//
+// What bounds it on an H100: the BVH walks, 1 + bounces closest-hit walks and
+// N segment walks a pixel (1 with final_vis), with the divergence of a warp's
+// 32 paths; the stage and state rows (33 + 16 floats a pixel) are read and
+// written once a frame, coalesced, plus N neighbour reads of 17 rows that stay
+// in L2 at these sizes.  One thread per pixel, reservoirs in registers
+// (__launch_bounds__(512) caps a thread at 128 registers; ptxas reports the
+// spills), buffers read through __ldg; making it fast is later work.
+//
+// Floating point: built with -fmad=false (ops/kernels.py), so no product is
+// fused into a sum and every expression rounds as the plain PyTorch version's
+// elementwise ops do; a reservoir decision compares floats and flips on one
+// ulp.  cosf/sinf/powf remain the device library's.
+//
+// C interface (loaded with ctypes by render/megakernel_restir_gi.py):
+// fyp_restir_gi launches one kernel, chosen by `kernel`, on the given stream
+// and returns cudaGetLastError().
+#include "shading.cuh"
+
+namespace {
+
+using namespace fyp;
+
+// stage rows
+constexpr int GS_POS = 0;    // 0:3 visible point
+constexpr int GS_NRM = 3;    // 3:6 visible normal
+constexpr int GS_ALB = 6;    // 6:9
+constexpr int GS_ROUGH = 9;
+constexpr int GS_METAL = 10;
+constexpr int GS_T = 11;     // -1 on a miss
+constexpr int GS_SHADE = 12;
+constexpr int GS_EMIT = 13;  // 13:16 primary emission
+constexpr int GS_HIT = 16;
+constexpr int GS_SKY = 17;   // 17:20 first-bounce sky term, shaded
+constexpr int GS_SP = 20;    // 20:23 sample point
+constexpr int GS_SN = 23;    // 23:26 sample normal
+constexpr int GS_RAD = 26;   // 26:29 radiance from the sample point
+constexpr int GS_PHAT = 29;
+constexpr int GS_W = 30;
+constexpr int GS_M = 31;
+constexpr int GS_WSUM = 32;
+// state rows
+constexpr int GT_SP = 0;
+constexpr int GT_SN = 3;
+constexpr int GT_RAD = 6;
+constexpr int GT_PHAT = 9;
+constexpr int GT_W = 10;
+constexpr int GT_M = 11;
+constexpr int GT_WSUM = 12;
+constexpr int GT_NRM = 13;  // 13:16
+
+constexpr float kNormalTemporal = 0.99f;
+constexpr float kNormalSpatial = 0.906f;
+
+enum Kernel { kMono = 0, kMonoFinalVis = 1, kStage1 = 2, kStage2 = 3 };
+
+struct Params {
+  const float* cam;  // (2, 4, 4)
+  const float* ppv;  // (4, 4) previous proj @ view, row-major
+  int width, height;
+  uint32_t frame;
+  int bounces;
+  int neighbors;     // 0 without spatial reuse
+  float radius;
+  float history_limit;
+  int temporal;
+  float3 sky;
+  Geo geo;
+  Mats mats;
+  Bvh bvh;
+  const float* state_in;  // K5: previous state; K6: state
+  const float* stage_in;  // K5: previous stage; K7: this frame's stage
+  float* state_out;       // K5, K7
+  float* stage_out;       // K5, K6
+  float* accum;           // K5, K7: (B, 3), the frame's HDR added
+};
+
+// A reservoir of path samples (megakernel_restir_gi.py::_gi_res_update).
+struct PathRes {
+  float3 sp, sn, rad;
+  float phat, w, m, wsum;
+};
+
+// This pixel's primary hit as the stage holds it.
+struct Own {
+  float3 pos, n, alb, em, sky_direct;
+  float rough, metal, t;
+  bool hit, shade;
+};
+
+__device__ __forceinline__ float3 zero3() { return make_float3(0.0f, 0.0f, 0.0f); }
+
+__device__ __forceinline__ float3 row3(const float* buf, int row, int B, int q) {
+  return make_float3(__ldg(buf + row * B + q), __ldg(buf + (row + 1) * B + q), __ldg(buf + (row + 2) * B + q));
+}
+
+__device__ __forceinline__ float row1(const float* buf, int row, int B, int q) { return __ldg(buf + row * B + q); }
+
+__device__ __forceinline__ void put3(float* buf, int row, int B, int q, float3 v) {
+  buf[row * B + q] = v.x;
+  buf[(row + 1) * B + q] = v.y;
+  buf[(row + 2) * B + q] = v.z;
+}
+
+__device__ __forceinline__ void res_update(PathRes& r, float3 sp, float3 sn, float3 rad, float weight, float count,
+                                           float pdf, float u) {
+  const float wsum2 = r.wsum + weight;
+  const float m2 = r.m + count;
+  if (wsum2 > 0.0f && u < weight / wsum2) {
+    r.sp = sp;
+    r.sn = sn;
+    r.rad = rad;
+    r.phat = pdf;
+  }
+  r.wsum = wsum2;
+  r.m = m2;
+}
+
+// W = wsum / (max(M, 1) p-hat)
+__device__ __forceinline__ float w_of(const PathRes& r) {
+  return r.phat > 0.0f ? r.wsum / (fmaxf(r.m, 1.0f) * r.phat) : 0.0f;
+}
+
+__device__ __forceinline__ float rad_norm(float3 r) { return sqrtf(fmaxf(dot(r, r), 0.0f)); }
+
+// ---- the first half of a frame (K6; K5 before its spatial reuse) ------------------
+
+// Primary hit, the BRDF path sample and temporal reuse of pixel pix, written to
+// the stage.  Every thread of the block must call it (the tile's reprojection
+// offset is a block reduction).
+__device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t& key) {
+  const int C = blockDim.x;
+  const int lane = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int B = P.width * P.height;
+  const Tris tris{P.geo.positions, P.geo.tri_v};
+
+  float3 orig, dir;
+  camera_ray(P.cam, P.width, P.height, pix, orig, dir);
+  const float3 view = -dir;
+  const Hit h0 = trace_closest(P.bvh, tris, orig, dir, kBig);
+  o.hit = h0.tri >= 0;
+  Surf s0{};
+  o.em = zero3();
+  if (o.hit) {
+    s0 = surface(P.geo, P.mats, h0, orig, dir);
+    o.em = emission_of(P.mats, s0.mat);
+  }
+  o.shade = o.hit && !(dot(o.em, o.em) > 0.0f);
+  o.pos = s0.pos;
+  o.n = s0.n;
+  o.alb = s0.alb;
+  o.rough = s0.rough;
+  o.metal = s0.metal;
+  o.t = o.hit ? h0.t : -1.0f;
+  o.sky_direct = zero3();
+  res = PathRes{zero3(), zero3(), zero3(), 0.0f, 0.0f, 0.0f, 0.0f};
+  key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 8001u);
+
+  if (o.shade) {
+    // ---- the BRDF path sample (megakernel_restir_gi.py:993-1092)
+    const float u_sel = next_uniform(key);
+    const float u1 = next_uniform(key);
+    const float u2 = next_uniform(key);
+    float3 d0;
+    const float pdf0 = mixture_sample(o.n, view, o.alb, o.metal, o.rough, u_sel, u1, u2, d0);
+    const float3 f0 = cook_torrance(o.n, view, d0, o.alb, o.metal, o.rough);
+    const float cos0 = fmaxf(dot(d0, o.n), 0.0f);
+    const float3 o1 = o.pos + o.n * kOriginEps;
+    const Hit h1 = trace_closest(P.bvh, tris, o1, d0, kBig);
+    const bool hit1 = h1.tri >= 0;
+    Surf s1{};
+    float3 em1 = zero3();
+    if (hit1) {
+      s1 = surface(P.geo, P.mats, h1, o1, d0);
+      em1 = emission_of(P.mats, s1.mat);
+    }
+    const bool reconnect = hit1 && pdf0 > 0.0f;
+    const float fterm = cos0 / fmaxf(pdf0, 1e-12f);
+    if (!hit1 && pdf0 > 0.0f) o.sky_direct = f0 * fterm * P.sky;
+
+    // the path continues from the sample point with unit throughput
+    float3 rad = zero3();
+    const bool em1_hit = dot(em1, em1) > 0.0f;
+    if (reconnect && em1_hit) rad = em1;
+    bool active = reconnect && !em1_hit;
+    float3 thr = make_float3(1.0f, 1.0f, 1.0f);
+    Surf cur = s1;
+    float3 cd = d0;
+    for (int b = 0; b < P.bounces - 1; ++b) {
+      const float r1 = next_uniform(key);
+      const float r2 = next_uniform(key);
+      const float r3 = next_uniform(key);
+      if (!active) continue;
+      const float3 bv = -cd;
+      float3 l;
+      const float pdf = mixture_sample(cur.n, bv, cur.alb, cur.metal, cur.rough, r1, r2, r3, l);
+      const float3 f = cook_torrance(cur.n, bv, l, cur.alb, cur.metal, cur.rough);
+      const float scale = fmaxf(dot(l, cur.n), 0.0f) / fmaxf(pdf, 1e-12f);
+      thr = thr * f * scale;
+      if (!(pdf > 0.0f)) {
+        active = false;
+        continue;
+      }
+      const float3 no = cur.pos + cur.n * kOriginEps;
+      const Hit h = trace_closest(P.bvh, tris, no, l, kBig);
+      if (h.tri < 0) {
+        rad = rad + thr * P.sky;
+        active = false;
+        continue;
+      }
+      const Surf nxt = surface(P.geo, P.mats, h, no, l);
+      const float3 em = emission_of(P.mats, nxt.mat);
+      if (dot(em, em) > 0.0f) {
+        rad = rad + thr * em;
+        active = false;
+        continue;
+      }
+      cur = nxt;
+      cd = l;
+    }
+    if (!reconnect) rad = zero3();
+    const float src_pdf = reconnect ? pdf0 : 0.0f;
+    const float p_hat = rad_norm(rad);
+    const float u0 = next_uniform(key);
+    const float w_ris = src_pdf > 0.0f ? p_hat / fmaxf(src_pdf, 1e-12f) : 0.0f;
+    res_update(res, s1.pos, s1.n, rad, w_ris, 1.0f, p_hat, u0);
+    res.w = w_of(res);
+  }
+
+  if (P.temporal) {
+    // ---- temporal reuse through the tile-shared reprojection (:1095-1164)
+    int prev_pix = 0;
+    if (o.shade) {
+      const float* pv = P.ppv;
+      auto prow = [&](int r) {
+        return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__ldg(pv + 4 * r), o.pos.x), __fmul_rn(__ldg(pv + 4 * r + 1), o.pos.y)),
+                                   __fmul_rn(__ldg(pv + 4 * r + 2), o.pos.z)),
+                         __ldg(pv + 4 * r + 3));
+      };
+      const float cxp = prow(0), cyp = prow(1), cwp = prow(3);
+      const bool wok = fabsf(cwp) >= 1e-20f;
+      const float inv_w = 1.0f / (wok ? cwp : 1.0f);
+      const float u = __fadd_rn(__fmul_rn(wok ? __fmul_rn(cxp, inv_w) : 0.0f, 0.5f), 0.5f);
+      const float v = __fadd_rn(__fmul_rn(wok ? __fmul_rn(cyp, inv_w) : 0.0f, 0.5f), 0.5f);
+      const int ppx = min(max(static_cast<int>(__fmul_rn(u, static_cast<float>(P.width))), 0), P.width - 1);
+      const int ppy = min(max(static_cast<int>(__fmul_rn(__fsub_rn(1.0f, v), static_cast<float>(P.height))), 0),
+                          P.height - 1);
+      prev_pix = ppx + ppy * P.width;
+    }
+    __shared__ int tile_sum, tile_cnt;
+    if (lane == 0) {
+      tile_sum = 0;
+      tile_cnt = 0;
+    }
+    __syncthreads();
+    if (o.shade) {
+      atomicAdd(&tile_sum, prev_pix - pix);
+      atomicAdd(&tile_cnt, 1);
+    }
+    __syncthreads();
+    const int off = static_cast<int>(rintf(static_cast<float>(tile_sum) / fmaxf(static_cast<float>(tile_cnt), 1.0f)));
+    const int q = min(max(tile * C + off, 0), B - C) + lane;
+    if (o.shade) {
+      const float* st = P.state_in;
+      const float p_m = row1(st, GT_M, B, q);
+      const bool valid = dot(row3(st, GT_NRM, B, q), o.n) >= kNormalTemporal && p_m > 0.0f && q == prev_pix;
+      const float prev_m = fminf(p_m, P.history_limit * fmaxf(res.m, 1.0f));
+      const float ut = next_uniform(key);
+      if (valid) {
+        const float p_prev = row1(st, GT_PHAT, B, q);
+        res_update(res, row3(st, GT_SP, B, q), row3(st, GT_SN, B, q), row3(st, GT_RAD, B, q),
+                   p_prev * row1(st, GT_W, B, q) * prev_m, prev_m, p_prev, ut);
+        res.w = w_of(res);
+      }
+    }
+  }
+}
+
+__device__ void write_stage(float* sg, int B, int pix, const Own& o, const PathRes& res) {
+  put3(sg, GS_POS, B, pix, o.pos);
+  put3(sg, GS_NRM, B, pix, o.n);
+  put3(sg, GS_ALB, B, pix, o.alb);
+  sg[GS_ROUGH * B + pix] = o.rough;
+  sg[GS_METAL * B + pix] = o.metal;
+  sg[GS_T * B + pix] = o.t;
+  sg[GS_SHADE * B + pix] = o.shade ? 1.0f : 0.0f;
+  put3(sg, GS_EMIT, B, pix, o.em);
+  sg[GS_HIT * B + pix] = o.hit ? 1.0f : 0.0f;
+  put3(sg, GS_SKY, B, pix, o.sky_direct);
+  put3(sg, GS_SP, B, pix, res.sp);
+  put3(sg, GS_SN, B, pix, res.sn);
+  put3(sg, GS_RAD, B, pix, res.rad);
+  sg[GS_PHAT * B + pix] = res.phat;
+  sg[GS_W * B + pix] = res.w;
+  sg[GS_M * B + pix] = res.m;
+  sg[GS_WSUM * B + pix] = res.wsum;
+}
+
+// ---- the second half (K7; K5 after its stage) ---------------------------------
+
+// Spatial reuse of res over the frame's neighbours read from nb (a stage
+// buffer), with per-neighbour visibility when vis (megakernel_restir_gi.py:
+// 1185-1373 and 447-661).
+__device__ void spatial(const Params& P, const float* nb, int pix, const Own& o, PathRes& res, uint32_t& key,
+                        bool vis) {
+  const int C = blockDim.x;
+  const int lane = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int B = P.width * P.height;
+  const Tris tris{P.geo.positions, P.geo.tri_v};
+  const int px = pix % P.width, py = pix / P.width;
+  float z = o.shade ? res.m : 0.0f;
+  uint32_t okey = fold(fold(fold(pcg(0xD1CEu), P.frame), 0u), 8002u);
+  for (int k = 0; k < P.neighbors; ++k) {
+    const float ux = next_uniform(okey);
+    const float uy = next_uniform(okey);
+    const float u_acc = next_uniform(key);
+    if (!o.shade) continue;
+    const int dx = static_cast<int>(__fmul_rn(__fsub_rn(__fmul_rn(ux, 2.0f), 1.0f), P.radius));
+    const int dy = static_cast<int>(__fmul_rn(__fsub_rn(__fmul_rn(uy, 2.0f), 1.0f), P.radius));
+    const int s = tile * C + dy * P.width + dx;
+    const int sc = min(max(s, 0), B - C);
+    const int q = sc + lane;
+    const bool in_img = px + dx >= 0 && px + dx < P.width && py + dy >= 0 && py + dy < P.height;
+    const float n_t = row1(nb, GS_T, B, q);
+    const bool ok = in_img && s == sc && n_t <= 1.1f * o.t && n_t >= 0.9f * o.t &&
+                    dot(row3(nb, GS_NRM, B, q), o.n) >= kNormalSpatial && row1(nb, GS_SHADE, B, q) > 0.5f &&
+                    row1(nb, GS_M, B, q) > 0.0f;
+    if (!ok) continue;
+
+    // Jacobian of path reconnection (eq. 11, Renderer.cu:2343-2353)
+    const float3 spn = row3(nb, GS_SP, B, q);
+    const float3 snn = row3(nb, GS_SN, B, q);
+    const float3 radn = row3(nb, GS_RAD, B, q);
+    const float3 dq = row3(nb, GS_POS, B, q) - spn;
+    const float3 dr = o.pos - spn;
+    const float dist_q = sqrtf(fmaxf(dot(dq, dq), 1e-20f));
+    const float dist_r = sqrtf(fmaxf(dot(dr, dr), 1e-20f));
+    const float cos_q = dot(snn, dq) / dist_q;
+    const float cos_r = dot(snn, dr) / dist_r;
+    const float jac = (cos_q > 0.0f ? cos_r / fmaxf(cos_q, 1e-12f) : 0.0f) * (dist_q * dist_q) /
+                      fmaxf(dist_r * dist_r, 1e-20f);
+    float p_n = jac > 0.0f ? rad_norm(radn) / fmaxf(jac, 1e-12f) : 0.0f;
+    if (vis && p_n > 0.0f && !segment_visible(P.bvh, tris, spn + snn * kOriginEps, dr / dist_r, dist_r)) p_n = 0.0f;
+    const float nb_m = row1(nb, GS_M, B, q);
+    z = z + nb_m;
+    res_update(res, spn, snn, radn, p_n * row1(nb, GS_W, B, q) * nb_m, nb_m, p_n, u_acc);
+  }
+  res.w = res.phat > 0.0f ? res.wsum / (fmaxf(z, 1.0f) * res.phat) : 0.0f;
+}
+
+// The shade (restir_gi._shade), the frame's HDR added to accum and the state
+// written; final_vis traces one visibility ray for the winner.
+__device__ void shade_out(const Params& P, int pix, const Own& o, const PathRes& res, float3 view, bool final_vis) {
+  const int B = P.width * P.height;
+  float3 hdr;
+  if (!o.hit) {
+    hdr = P.sky;
+  } else if (!o.shade) {
+    hdr = o.em;
+  } else {
+    const float3 ts = res.sp - o.pos;
+    const float dist = sqrtf(fmaxf(dot(ts, ts), 1e-20f));
+    const float3 sd = ts / dist;
+    bool lane_ok = res.w > 0.0f;
+    if (lane_ok && final_vis) {
+      const Tris tris{P.geo.positions, P.geo.tri_v};
+      lane_ok = segment_visible(P.bvh, tris, res.sp + res.sn * kOriginEps, -sd, dist);
+    }
+    float3 gi = zero3();
+    if (lane_ok) {
+      const float3 f = cook_torrance(o.n, view, sd, o.alb, o.metal, o.rough);
+      const float cos_t = fmaxf(dot(sd, o.n), 0.0f);
+      gi = f * cos_t * res.w * res.rad;
+    }
+    hdr = gi + o.sky_direct;
+  }
+  P.accum[3 * pix + 0] += hdr.x;
+  P.accum[3 * pix + 1] += hdr.y;
+  P.accum[3 * pix + 2] += hdr.z;
+
+  float* st = P.state_out;
+  put3(st, GT_SP, B, pix, res.sp);
+  put3(st, GT_SN, B, pix, res.sn);
+  put3(st, GT_RAD, B, pix, res.rad);
+  st[GT_PHAT * B + pix] = res.phat;
+  st[GT_W * B + pix] = res.w;
+  st[GT_M * B + pix] = res.m;
+  st[GT_WSUM * B + pix] = res.wsum;
+  put3(st, GT_NRM, B, pix, o.n);
+}
+
+// ---- the kernels: one block per tile of C = blockDim.x pixels ------------------------
+
+// K5: the whole frame; spatial reuse reads the previous frame's stage.
+template <bool kFinalVis>
+__global__ void __launch_bounds__(512) gi_mono(Params P) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int B = P.width * P.height;
+  Own o;
+  PathRes res;
+  uint32_t key;
+  stage1(P, pix, o, res, key);
+  write_stage(P.stage_out, B, pix, o, res);
+  key = fold(key, 8002u);
+  if (P.neighbors > 0) spatial(P, P.stage_in, pix, o, res, key, !kFinalVis);
+  float3 orig, dir;
+  camera_ray(P.cam, P.width, P.height, pix, orig, dir);
+  shade_out(P, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
+}
+
+// K6: the stage of this frame.
+__global__ void __launch_bounds__(512) gi_stage1(Params P) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  Own o;
+  PathRes res;
+  uint32_t key;
+  stage1(P, pix, o, res, key);
+  write_stage(P.stage_out, P.width * P.height, pix, o, res);
+}
+
+// K7: same-frame spatial reuse from K6's stage, the shade, the state.
+__global__ void __launch_bounds__(512) gi_stage2(Params P) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int B = P.width * P.height;
+  const float* sg = P.stage_in;
+  Own o;
+  o.pos = row3(sg, GS_POS, B, pix);
+  o.n = row3(sg, GS_NRM, B, pix);
+  o.alb = row3(sg, GS_ALB, B, pix);
+  o.em = row3(sg, GS_EMIT, B, pix);
+  o.sky_direct = row3(sg, GS_SKY, B, pix);
+  o.rough = row1(sg, GS_ROUGH, B, pix);
+  o.metal = row1(sg, GS_METAL, B, pix);
+  o.t = row1(sg, GS_T, B, pix);
+  o.hit = row1(sg, GS_HIT, B, pix) > 0.5f;
+  o.shade = row1(sg, GS_SHADE, B, pix) > 0.5f;
+  PathRes res{row3(sg, GS_SP, B, pix), row3(sg, GS_SN, B, pix), row3(sg, GS_RAD, B, pix), row1(sg, GS_PHAT, B, pix),
+              row1(sg, GS_W, B, pix), row1(sg, GS_M, B, pix), row1(sg, GS_WSUM, B, pix)};
+  uint32_t key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 8002u);
+  if (P.neighbors > 0) spatial(P, sg, pix, o, res, key, true);
+  float3 orig, dir;
+  camera_ray(P.cam, P.width, P.height, pix, orig, dir);
+  shade_out(P, pix, o, res, -dir, false);
+}
+
+}  // namespace
+
+extern "C" int fyp_restir_gi(
+    int kernel, const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int bounces,
+    int neighbors, float radius, float history_limit, int temporal, float sky_r, float sky_g, float sky_b,
+    const void* positions, const void* normals, const void* tri_v, const void* tri_mat,
+    const void* albedo, const void* roughness, const void* metallic, const void* emission,
+    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first, const void* bvh_prim_idx,
+    int n_nodes, int leaf_size,
+    const void* state_in, const void* stage_in, void* state_out, void* stage_out, void* accum, void* stream) {
+  const int n_pix = width * height;
+  if (n_pix <= 0) return 0;
+  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto I = [](const void* p) { return static_cast<const int*>(p); };
+  Params P;
+  P.cam = F(cam);
+  P.ppv = F(ppv);
+  P.width = width;
+  P.height = height;
+  P.frame = frame;
+  P.bounces = bounces;
+  P.neighbors = neighbors;
+  P.radius = radius;
+  P.history_limit = history_limit;
+  P.temporal = temporal;
+  P.sky = make_float3(sky_r, sky_g, sky_b);
+  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
+  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
+  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.state_in = F(state_in);
+  P.stage_in = F(stage_in);
+  P.state_out = static_cast<float*>(state_out);
+  P.stage_out = static_cast<float*>(stage_out);
+  P.accum = static_cast<float*>(accum);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = n_pix / lanes;
+  switch (kernel) {
+    case kMono:
+      gi_mono<false><<<blocks, lanes, 0, s>>>(P);
+      break;
+    case kMonoFinalVis:
+      gi_mono<true><<<blocks, lanes, 0, s>>>(P);
+      break;
+    case kStage1:
+      gi_stage1<<<blocks, lanes, 0, s>>>(P);
+      break;
+    case kStage2:
+      gi_stage2<<<blocks, lanes, 0, s>>>(P);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

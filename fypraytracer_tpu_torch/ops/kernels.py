@@ -27,6 +27,9 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per source: restir_gi.cu fuses no product into a sum, so that its reservoir
+# decisions round as its plain PyTorch version's do
+EXTRA_FLAGS = {"restir_gi": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per library: {"path", "seconds" (0.0 when it was already built), "log"}
@@ -43,7 +46,7 @@ def find_nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(sorted(EXTRA_FLAGS.items())).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn.endswith((".cu", ".cuh")):
             h.update(fn.encode())
@@ -61,7 +64,8 @@ def build(name: str) -> str:
         build_info.setdefault(name, dict(path=out, seconds=0.0, log=""))
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

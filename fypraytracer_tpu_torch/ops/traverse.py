@@ -15,6 +15,12 @@ or raises.  ``trace_closest.launches`` counts its kernel launches.
 Both return ``dict(tri (B,) i32 (-1 miss), t (B,) f32 (-1 miss), u, v)``,
 with t/u/v from Möller–Trumbore, as the JAX tracers do.
 
+``segment_visible`` is the plain version of the device function of the same
+name in ``csrc/traverse.cuh``: the visibility test of a segment that ReSTIR
+GI's reconnections use.  ``trace_rays(..., counts=...)`` also counts the
+walk's node visits and triangle tests, for the roofline bound that
+``chip_smoke.py`` reports; no render path asks for counts.
+
 Ties: of hits at exactly the same t, the lowest triangle id wins, as in
 the TPU kernel (pallas_dense.py:65-70), so the result does not depend on
 the walk order.  The JAX BVH walk keeps the first hit in walk order
@@ -35,11 +41,16 @@ from fypraytracer_tpu_torch.scene.types import FlatBVH, Geometry
 
 _BIG = 3.0e38
 
-
-def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None):
+def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None,
+               stop_below=None, counts: dict | None = None):
     """Closest hit of a ray batch (B, 3) against the BVH — plain PyTorch.
 
-    ``t_max``: optional (B,) upper bound on t.
+    ``t_max``: optional (B,) upper bound on t.  ``stop_below``: optional
+    (B,); a ray ends its walk once it has a hit with t below it (its result
+    is then some hit below it, not necessarily the closest).  ``counts``:
+    optional dict; the walk adds its node visits (box tests) to
+    ``counts["nodes"]`` and its triangle tests to ``counts["tris"]`` (an
+    int and a 0-d tensor).
     """
     B = origins.shape[0]
     dev = origins.device
@@ -59,6 +70,8 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
 
     ray = torch.arange(B, device=dev)           # rays still walking
     while ray.numel():
+        if counts is not None:
+            counts["nodes"] += ray.numel()
         nd = node[ray]
         o = origins[ray]
         hit_box = ray_aabb(o, inv_dir[ray], bvh.lo[nd], bvh.hi[nd], t[ray])
@@ -75,6 +88,8 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
             p2 = geometry.positions[tv[..., 2]]
             tt, uu, vv, hit = moller_trumbore(origins[r][:, None], directions[r][:, None], p0, p1, p2)
             hit = hit & (tri_ids >= 0)
+            if counts is not None:
+                counts["tris"] = counts["tris"] + (tri_ids >= 0).sum()
             tt = torch.where(hit, tt, _BIG)
             t_leaf = tt.amin(dim=1)
             # lowest id among the slots at the leaf's closest t
@@ -90,9 +105,27 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
 
         nxt = torch.where(hit_box & ~is_leaf, nd + 1, bvh.miss[nd].long())
         node[ray] = nxt
-        ray = ray[nxt < n_nodes]
+        walking = nxt < n_nodes
+        if stop_below is not None:
+            walking = walking & ~(t[ray] < stop_below[ray])
+        ray = ray[walking]
 
     return dict(tri=tri, t=torch.where(tri < 0, -1.0, t), u=u, v=v)
+
+
+def segment_visible(bvh: FlatBVH, geometry: Geometry, origins, directions, dist):
+    """(B,) bool: the segment of length ``dist`` from each origin along its
+    unit direction reaches its end.  True when no hit has t < dist − tol and
+    some hit has t ≤ dist + tol, tol = max(1e-4, 1e-3·dist): the JAX
+    megakernels' shadow test (megakernel.py:847-866), which is the
+    wavefront's |t_closest − dist| ≤ tol.  A closest-hit walk bounded by
+    dist + tol that stops at the first hit below dist − tol, as
+    ``csrc/traverse.cuh::segment_visible`` walks."""
+    tol = torch.clamp_min(dist * 1e-3, 1e-4)
+    lo, hi = dist - tol, dist + tol
+    h = trace_rays(bvh, geometry, origins, directions,
+                   t_max=torch.nextafter(hi, torch.full_like(hi, float("inf"))), stop_below=lo)
+    return (h["tri"] >= 0) & (h["t"] >= lo)
 
 
 _TRACE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5

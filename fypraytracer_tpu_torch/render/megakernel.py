@@ -84,8 +84,9 @@ def _sampler(settings: RenderSettings) -> str:
     tech = SamplingTechnique(settings.technique)
     if tech not in SAMPLER_OF:
         raise NotImplementedError(
-            f"MegakernelRenderer renders techniques 0-6, not {tech.name}; "
-            "ReSTIR DI is render.megakernel_restir.MegakernelReSTIRDI")
+            f"MegakernelRenderer renders techniques 0-6, not {tech.name}; ReSTIR DI is "
+            "render.megakernel_restir.MegakernelReSTIRDI, ReSTIR GI "
+            "render.megakernel_restir_gi.MegakernelReSTIRGI")
     return SAMPLER_OF[tech]
 
 
@@ -173,7 +174,7 @@ class MegakernelRenderer:
         avg_hdr = mk.render_many(64)   # one kernel launch
     """
 
-    def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device):
+    def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
         check_supported(scene, settings)
         _sampler(settings)
         self.device = torch.device(device)

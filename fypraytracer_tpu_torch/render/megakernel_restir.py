@@ -24,6 +24,8 @@ pixels of a frame and a neighbour counts only where the tile's read is
 unclamped and in the image; normals are not octahedral-quantized.  The
 stage and state are (rows, B) float32 tensors whose rows are the ``S_*``
 and ``ST_*`` constants (the same numbers as in ``csrc/restir_di.cu``).
+Tiles, reprojection, neighbour offsets and the launch helpers are
+``render/restir_common.py``'s, shared with ReSTIR GI.
 
 ``restir_di_k3_plain``/``restir_di_k4_plain`` are the kernels' plain
 PyTorch versions on whole images (the tile mean as ``(G, C)``
@@ -38,18 +40,26 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
-import numpy as np
 import torch
 
 from fypraytracer_tpu_torch.config import RenderSettings
 from fypraytracer_tpu_torch.core import rng
-from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
+from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.core.mathutils import cook_torrance_brdf, cross3, dot3, normalize
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.hit import hit_payload
 from fypraytracer_tpu_torch.ops.traverse import trace_rays
 from fypraytracer_tpu_torch.render.renderer import check_supported
+from fypraytracer_tpu_torch.render.restir_common import (
+    bvh_args,
+    camera_matrices,
+    camera_rays,
+    hit_surface,
+    pick_ray_lanes,
+    spatial_offsets,
+    tile_history_index,
+)
 from fypraytracer_tpu_torch.render.restir_di import _finalize_w, reservoir_update
 from fypraytracer_tpu_torch.scene.types import Scene
 
@@ -70,14 +80,6 @@ RES_FIELDS = ("index", "w", "pdf", "wsum", "m")
 
 _NORMAL_TEMPORAL = 0.99    # Renderer.cu:1772
 _NORMAL_SPATIAL = 0.906    # Renderer.cu:1935
-
-
-def pick_ray_lanes(num_pixels: int) -> int:
-    """Pixels per tile (megakernel.py:2550-2554): 512 when it divides."""
-    for c in (512, 256, 128):
-        if num_pixels % c == 0:
-            return c
-    raise ValueError(f"pixel count {num_pixels} not divisible by 128")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,19 +120,6 @@ def prepare_emissive_table(scene: Scene) -> EmissiveTable:
         emission=emission.contiguous(), centroid=((p0 + p1 + p2) / 3.0).contiguous(), tri=tri)
 
 
-def spatial_offsets(frame: int, n: int, radius: float) -> list[tuple[int, int]]:
-    """The frame's ``n`` neighbour offsets (dx, dy), shared by every pixel
-    (megakernel_restir.py:753-762)."""
-    key = rng.path_key(torch.tensor([0xD1CE]), int(frame), 0, stream=7002)
-    out = []
-    for _ in range(n):
-        key, (ux, uy) = rng.uniforms(key, 2)
-        dx = int(((ux * 2.0 - 1.0) * radius).to(torch.int32))
-        dy = int(((uy * 2.0 - 1.0) * radius).to(torch.int32))
-        out.append((dx, dy))
-    return out
-
-
 # ---- plain versions ------------------------------------------------------------
 
 def _zeros(B, dev):
@@ -156,32 +145,16 @@ def _p_hat(em: EmissiveTable, e, pos, n, view, alb, rough, metal):
     return torch.sqrt(torch.clamp_min(dot3(r, r, keepdims=False), 0.0))
 
 
-def _rays(camera: Camera, device):
-    return generate_rays(camera.inv_projection, camera.inv_view, camera.width, camera.height,
-                         device=device)
-
-
 def restir_di_k3_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                        settings: RenderSettings, state: torch.Tensor, ppv) -> torch.Tensor:
     """K3 in PyTorch: the (S_ROWS, B) stage of frame ``frame`` from the
     previous frame's ``state``, reprojecting through ``ppv``."""
     dev = state.device
-    w, h = camera.width, camera.height
-    B = w * h
-    C = pick_ray_lanes(B)
-    o, d = _rays(camera, dev)
+    B = camera.width * camera.height
+    o, d = camera_rays(camera, dev)
     tri = trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
-    pay = hit_payload(scene.geometry, o, d, tri)
-    hit = tri >= 0
-    mat = torch.clamp_min(pay["mat"], 0).long()
-    mats = scene.materials
-
-    def on_hit(x):
-        return torch.where(hit if x.dim() == 1 else hit[:, None], x, 0.0)
-
-    pos, n = on_hit(pay["position"]), on_hit(pay["normal"])
-    alb, rough, metal = on_hit(mats.albedo[mat]), on_hit(mats.roughness[mat]), on_hit(mats.metallic[mat])
-    em0 = on_hit(mats.emission()[mat])
+    s0 = hit_surface(scene, o, d, tri)
+    hit, pos, n, alb, rough, metal, em0 = (s0[k] for k in ("hit", "pos", "n", "alb", "rough", "metal", "em"))
     shade = hit & ~(dot3(em0, em0, keepdims=False) > 0.0)
     view = -d
     pix = torch.arange(B, device=dev)
@@ -197,27 +170,7 @@ def restir_di_k3_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
     res = _finalize_w(res)
 
     if settings.temporal_reuse:
-        pv = torch.as_tensor(np.asarray(ppv, np.float32), device=dev)
-
-        def prow(r):
-            return pv[r, 0] * pos[:, 0] + pv[r, 1] * pos[:, 1] + pv[r, 2] * pos[:, 2] + pv[r, 3]
-
-        cx, cy, cw = prow(0), prow(1), prow(3)
-        wok = torch.abs(cw) >= 1e-20
-        inv_w = 1.0 / torch.where(wok, cw, 1.0)
-        u = torch.where(wok, cx * inv_w, 0.0) * 0.5 + 0.5
-        v = torch.where(wok, cy * inv_w, 0.0) * 0.5 + 0.5
-        ppx = torch.clamp((u * w).to(torch.int32), 0, w - 1)
-        ppy = torch.clamp(((1.0 - v) * h).to(torch.int32), 0, h - 1)
-        prev_pix = (ppx + ppy * w).to(torch.int64)
-
-        # the tile's one offset: rint of the mean offset of its shading pixels
-        tot = torch.where(shade, prev_pix - pix, 0).reshape(-1, C).sum(1)
-        cnt = shade.reshape(-1, C).sum(1)
-        off = torch.round(tot.to(torch.float32) / torch.clamp_min(cnt.to(torch.float32), 1.0))
-        sc = torch.clamp(torch.arange(B // C, device=dev) * C + off.to(torch.int64), 0, B - C)
-        q = (sc[:, None] + torch.arange(C, device=dev)[None, :]).reshape(B)
-
+        q, prev_pix = tile_history_index(camera, ppv, pos, shade)
         pn = state[ST_NRM:ST_NRM + 3, q].T
         p_m = state[ST_RM, q]
         valid = (dot3(pn, n, keepdims=False) >= _NORMAL_TEMPORAL) & (p_m > 0.0) & shade \
@@ -235,7 +188,7 @@ def restir_di_k3_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
         tmp = _finalize_w(tmp, 1.0 / torch.clamp_min(z, 1.0))
         res = {k: torch.where(valid, tmp[k], res[k]) for k in RES_FIELDS}
 
-    return torch.stack([*pos.T, *n.T, *alb.T, rough, metal, torch.where(hit, pay["t"], -1.0),
+    return torch.stack([*pos.T, *n.T, *alb.T, rough, metal, s0["t"],
                         shade.to(torch.float32), *em0.T, hit.to(torch.float32),
                         *(res[k] for k in RES_FIELDS)])
 
@@ -254,7 +207,7 @@ def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
     rough, metal, t_own = stage[S_ROUGH], stage[S_METAL], stage[S_T]
     shade, hit = stage[S_SHADE] > 0.5, stage[S_HIT] > 0.5
     res = {k: stage[S_RIDX + i] for i, k in enumerate(RES_FIELDS)}
-    _, d = _rays(camera, dev)
+    _, d = camera_rays(camera, dev)
     view = -d
     pix = torch.arange(B, device=dev)
     key = rng.path_key(pix, frame, 0, stream=7002)
@@ -266,7 +219,7 @@ def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
         z = torch.where(shade & (res["pdf"] > 0.0), res["m"], 0.0)
         px, py, lane, tile = pix % w, pix // w, pix % C, pix // C
         for dx, dy in spatial_offsets(frame, settings.spatial_neighbors,
-                                      float(settings.spatial_radius)):
+                                      float(settings.spatial_radius), stream=7002):
             s = tile * C + dy * w + dx
             sc = torch.clamp(s, 0, B - C)
             q = sc + lane
@@ -328,11 +281,6 @@ def _em_args(em: EmissiveTable):
             P(em.centroid), P(em.tri), em.n)
 
 
-def _bvh_args(b):
-    P = kernels.ptr
-    return P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size
-
-
 def _check(name, scene, em, tensors):
     g, m, b = scene.geometry, scene.materials, scene.bvh
     kernels.check_inputs(
@@ -342,21 +290,19 @@ def _check(name, scene, em, tensors):
         ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx, em.tri))
 
 
-def _cam(camera: Camera, device):
-    return torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
-                           device=device)
-
-
 def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
-                 settings: RenderSettings, state: torch.Tensor, ppv) -> torch.Tensor:
+                 settings: RenderSettings, state: torch.Tensor, ppv, *,
+                 cam: torch.Tensor | None = None) -> torch.Tensor:
     """The (S_ROWS, B) stage of frame ``frame`` through the CUDA kernel K3
-    (plain version for CPU tensors)."""
+    (plain version for CPU tensors).  ``ppv`` may be an array or a tensor on
+    the card, ``cam`` the camera's ``camera_matrices`` on the card (made
+    from ``camera`` when None)."""
     if state.device.type == "cpu":
         return restir_di_k3_plain(scene, em, camera, frame, settings, state, ppv)
     dev = state.device
     B = camera.width * camera.height
-    cam = _cam(camera, dev)
-    pv = torch.as_tensor(np.asarray(ppv, np.float32), device=dev).contiguous()
+    cam = camera_matrices(camera, dev) if cam is None else cam
+    pv = torch.as_tensor(ppv, dtype=torch.float32, device=dev)
     emission = scene.materials.emission().contiguous()
     stage = torch.empty((S_ROWS, B), dtype=torch.float32, device=dev)
     _check("restir_di_k3", scene, em, (cam, pv, emission, state, stage))
@@ -377,22 +323,22 @@ def _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, sta
             float(settings.temporal_history_limit), int(settings.temporal_reuse),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
-            *_bvh_args(scene.bvh), *_em_args(em), P(state), P(stage), stream)
+            *bvh_args(scene.bvh), *_em_args(em), P(state), P(stage), stream)
     restir_di_k3.launches += 1
     kernels.check(rc, "restir_di_k3")
 
 
 def restir_di_k4(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                  settings: RenderSettings, stage: torch.Tensor, state: torch.Tensor,
-                 accum: torch.Tensor) -> None:
+                 accum: torch.Tensor, *, cam: torch.Tensor | None = None) -> None:
     """Spatial reuse and shade of frame ``frame`` through the CUDA kernel K4
     (plain version for CPU tensors): adds the frame to ``accum`` (B, 3) and
-    writes ``state`` in place."""
+    writes ``state`` in place.  ``cam`` as for ``restir_di_k3``."""
     if stage.device.type == "cpu":
         return restir_di_k4_plain(scene, em, camera, frame, settings, stage, state, accum)
     dev = stage.device
     B = camera.width * camera.height
-    cam = _cam(camera, dev)
+    cam = camera_matrices(camera, dev) if cam is None else cam
     _check("restir_di_k4", scene, em, (cam, stage, state, accum))
     if stage.shape != (S_ROWS, B) or state.shape != (ST_ROWS, B) or accum.shape != (B, 3):
         raise ValueError("restir_di_k4: stage, state and accum must be "
@@ -410,7 +356,7 @@ def _launch_k4(scene, em, camera, frame, settings, cam, stage, state, accum, str
             pick_ray_lanes(camera.width * camera.height), settings.spatial_neighbors,
             float(settings.spatial_radius), int(settings.spatial_reuse),
             *(float(c) for c in settings.sky_color), P(g.positions), P(g.tri_v),
-            *_bvh_args(scene.bvh), *_em_args(em), P(stage), P(state), P(accum), stream)
+            *bvh_args(scene.bvh), *_em_args(em), P(stage), P(state), P(accum), stream)
     restir_di_k4.launches += 1
     kernels.check(rc, "restir_di_k4")
 
@@ -445,9 +391,14 @@ def restir_di_megakernel(scene: Scene, em: EmissiveTable, camera: Camera, state:
                          frame0: int, n_frames: int, settings: RenderSettings,
                          ppv0, ppv1) -> torch.Tensor:
     """As ``restir_di_megakernel_plain``, each frame through K3 then K4 on
-    the current stream (the plain versions for CPU tensors)."""
-    return _frames(restir_di_k3, restir_di_k4, scene, em, camera, state, frame0, n_frames,
-                   settings, ppv0, ppv1)
+    the current stream (the plain versions for CPU tensors).  The camera and
+    the two proj @ view go to the device once, before the frames: a copy
+    to the card waits for the stream to drain."""
+    dev = state.device
+    cam = camera_matrices(camera, dev)
+    ppv0, ppv1 = (torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (ppv0, ppv1))
+    return _frames(functools.partial(restir_di_k3, cam=cam), functools.partial(restir_di_k4, cam=cam),
+                   scene, em, camera, state, frame0, n_frames, settings, ppv0, ppv1)
 
 
 class MegakernelReSTIRDI:
@@ -461,7 +412,7 @@ class MegakernelReSTIRDI:
         avg_hdr = mk.render_many(64)
     """
 
-    def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device):
+    def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
         check_supported(scene, settings)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)

@@ -1,12 +1,12 @@
 """Wavefront renderer — frame orchestration with device-resident state.
 
 The torch counterpart of ``fypraytracer_tpu/render/renderer.py``
-(``Renderer::Render``, Renderer.cu:13-284) for techniques 0-7: the scene
-is uploaded once, camera rays are made on the device from two 4×4
+(``Renderer::Render``, Renderer.cu:13-284) for all nine techniques: the
+scene is uploaded once, camera rays are made on the device from two 4×4
 matrices, and the accumulation buffer stays on the device, updated in
 place.  A frame of techniques 0-6 is one integrator over all pixels
-(``frame_hdr``); ReSTIR DI is stateful: its reservoirs and G-buffer stay
-on the device between frames (``render_step_stateful``).  On a CUDA device
+(``frame_hdr``); ReSTIR DI and GI are stateful: their reservoirs and
+G-buffer stay on the device between frames (``render_step_stateful``).  On a CUDA device
 every trace is the kernel ``csrc/trace.cu`` (``ops.traverse.pick_tracer``).
 """
 
@@ -19,7 +19,7 @@ from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
 from fypraytracer_tpu_torch.core.color import finalize_pixels, pack_abgr
 from fypraytracer_tpu_torch.ops.traverse import pick_tracer
-from fypraytracer_tpu_torch.render import restir_di
+from fypraytracer_tpu_torch.render import restir_di, restir_gi
 from fypraytracer_tpu_torch.render.integrators import (
     radiance_hemisphere,
     radiance_light_source,
@@ -37,12 +37,7 @@ _SAMPLER_OF = {
 
 
 def check_supported(scene: Scene, settings: RenderSettings) -> None:
-    """Refuse what this slice of the port does not render yet: ReSTIR GI
-    and textured materials."""
-    if settings.technique == SamplingTechnique.RESTIR_GI:
-        raise NotImplementedError(
-            f"technique {SamplingTechnique(settings.technique).name} is not ported yet; "
-            "the port renders techniques 0-7 (BRUTE_FORCE .. RESTIR_DI)")
+    """Refuse what the port does not render yet: textured materials."""
     albedo_map = torch.as_tensor(scene.materials.albedo_map)
     if bool((albedo_map >= 0).any()):
         raise NotImplementedError("textured materials (albedo_map >= 0) are not ported yet")
@@ -71,15 +66,21 @@ def frame_hdr(scene: Scene, camera: Camera, frame: int, settings: RenderSettings
 
 def render_step_stateful(scene: Scene, camera: Camera, prev_proj_view, frame: int,
                          settings: RenderSettings, state: dict, trace_fn=None):
-    """One ReSTIR DI frame (the reference's per-frame kernel pair,
+    """One ReSTIR DI or GI frame (the reference's per-frame kernel pair,
     Renderer.cu:166-224): returns ((H, W, 3) HDR, new state)."""
     dev = scene.geometry.positions.device
     w, h = camera.width, camera.height
     origins, directions = generate_rays(camera.inv_projection, camera.inv_view, w, h, device=dev)
     pixel_ids = torch.arange(w * h, device=dev)
     trace = trace_fn or pick_tracer(scene)
-    hdr, state = restir_di.render_restir_di(scene, trace, origins, directions, pixel_ids, frame,
-                                            settings, state, w, h, prev_proj_view)
+    if settings.technique == SamplingTechnique.RESTIR_DI:
+        render = restir_di.render_restir_di
+    elif settings.technique == SamplingTechnique.RESTIR_GI:
+        render = restir_gi.render_restir_gi
+    else:
+        raise NotImplementedError(f"technique {settings.technique} is not stateful")
+    hdr, state = render(scene, trace, origins, directions, pixel_ids, frame, settings, state, w, h,
+                        prev_proj_view)
     return hdr.reshape(h, w, 3), state
 
 
@@ -91,7 +92,7 @@ class Renderer:
         img = r.render_frame()         # uint32 ABGR (H, W) on host
     """
 
-    def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device):
+    def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
         check_supported(scene, settings)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
@@ -103,14 +104,15 @@ class Renderer:
         self.aux_state = self._init_aux_state()
 
     def _is_stateful(self) -> bool:
-        return self.settings.technique == SamplingTechnique.RESTIR_DI
+        return self.settings.technique in (SamplingTechnique.RESTIR_DI, SamplingTechnique.RESTIR_GI)
 
     def _init_aux_state(self):
         """Per-pixel reservoir/G-buffer state (ResizeReservoirs etc.,
         Renderer.cu:286-420); None for the stateless techniques."""
         if not self._is_stateful():
             return None
-        return restir_di.init_state(self.camera.width * self.camera.height, self.device)
+        module = restir_di if self.settings.technique == SamplingTechnique.RESTIR_DI else restir_gi
+        return module.init_state(self.camera.width * self.camera.height, self.device)
 
     def reset(self):
         """ResetFrameIndex + clear accumulation (Renderer.h:46)."""

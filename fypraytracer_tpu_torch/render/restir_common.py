@@ -1,0 +1,117 @@
+"""What the ReSTIR DI and GI megakernels share: tiles, reprojection,
+frame-shared neighbour offsets, the surface record and the launch helpers.
+
+A tile is ``pick_ray_lanes(B)`` consecutive pixels, one block of the frame
+kernels; ``tile_history_index`` is where a tile reads the previous frame's
+buffers, ``spatial_offsets`` the frame's neighbour offsets, and
+``hit_surface`` the surface record of ``csrc/shading.cuh::surface`` in
+PyTorch.  ``camera_matrices`` is the (2, 4, 4) camera tensor the kernels
+read: the frame loops make it, and the previous proj @ view, once a call, so
+that the frames launch without a blocking copy to the card between them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fypraytracer_tpu_torch.core import rng
+from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
+from fypraytracer_tpu_torch.ops import kernels
+from fypraytracer_tpu_torch.ops.hit import hit_payload
+from fypraytracer_tpu_torch.scene.types import Scene
+
+
+def pick_ray_lanes(num_pixels: int) -> int:
+    """Pixels per tile (megakernel.py:2550-2554): 512 when it divides."""
+    for c in (512, 256, 128):
+        if num_pixels % c == 0:
+            return c
+    raise ValueError(f"pixel count {num_pixels} not divisible by 128")
+
+
+def spatial_offsets(frame: int, n: int, radius: float, stream: int) -> list[tuple[int, int]]:
+    """The frame's ``n`` neighbour offsets (dx, dy), shared by every pixel,
+    drawn from ``path_key(0xD1CE, frame, 0, stream)``: stream 7002 for DI
+    (megakernel_restir.py:753-762), 8002 for GI (megakernel_restir_gi.py:
+    1521-1529)."""
+    key = rng.path_key(torch.tensor([0xD1CE]), int(frame), 0, stream=stream)
+    out = []
+    for _ in range(n):
+        key, (ux, uy) = rng.uniforms(key, 2)
+        dx = int(((ux * 2.0 - 1.0) * radius).to(torch.int32))
+        dy = int(((uy * 2.0 - 1.0) * radius).to(torch.int32))
+        out.append((dx, dy))
+    return out
+
+
+def tile_history_index(camera: Camera, ppv, pos, shade):
+    """Where each pixel reads the previous frame's per-pixel buffers, and the
+    pixel it reprojects to: ``(q, prev_pix)``, both (B,) int64.
+
+    Each shading pixel reprojects its hit point ``pos`` (B, 3) through the
+    previous proj @ view ``ppv`` (an array or a tensor); a tile of C pixels
+    reads at ONE offset, rint of the mean offset of its shading pixels
+    (summed as integers), clamped to [0, B - C] (megakernel_restir.py:
+    327-399, megakernel_restir_gi.py:1095-1129).  A pixel has its own
+    history only where ``q == prev_pix``."""
+    w, h = camera.width, camera.height
+    B = w * h
+    C = pick_ray_lanes(B)
+    dev = pos.device
+    pv = torch.as_tensor(ppv, dtype=torch.float32, device=dev)
+
+    def prow(r):
+        return pv[r, 0] * pos[:, 0] + pv[r, 1] * pos[:, 1] + pv[r, 2] * pos[:, 2] + pv[r, 3]
+
+    cx, cy, cw = prow(0), prow(1), prow(3)
+    wok = torch.abs(cw) >= 1e-20
+    inv_w = 1.0 / torch.where(wok, cw, 1.0)
+    u = torch.where(wok, cx * inv_w, 0.0) * 0.5 + 0.5
+    v = torch.where(wok, cy * inv_w, 0.0) * 0.5 + 0.5
+    ppx = torch.clamp((u * w).to(torch.int32), 0, w - 1)
+    ppy = torch.clamp(((1.0 - v) * h).to(torch.int32), 0, h - 1)
+    prev_pix = (ppx + ppy * w).to(torch.int64)
+
+    pix = torch.arange(B, device=dev)
+    tot = torch.where(shade, prev_pix - pix, 0).reshape(-1, C).sum(1)
+    cnt = shade.reshape(-1, C).sum(1)
+    off = torch.round(tot.to(torch.float32) / torch.clamp_min(cnt.to(torch.float32), 1.0))
+    sc = torch.clamp(torch.arange(B // C, device=dev) * C + off.to(torch.int64), 0, B - C)
+    return (sc[:, None] + torch.arange(C, device=dev)[None, :]).reshape(B), prev_pix
+
+
+def hit_surface(scene: Scene, origins, directions, tri):
+    """The frame kernels' surface record (``csrc/shading.cuh::surface``) of
+    rays hitting triangles ``tri`` (-1: miss): ``hit``, ``t`` (-1 on a miss),
+    ``pos``, ``n``, ``alb``, ``rough``, ``metal`` and ``em`` (emission), zero
+    where a ray missed, as the kernels' zeroed record."""
+    pay = hit_payload(scene.geometry, origins, directions, tri)
+    hit = tri >= 0
+    mat = torch.clamp_min(pay["mat"], 0).long()
+    mats = scene.materials
+
+    def on_hit(x):
+        return torch.where(hit if x.dim() == 1 else hit[:, None], x, 0.0)
+
+    return dict(hit=hit, t=pay["t"], pos=on_hit(pay["position"]), n=on_hit(pay["normal"]),
+                alb=on_hit(mats.albedo[mat]), rough=on_hit(mats.roughness[mat]),
+                metal=on_hit(mats.metallic[mat]), em=on_hit(mats.emission()[mat]))
+
+
+def camera_rays(camera: Camera, device):
+    return generate_rays(camera.inv_projection, camera.inv_view, camera.width, camera.height,
+                         device=device)
+
+
+def camera_matrices(camera: Camera, device) -> torch.Tensor:
+    """``[inv_projection, inv_view]`` as the (2, 4, 4) float32 tensor on
+    ``device`` that the kernels read."""
+    return torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]), dtype=torch.float32,
+                           device=device)
+
+
+def bvh_args(b):
+    """The BVH's arguments of a kernel's C interface."""
+    P = kernels.ptr
+    return P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size

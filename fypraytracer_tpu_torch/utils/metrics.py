@@ -29,8 +29,11 @@ def psnr(mse: float) -> float:
 
 
 def rays_per_frame(width: int, height: int, samples: int, bounces: int,
-                   shadow_rays_per_bounce: int = 0) -> int:
-    """W·H·samples·(1 + bounces + shadow rays) (BASELINE.md definition:
-    primary + bounce + shadow rays per path)."""
-    return width * height * samples * (1 + bounces + shadow_rays_per_bounce * bounces)
+                   shadow_rays_per_bounce: int = 0, visibility_rays: int = 0) -> int:
+    """W·H·samples·(1 + bounces + shadow rays + visibility rays) (BASELINE.md
+    definition: primary + bounce + shadow rays per path).  ReSTIR GI adds its
+    reconnections' visibility rays a path: N (the spatial neighbours) with
+    per-neighbour visibility, 1 with ``final_vis``."""
+    return width * height * samples * (1 + bounces + shadow_rays_per_bounce * bounces
+                                       + visibility_rays)
 

@@ -7,7 +7,8 @@ imports nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit;
-K2, K3+K4 and the renderers under tests/test_render_parity.py:111-114
+K2, K3+K4, K5-K7 (ReSTIR GI) and the renderers under
+tests/test_render_parity.py:111-114
 (median |Δ| < 1e-5, fewer than 1% of pixels off by more than 1e-3, mean
 within 1%).  Isolated pixels may differ by FMA contraction in the kernels'
 shading code, which can flip a RIS or lobe decision.
@@ -23,8 +24,10 @@ from fypraytracer_tpu_torch.ops import traverse as ttrav
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.render import megakernel as tmk
 from fypraytracer_tpu_torch.render import megakernel_restir as tmr
+from fypraytracer_tpu_torch.render import megakernel_restir_gi as tmg
 from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
 from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
+from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
 from fypraytracer_tpu_torch.render.renderer import Renderer
 from fypraytracer_tpu_torch.scene import procedural as tproc
 
@@ -174,3 +177,82 @@ def test_restir_di_state_carries_across_calls(cuda):
                                              cam.proj_view) for f0 in (1, 3)) / 4.0
     assert mk.frame_index == 5 and float(mk.state[tmr.ST_RM].max()) > 16.0
     _gates(got.cpu().numpy(), ref.reshape(H, W, 3).cpu().numpy())
+
+
+GI = RenderSettings(technique=SamplingTechnique.RESTIR_GI, spatial_neighbors=3, spatial_radius=8,
+                    sky_color=(0.05, 0.06, 0.08))
+
+
+def _elements_off(got, ref):
+    """Share of pixels with any row off by more than 1e-3 relative."""
+    return ((got - ref).abs() > 1e-3 * torch.clamp_min(ref.abs(), 1.0)).any(0).float().mean().item()
+
+
+def test_restir_gi_kernels_match_plain_on_same_inputs(cuda):
+    """K5 (both visibility modes), K6 and K7 each against its plain version,
+    fed the same state and stage after two frames of history."""
+    scene, _, cam = _di_setup(cuda)
+    B = W * H
+    z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
+    _, state, stage = tmg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, GI, cam.proj_view, cam.proj_view)
+    ppv = cam.proj_view
+    counts = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
+
+    got = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
+    ref = tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)
+    assert _elements_off(got, ref) < 0.01
+
+    outs = []
+    for fn in (tmg.restir_gi_k2, tmg.restir_gi_k2_plain):
+        acc, st = torch.zeros((B, 3), device=cuda), state.clone()
+        fn(scene, cam, 3, GI, ref, st, acc)
+        outs.append((acc, st))
+    _gates(outs[0][0].cpu().numpy(), outs[1][0].cpu().numpy())
+    assert _elements_off(outs[0][1], outs[1][1]) < 0.01
+
+    for final_vis in (False, True):
+        outs = []
+        for fn in (tmg.restir_gi_mono, tmg.restir_gi_mono_plain):
+            acc, st, sg = torch.zeros((B, 3), device=cuda), torch.empty_like(state), torch.empty_like(stage)
+            fn(scene, cam, 3, GI, state, stage, ppv, acc, st, sg, final_vis=final_vis)
+            outs.append((acc, st, sg))
+        torch.cuda.synchronize()
+        _gates(outs[0][0].cpu().numpy(), outs[1][0].cpu().numpy())
+        assert _elements_off(outs[0][1], outs[1][1]) < 0.01 and _elements_off(outs[0][2], outs[1][2]) < 0.01
+    assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches) == \
+        (counts[0] + 2, counts[1] + 1, counts[2] + 1)
+    with pytest.raises(ValueError, match="buffers of their own"):
+        tmg.restir_gi_mono(scene, cam, 3, GI, state, stage, ppv, acc, state, stage)
+
+
+@pytest.mark.parametrize("mode", [dict(mono=True), dict(mono=True, final_vis=True), dict(mono=False)],
+                         ids=["mono", "final_vis", "split"])
+def test_restir_gi_kernels_match_plain_over_frames(cuda, mode):
+    """The ping-pong frame loop against ``restir_gi_megakernel_plain``, 3 + 3
+    frames with a camera move in between; launches: K5 once a frame, or K6
+    and K7 once each."""
+    scene, _, _ = _di_setup(cuda)
+    B = W * H
+    outs = []
+    for fn in (tmg.restir_gi_megakernel, tmg.restir_gi_megakernel_plain):
+        c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+        z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
+        before = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
+        out, st, sg = fn(scene, c, *z, 1, 3, GI, c.proj_view, c.proj_view, **mode)
+        ppv = c.proj_view
+        c.move_to((0.15, 1.0, 2.6))
+        out2, st, sg = fn(scene, c, st, sg, 4, 3, GI, ppv, c.proj_view, **mode)
+        after = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
+        outs.append((out + out2).cpu().numpy())
+    want = (6, 0, 0) if mode["mono"] else (0, 6, 6)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 0)       # the plain loop launches nothing
+    _gates(outs[0], outs[1])
+    assert float(st[tmg.GT_M].max()) > 2.0
+    c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+    mk = MegakernelReSTIRGI(scene, c, GI, device=cuda, **mode)
+    before = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
+    img = mk.render_many(6)
+    torch.cuda.synchronize()
+    after = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())

@@ -32,6 +32,7 @@ from fypraytracer_tpu_torch.render import megakernel as tmk
 from fypraytracer_tpu_torch.render import megakernel_restir as tmr
 from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, morton_permuted_scene
 from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
+from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
 from fypraytracer_tpu_torch.render.renderer import Renderer
 from fypraytracer_tpu_torch.scene import procedural as tproc
 
@@ -151,13 +152,10 @@ def test_reset_resize_render_frame():
     assert r.render_hdr().shape == (16, 24, 3)
 
 
-@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer, MegakernelReSTIRDI])
+@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer, MegakernelReSTIRDI, MegakernelReSTIRGI])
 def test_unported_input_raises(cls):
-    """ReSTIR GI and textured materials are not ported: every renderer
-    class refuses them."""
-    scene, cam = _port_scene()
-    with pytest.raises(NotImplementedError):
-        cls(scene, cam, RenderSettings(technique=SamplingTechnique.RESTIR_GI), device="cpu")
+    """Textured materials are not ported: every renderer class refuses
+    them."""
     builder, cam = tproc.cornell_box(W, H, with_spheres=False)
     tex = builder.add_texture(np.full((4, 4, 3), 0.5, np.float32))
     mat = builder.add_material(albedo_map=tex)
@@ -171,6 +169,9 @@ def test_megakernel_refuses_restir():
     scene, cam = _port_scene()
     with pytest.raises(NotImplementedError, match="MegakernelReSTIRDI"):
         MegakernelRenderer(scene, cam, RenderSettings(technique=SamplingTechnique.RESTIR_DI),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="MegakernelReSTIRGI"):
+        MegakernelRenderer(scene, cam, RenderSettings(technique=SamplingTechnique.RESTIR_GI),
                            device="cpu")
 
 

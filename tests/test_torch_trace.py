@@ -135,6 +135,23 @@ def test_trace_closest_on_cpu_is_the_plain_walk(cornell, rays):
     assert torch.equal(tri, b["tri"])
 
 
+def test_walk_counts_leave_the_result_alone(cornell, rays):
+    """``counts`` adds the walk's box and triangle tests and changes nothing
+    else; the counts of a batch are those of its halves added."""
+    _, ts, _ = cornell
+    o, d = (torch.as_tensor(x) for x in rays)
+    counts = {"nodes": 0, "tris": 0}
+    got = ttrav.trace_rays(ts.bvh, ts.geometry, o, d, counts=counts)
+    want = ttrav.trace_rays(ts.bvh, ts.geometry, o, d)
+    for k in ("tri", "t", "u", "v"):
+        assert torch.equal(got[k], want[k])
+    halves = {"nodes": 0, "tris": 0}
+    for sl in (slice(0, N_RAYS // 2), slice(N_RAYS // 2, N_RAYS)):
+        ttrav.trace_rays(ts.bvh, ts.geometry, o[sl], d[sl], counts=halves)
+    assert counts["nodes"] == halves["nodes"] >= N_RAYS
+    assert 0 < int(counts["tris"]) == int(halves["tris"]) <= counts["nodes"] * ts.bvh.leaf_size
+
+
 def test_hit_payload_matches_jax(cornell, rays):
     js, ts, _ = cornell
     o, d = rays
