@@ -3,12 +3,12 @@
 
 Drives ``fypraytracer_tpu_torch`` — and nothing of the JAX package — through
 its main paths: the Cornell box under NEE+MIS (2 bounces, 1 spp), every other
-technique 0-8, and the 200,712-triangle stress scene under NEE, ReSTIR DI and
-ReSTIR GI, in phases:
+technique 0-8, the 200,712-triangle stress scene under NEE, ReSTIR DI and
+ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN;
-  2. build: the four kernel sources compiled from ``csrc/`` with nvcc, one
+  2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
      nvcc per source, started together;
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card;
   4. K2 ``megakernel`` against its plain version under the parity gates of
@@ -27,6 +27,12 @@ ReSTIR GI, in phases:
      K5 frame loop against ``restir_gi_megakernel_plain`` at Cornell 256², 8
      frames, and stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at
      Cornell 64², 4 + 4 frames with a camera move;
+  5c. K8 ``diff_megakernel`` (the fused loss and albedo gradient) against its
+     plain version ``diff_plain`` on the same inputs (Cornell 256², 2 bounces,
+     frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
+     within 1e-4 of their largest entry), its d_mat against torch autograd of
+     the port's cosine wavefront on the card (K1 traces; 1e-4, 1e-3), and one
+     launch per ``DiffRenderer.loss_and_grad``;
   6. the main paths, each with the kernels' launch counters reset just before
      and read just after: Cornell at 256² through ``Renderer`` and
      ``MegakernelRenderer`` under NEE, 8 frames, scored against
@@ -42,6 +48,14 @@ ReSTIR GI, in phases:
      ``mono=False`` against the K2 BRDF path tracer at 4 spp (mean within 6%,
      quadrants within 15%), ``final_vis`` against per-neighbour visibility
      with spheres (5%, 12%), tests/test_megakernel_restir.py:158-286;
+  6b. training at Cornell 256², each entry point with the counters reset just
+     before and read just after: the JAX CLI's ``_train_fast`` loop through
+     ``DiffRenderer`` (targets: the cosine wavefront's frames 1-3, as in
+     tests/test_diff_megakernel.py:93; albedo perturbed by a seeded normal
+     of 0.25, clipped to [0.05, 0.95]; 9 steps at lr 3.0; the albedo error
+     must fall below 0.6 of its start, the loss fall, and K8 launch 9
+     times), and 5 SGD steps of ``make_train_step``
+     under NEE (the albedo, lr 30) in which the loss falls and K1 launches;
   7. timing with CUDA events: the median of 5 reps after a warm-up, of
      ``render_many(64)`` for the K1 wavefront and the K2 megakernel (every
      technique) at 256², NEE also at 1920x1088, ``MegakernelReSTIRDI`` and
@@ -53,7 +67,10 @@ ReSTIR GI, in phases:
      torch.profiler and the idle share it implies.  The profiler's first
      step is a warm-up it discards; the kept step is "not measured" (null)
      unless its trace holds every launch of the port's kernels that the
-     wrappers counted in it.
+     wrappers counted in it.  Training: ``DiffRenderer.step`` (median of 5
+     reps of 10 steps), K8 per launch against its plain version, and
+     ``make_train_step`` under NEE and cosine (median of 5 reps of 2 steps),
+     each with the card's busy time and idle share.
 
 Every kernel's summary carries ``bound_ms``: the larger of its operations
 over the card's float32 rate and its bytes over its memory rate.  The
@@ -79,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -179,12 +197,12 @@ def count_walks():
     from unittest import mock
 
     from fypraytracer_tpu_torch.ops import traverse
-    from fypraytracer_tpu_torch.render import megakernel, megakernel_restir, megakernel_restir_gi
+    from fypraytracer_tpu_torch.render import megakernel, megakernel_diff, megakernel_restir, megakernel_restir_gi
 
     counts = {"nodes": 0, "tris": 0}
     walk = functools.partial(traverse.trace_rays, counts=counts)
     with contextlib.ExitStack() as stack:
-        for mod in (traverse, megakernel, megakernel_restir, megakernel_restir_gi):
+        for mod in (traverse, megakernel, megakernel_restir, megakernel_restir_gi, megakernel_diff):
             stack.enter_context(mock.patch.object(mod, "trace_rays", walk))
         yield counts
     counts["tris"] = int(counts["tris"])
@@ -199,6 +217,28 @@ def settings_for(technique: str, **kw):
 
     kw = dict(dict(bounces=2, samples=1, sky_color=SKY), **kw)
     return RenderSettings(technique=SamplingTechnique[technique], **kw)
+
+
+def port_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from fypraytracer_tpu_torch.ops.traverse import trace_closest
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import megakernel
+    from fypraytracer_tpu_torch.render.megakernel_diff import diff_megakernel
+
+    return dict(trace_closest=trace_closest, megakernel=megakernel, restir_di_k3=mr.restir_di_k3,
+                restir_di_k4=mr.restir_di_k4, restir_gi_mono=mg.restir_gi_mono,
+                restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2, diff_megakernel=diff_megakernel)
+
+
+def reset_launches() -> None:
+    for w in port_wrappers().values():
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: w.launches for name, w in port_wrappers().items()}
 
 
 # K2's entries: the kernel's name in the summary for each technique
@@ -268,7 +308,7 @@ def phase_build() -> None:
     from fypraytracer_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    names = ("trace", "megakernel", "restir_di", "restir_gi")
+    names = ("trace", "megakernel", "restir_di", "restir_gi", "megakernel_diff")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(kernels.build, names))      # raises if any build failed
     secs = time.perf_counter() - t0
@@ -578,36 +618,116 @@ def phase_restir_gi(summary: dict) -> None:
             raise AssertionError(f"the GI frame loop {mode} disagrees with its plain version on {name} {size}")
 
 
+DIFF_SIZE = 256
+
+
+def diff_inputs(size: int = DIFF_SIZE):
+    """Cornell at ``size``² on the card, its camera tensor, and a target
+    made from a seed (uniform in [0, 0.5))."""
+    import numpy as np
+    import torch
+
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    builder, cam = cornell_box(size, size)
+    scene = builder.compile().to("cuda")
+    tgt = np.random.default_rng(2026).uniform(0.0, 0.5, (size * size, 3)).astype(np.float32)
+    return scene, cam, camera_matrices(cam, "cuda"), torch.as_tensor(tgt, device="cuda")
+
+
+def phase_diff(summary: dict) -> None:
+    import dataclasses
+
+    import torch
+
+    from fypraytracer_tpu_torch.core.camera import generate_rays
+    from fypraytracer_tpu_torch.ops.traverse import pick_tracer
+    from fypraytracer_tpu_torch.render import megakernel_diff as md
+    from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere
+    from fypraytracer_tpu_torch.scene.types import with_materials
+
+    scene, cam, cam_t, tgt = diff_inputs()
+    B = cam.width * cam.height
+    alb = scene.materials.albedo
+    tri_mat = scene.geometry.tri_mat.long()
+
+    def d_mat(d_tri):
+        return torch.zeros_like(alb).index_add_(0, tri_mat, d_tri)
+
+    def rel(got, ref):
+        return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+    # K8 against its plain version on the same inputs
+    def run():
+        return md.diff_megakernel(scene, cam, alb, tgt, 3, 2, SKY, cam=cam_t)
+
+    run()                                                    # warm-up
+    out = {}
+    # 10 launches a rep, back to back, so that the host's work for one launch
+    # overlaps the card's for the one before
+    ms = statistics.median(gpu_ms(lambda: [out.update(got=run()) for _ in range(10)], 5)) / 10
+    with count_walks() as walks:
+        plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=md.diff_plain(scene, cam, alb, tgt, 3, 2, SKY)), 1))
+    (loss, d_tri), (ref_loss, ref_tri) = out["got"], out["ref"]
+    row = dict(loss=loss.item(), plain_loss=ref_loss.item(),
+               loss_rel_err=abs(loss.item() - ref_loss.item()) / ref_loss.item(),
+               d_tri_rel_err=rel(d_tri, ref_tri), d_mat_rel_err=rel(d_mat(d_tri), d_mat(ref_tri)),
+               max_abs_err=(d_tri - ref_tri).abs().max().item())
+    row["ok"] = bool(row["loss_rel_err"] <= 1e-5 and row["d_tri_rel_err"] <= 1e-4 and row["d_mat_rel_err"] <= 1e-4)
+    emit("k8_vs_plain", size=f"{DIFF_SIZE}x{DIFF_SIZE}", bounces=2, frame=3, ms_per_launch=ms, plain_ms=plain_ms,
+         **row)
+    if not row["ok"]:
+        raise AssertionError("K8 disagrees with its plain version")
+
+    # K8's d_mat against torch autograd of the port's cosine wavefront (K1
+    # traces), under the JAX test's gates (tests/test_diff_megakernel.py:64-66)
+    a = alb.clone().requires_grad_(True)
+    sc = with_materials(scene, dataclasses.replace(scene.materials, albedo=a))
+    o, d = generate_rays(cam.inv_projection, cam.inv_view, cam.width, cam.height, device="cuda")
+    hdr = radiance_hemisphere(sc, pick_tracer(sc), o, d, torch.arange(B, device="cuda"), 3,
+                              settings_for("COSINE"), "cosine")
+    ref = ((hdr - tgt) ** 2).sum() / (3 * B)
+    ref.backward()
+    auto = dict(loss_rel_err=abs(loss.item() - ref.item()) / ref.item(), d_mat_rel_err=rel(d_mat(d_tri), a.grad))
+    auto["ok"] = bool(auto["loss_rel_err"] < 1e-4 and auto["d_mat_rel_err"] < 1e-3)
+
+    # one launch per loss_and_grad
+    dr = md.DiffRenderer(scene, cam, bounces=2, sky_color=SKY, device="cuda")
+    before = md.diff_megakernel.launches
+    dr.loss_and_grad(alb, tgt, 3)
+    torch.cuda.synchronize()
+    auto["launches_per_loss_and_grad"] = md.diff_megakernel.launches - before
+    auto["ok"] = bool(auto["ok"] and auto["launches_per_loss_and_grad"] == 1)
+    emit("k8_vs_autograd", size=f"{DIFF_SIZE}x{DIFF_SIZE}", **auto)
+    if not auto["ok"]:
+        raise AssertionError("K8 disagrees with autograd of the cosine wavefront, or launched other than once")
+
+    # bytes: the scene tables it reads, the camera, the target, d_tri, the loss
+    io = scene_bytes(scene) + 2 * 16 * 4 + nbytes(tgt) + nbytes(d_tri) + 4
+    summary["diff_megakernel"] = dict(max_abs_err=row["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                                      loss_rel_err=row["loss_rel_err"], d_tri_rel_err=row["d_tri_rel_err"],
+                                      d_mat_rel_err=row["d_mat_rel_err"],
+                                      parity_shape=f"cornell {DIFF_SIZE}x{DIFF_SIZE}, 2 bounces, frame 3",
+                                      **bound(walks, io))
+
+
 def phase_main(summary: dict) -> None:
     import torch
 
-    from fypraytracer_tpu_torch.ops.traverse import trace_closest
-    from fypraytracer_tpu_torch.render import megakernel_restir as mr
-    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
-    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, megakernel
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
     from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
     from fypraytracer_tpu_torch.render.renderer import Renderer
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
-    wrappers = dict(trace_closest=trace_closest, megakernel=megakernel, restir_di_k3=mr.restir_di_k3,
-                    restir_di_k4=mr.restir_di_k4, restir_gi_mono=mg.restir_gi_mono,
-                    restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2)
-
-    def reset():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def counts():
-        return {name: w.launches for name, w in wrappers.items()}
-
     def path(name, make, golden, expect, needs):
         """Drive one entry point with the counters reset just before and read
         just after; fail unless every kernel in ``needs`` launched."""
-        reset()
+        reset_launches()
         avg = make()
         torch.cuda.synchronize()
-        launched = counts()
+        launched = launch_counts()
         row = score(avg, golden, expect)
         row["ok"] = bool(row["ok"] and all(launched[k] > 0 for k in needs))
         emit("main_path", path=name, launches=launched, **row)
@@ -708,9 +828,78 @@ def phase_main(summary: dict) -> None:
         raise AssertionError("ReSTIR GI's mean is off its reference beyond the JAX package's bounds")
 
 
+def phase_train(summary: dict) -> None:
+    """Training at Cornell 256² through both entry points, each with the
+    launch counters reset just before and read just after."""
+    import dataclasses
+
+    import torch
+
+    from fypraytracer_tpu_torch.core.camera import generate_rays
+    from fypraytracer_tpu_torch.ops.traverse import pick_tracer
+    from fypraytracer_tpu_torch.parallel.shard import make_train_step
+    from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere, radiance_nee_mis
+    from fypraytracer_tpu_torch.render.megakernel_diff import DiffRenderer
+
+    scene, cam, _, _ = diff_inputs()
+    B = cam.width * cam.height
+    o, d = generate_rays(cam.inv_projection, cam.inv_view, cam.width, cam.height, device="cuda")
+    pix = torch.arange(B, device="cuda")
+    cosine = settings_for("COSINE")
+    # frames 1-3, not the CLI's 1-4: at 256² frame 4 holds a firefly of ~3,300
+    # on the mirror sphere, whose squared error alone drives that albedo to
+    # a clip bound (PERF.md, PR 4)
+    tgts = {f: radiance_hemisphere(scene, pick_tracer(scene), o, d, pix, f, cosine, "cosine") for f in (1, 2, 3)}
+    true_alb = scene.materials.albedo
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = torch.clamp(true_alb + 0.25 * torch.randn(true_alb.shape, generator=gen, device="cuda"), 0.05, 0.95)
+
+    # the JAX CLI's _train_fast loop (cli.py:375-417) through DiffRenderer
+    dr = DiffRenderer(scene, cam, bounces=2, sky_color=SKY, device="cuda")
+    reset_launches()
+    alb, losses = start, []
+    for i in range(9):
+        f = 1 + i % 3
+        alb, loss = dr.step(alb, tgts[f], f, lr=3.0)
+        alb = torch.clamp(alb, 0.0, 1.0)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    losses = [x.item() for x in losses]
+    err0, err1 = (start - true_alb).abs().mean().item(), (alb - true_alb).abs().mean().item()
+    ok = bool(err1 < 0.6 * err0 and losses[-1] < losses[0] and launched["diff_megakernel"] == 9
+              and all(v == 0 for k, v in launched.items() if k != "diff_megakernel"))
+    emit("main_path", path="DiffRenderer.step cornell COSINE", size=f"{cam.width}x{cam.height}", steps=9,
+         launches=launched, albedo_mae_start=err0, albedo_mae_end=err1, losses=losses, ok=ok)
+    if not ok:
+        raise AssertionError("DiffRenderer did not recover the albedo, or K8 did not launch once a step")
+    summary["diff_megakernel"]["launches"] = launched["diff_megakernel"]
+
+    # make_train_step under NEE: SGD on the albedo against the NEE frame
+    nee = settings_for("NEE_MIS")
+    target = radiance_nee_mis(scene, pick_tracer(scene), o, d, pix, 1, nee)
+    step = make_train_step(scene, cam.width, cam.height, nee, lr=30.0, technique="nee", device="cuda",
+                           fields=("albedo",))
+    params = dataclasses.replace(scene.materials, albedo=start)
+    reset_launches()
+    losses = []
+    for _ in range(5):
+        params, loss = step(params, cam.inv_projection, cam.inv_view, 1, target)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    losses = [x.item() for x in losses]
+    err1 = (params.albedo - true_alb).abs().mean().item()
+    ok = bool(losses[-1] < losses[0] and launched["trace_closest"] > 0 and all(map(math.isfinite, losses)))
+    emit("main_path", path="make_train_step cornell NEE_MIS", size=f"{cam.width}x{cam.height}", steps=5,
+         launches=launched, albedo_mae_start=err0, albedo_mae_end=err1, losses=losses, ok=ok)
+    if not ok:
+        raise AssertionError("make_train_step's loss did not fall, or K1 did not launch")
+
+
 # the __global__ names of csrc/*.cu, to count the port's kernels in a trace
 PORT_KERNELS = ("trace_closest_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1",
-                "gi_stage2")
+                "gi_stage2", "diff_kernel")
 
 
 def device_busy(fn, launches) -> dict:
@@ -754,10 +943,7 @@ def device_busy(fn, launches) -> dict:
 def phase_timing() -> None:
     import torch
 
-    from fypraytracer_tpu_torch.ops.traverse import trace_closest
-    from fypraytracer_tpu_torch.render import megakernel_restir as mr
-    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
-    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, megakernel, megakernel_plain
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, megakernel_plain
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
     from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
     from fypraytracer_tpu_torch.render.renderer import Renderer
@@ -831,9 +1017,7 @@ def phase_timing() -> None:
                    size=f"{w}x{h}", frames_per_rep=frames, reps_ms=reps, ms_per_frame=ms_frame,
                    rays_per_s=rays(tech, w, h, st, name.endswith("final_vis")) / (ms_frame / 1000.0))
         if prof_frames:
-            wrappers = (trace_closest, megakernel, mr.restir_di_k3, mr.restir_di_k4, mg.restir_gi_mono,
-                        mg.restir_gi_k1, mg.restir_gi_k2)
-            prof = device_busy(lambda: run(prof_frames), lambda: sum(w.launches for w in wrappers))
+            prof = device_busy(lambda: run(prof_frames), lambda: sum(launch_counts().values()))
             # a trace that lacks some of the port's launches, or holds no
             # kernel, is "not measured" (null), not an idle card
             seen = prof["traced"] == prof["launched"] and prof["n_kernels"] > 0
@@ -848,6 +1032,65 @@ def phase_timing() -> None:
         del run
         torch.cuda.empty_cache()
 
+    phase_timing_train()
+
+
+def phase_timing_train() -> None:
+    """Training at Cornell 256²: ``DiffRenderer.step`` (5 reps of 10 steps),
+    K8 per launch beside its plain version (the 5c numbers) with its busy
+    time over 10 launches, and ``make_train_step`` under NEE and cosine (5
+    reps of 2 steps, each from the same parameters); each with the card's
+    busy time per step from torch.profiler and the idle share it implies."""
+    import torch
+
+    from fypraytracer_tpu_torch.core.camera import generate_rays
+    from fypraytracer_tpu_torch.ops.traverse import pick_tracer
+    from fypraytracer_tpu_torch.parallel.shard import make_train_step
+    from fypraytracer_tpu_torch.render import megakernel_diff as md
+    from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere, radiance_nee_mis
+
+    scene, cam, cam_t, tgt = diff_inputs()
+    w, h = cam.width, cam.height
+    alb = scene.materials.albedo
+    dr = md.DiffRenderer(scene, cam, bounces=2, sky_color=SKY, device="cuda")
+    o, d = generate_rays(cam.inv_projection, cam.inv_view, w, h, device="cuda")
+    pix = torch.arange(w * h, device="cuda")
+
+    def diff_steps(n):
+        a = alb
+        for _ in range(n):
+            a, _ = dr.step(a, tgt, 3, lr=0.1)
+
+    def kernel_launches(n):
+        for _ in range(n):
+            md.diff_megakernel(scene, cam, alb, tgt, 3, 2, SKY, cam=cam_t)
+
+    def train(technique, settings):
+        target = (radiance_nee_mis(scene, pick_tracer(scene), o, d, pix, 1, settings) if technique == "nee" else
+                  radiance_hemisphere(scene, pick_tracer(scene), o, d, pix, 1, settings, technique))
+        step = make_train_step(scene, w, h, settings, technique=technique, device="cuda")
+
+        def run(n):
+            for _ in range(n):
+                step(scene.materials, cam.inv_projection, cam.inv_view, 1, target)
+        return run
+
+    cases = [("DiffRenderer.step", diff_steps, 10), ("diff_megakernel launch", kernel_launches, 10),
+             ("make_train_step NEE_MIS", train("nee", settings_for("NEE_MIS")), 2),
+             ("make_train_step COSINE", train("cosine", settings_for("COSINE")), 2)]
+    for name, run, n in cases:
+        run(1)                                       # warm-up
+        torch.cuda.synchronize()
+        reps = gpu_ms(lambda: run(n), 5)
+        ms = statistics.median(reps) / n
+        prof = device_busy(lambda: run(n), lambda: sum(launch_counts().values()))
+        seen = prof["traced"] == prof["launched"] and prof["n_kernels"] > 0
+        busy = prof["busy_ms"] / n
+        emit("timing", path=name, size=f"{w}x{h}", steps_per_rep=n, reps_ms=reps, ms_per_step=ms,
+             port_launches=prof["launched"], port_kernels_traced=prof["traced"],
+             device_busy_ms_per_step=busy if seen else None, idle_share=1.0 - busy / ms if seen else None,
+             kernels_per_step=prof["n_kernels"] / n if seen else None, top_kernels_ms=prof["top"])
+
 
 def main() -> int:
     quick = "--quick" in sys.argv[1:]     # phases 1-6 only, no timing
@@ -860,7 +1103,9 @@ def main() -> int:
         phase_k2(summary)
         phase_restir(summary)
         phase_restir_gi(summary)
+        phase_diff(summary)
         phase_main(summary)
+        phase_train(summary)
         if not quick:
             phase_timing()
     except Exception:
@@ -882,7 +1127,9 @@ def main() -> int:
                 "restir_gi_k1": ("fypraytracer_tpu_torch/csrc/restir_gi.cu",
                                  "fypraytracer_tpu/render/megakernel_restir_gi.py:169"),
                 "restir_gi_k2": ("fypraytracer_tpu_torch/csrc/restir_gi.cu",
-                                 "fypraytracer_tpu/render/megakernel_restir_gi.py:447+:544")}
+                                 "fypraytracer_tpu/render/megakernel_restir_gi.py:447+:544"),
+                "diff_megakernel": ("fypraytracer_tpu_torch/csrc/megakernel_diff.cu",
+                                    "fypraytracer_tpu/render/megakernel_diff.py:117")}
     kern = [dict(name=k, route="cuda", source=src, replaces=rep, **summary[k]) for k, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,21 +5,26 @@ H100.  The layout mirrors the JAX package module for module, so each
 module's counterpart is found by path; the JAX package stays the
 reference every port module is tested against at matched seeds.
 
-What this package covers so far: the sampling techniques 0-7 (brute
-force, uniform, cosine, GGX, BRDF, light-source sampling, NEE+MIS and
-ReSTIR DI) on untextured scenes, through three entry points:
+What this package covers: the nine sampling techniques on untextured
+scenes and training, through these entry points:
 
   * ``render.renderer.Renderer`` — the wavefront renderer for techniques
-    0-7; on CUDA tensors its closest-hit trace is the hand-written kernel
+    0-8; on CUDA tensors its closest-hit trace is the hand-written kernel
     ``csrc/trace.cu`` (``ops.traverse.trace_closest``);
   * ``render.megakernel.MegakernelRenderer`` — N frames of techniques 0-6
     per pixel in one hand-written kernel, ``csrc/megakernel.cu``;
-  * ``render.megakernel_restir.MegakernelReSTIRDI`` — ReSTIR DI as two
-    hand-written kernels a frame, ``csrc/restir_di.cu``.
+  * ``render.megakernel_restir.MegakernelReSTIRDI`` and
+    ``render.megakernel_restir_gi.MegakernelReSTIRGI`` — ReSTIR DI and GI
+    as hand-written kernels a frame, ``csrc/restir_di.cu`` and
+    ``csrc/restir_gi.cu``;
+  * ``render.megakernel_diff.DiffRenderer`` — the loss of one cosine frame
+    and its albedo gradient in one kernel, ``csrc/megakernel_diff.cu``;
+  * ``parallel.shard.make_train_step`` — a training step by torch autograd
+    through the wavefront integrators.
 
-ReSTIR GI and textured materials raise ``NotImplementedError``.  On CPU
-tensors the entry points run their plain PyTorch versions; on CUDA
-tensors they launch the kernels or raise.  The package imports ``torch``
+Textured materials raise ``NotImplementedError``.  On CPU tensors the
+entry points run their plain PyTorch versions; on CUDA tensors they launch
+the kernels or raise.  The package imports ``torch``
 and ``numpy`` only: the host builders (BVH, light tree, scene compiler)
 are NumPy copies, so it imports on a machine without JAX.
 """

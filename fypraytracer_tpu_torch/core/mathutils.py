@@ -37,6 +37,14 @@ def dot3(a, b, keepdims=True):
     return d[..., None] if keepdims else d
 
 
+def sqrt0(x):
+    """sqrt(max(x, 0)) whose gradient at 0 is 0, not inf.  The value has
+    the same bits; a plain sqrt's infinite slope at 0 turns a gradient into
+    NaN (0 · inf) wherever a sample lands exactly on it."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def normalize(v, eps=1e-20):
     return v / torch.sqrt(torch.clamp_min(dot3(v, v), eps))
 
@@ -114,10 +122,12 @@ def ggx_sample_hemisphere(normal, view, roughness, u1, u2):
     a2 = alpha * alpha
 
     phi = TWO_PI * u2
-    cos_theta = torch.sqrt(torch.clamp(
+    # sqrt0: cos θ rounds to 1 for the smallest u1, and there a plain sqrt
+    # made the roughness gradient NaN (the JAX package's jnp.sqrt does too)
+    cos_theta = sqrt0(torch.clamp(
         (1.0 - u1) / torch.clamp_min(1.0 + (a2 - 1.0) * u1, 1e-12), 0.0, 1.0))
     cos_theta = torch.clamp(cos_theta, 0.0, 1.0)
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt0(1.0 - cos_theta * cos_theta)
 
     h = to_world(normal, sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
     l = reflect(-view, h)

@@ -28,8 +28,9 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per source: restir_gi.cu fuses no product into a sum, so that its reservoir
-# decisions round as its plain PyTorch version's do
-EXTRA_FLAGS = {"restir_gi": ["-fmad=false"]}
+# decisions round as its plain PyTorch version's do; megakernel_diff.cu
+# neither, so that its loss and gradient round as its plain version's
+EXTRA_FLAGS = {"restir_gi": ["-fmad=false"], "megakernel_diff": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per library: {"path", "seconds" (0.0 when it was already built), "log"}

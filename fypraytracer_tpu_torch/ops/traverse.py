@@ -51,7 +51,12 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
     optional dict; the walk adds its node visits (box tests) to
     ``counts["nodes"]`` and its triangle tests to ``counts["tris"]`` (an
     int and a 0-d tensor).
+
+    The rays are detached: which triangle a ray hits carries no gradient
+    (the JAX tracers' ``stop_gradient``); ``ops.hit.hit_payload`` re-derives
+    t/u/v from the ray and keeps its gradient.
     """
+    origins, directions = origins.detach(), directions.detach()
     B = origins.shape[0]
     dev = origins.device
     n_nodes = bvh.lo.shape[0]
@@ -63,7 +68,7 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
 
     node = torch.zeros(B, dtype=torch.int64, device=dev)
     t = (torch.full((B,), _BIG, dtype=torch.float32, device=dev) if t_max is None
-         else torch.as_tensor(t_max, dtype=torch.float32, device=dev).clone())
+         else torch.as_tensor(t_max, dtype=torch.float32, device=dev).detach().clone())
     tri = torch.full((B,), -1, dtype=torch.int32, device=dev)
     u = torch.zeros(B, dtype=torch.float32, device=dev)
     v = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -120,7 +125,9 @@ def segment_visible(bvh: FlatBVH, geometry: Geometry, origins, directions, dist)
     megakernels' shadow test (megakernel.py:847-866), which is the
     wavefront's |t_closest − dist| ≤ tol.  A closest-hit walk bounded by
     dist + tol that stops at the first hit below dist − tol, as
-    ``csrc/traverse.cuh::segment_visible`` walks."""
+    ``csrc/traverse.cuh::segment_visible`` walks.  A boolean: the inputs
+    are detached."""
+    origins, directions, dist = origins.detach(), directions.detach(), dist.detach()
     tol = torch.clamp_min(dist * 1e-3, 1e-4)
     lo, hi = dist - tol, dist + tol
     h = trace_rays(bvh, geometry, origins, directions,
@@ -134,13 +141,14 @@ _TRACE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p
 
 def trace_closest(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None):
     """Closest hit through the CUDA kernel ``csrc/trace.cu`` (plain walk
-    for CPU tensors).  Same contract as ``trace_rays``."""
+    for CPU tensors).  Same contract as ``trace_rays``: the rays are
+    detached, so the kernel never sees a tensor that requires grad."""
     if origins.device.type == "cpu":
         return trace_rays(bvh, geometry, origins, directions, t_max)
-    origins = origins.to(torch.float32).contiguous()
-    directions = directions.to(torch.float32).contiguous()
+    origins = origins.detach().to(torch.float32).contiguous()
+    directions = directions.detach().to(torch.float32).contiguous()
     tm = None if t_max is None else torch.as_tensor(
-        t_max, dtype=torch.float32, device=origins.device).contiguous()
+        t_max, dtype=torch.float32, device=origins.device).detach().contiguous()
     B = origins.shape[0]
     if origins.shape != (B, 3) or directions.shape != (B, 3):
         raise ValueError(f"trace_closest: rays must be (B, 3), got {tuple(origins.shape)}, "

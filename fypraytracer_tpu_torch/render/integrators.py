@@ -115,7 +115,7 @@ def radiance_hemisphere(scene: Scene, trace_fn, origins, directions, pixel_ids,
     ``sampler="brute"`` is the uniform sampler at exactly one path per
     frame whatever ``settings.samples`` says (Renderer.cu:565-701).
     """
-    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    sky = torch.as_tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     brute = sampler == "brute"
     eff_sampler = "uniform" if brute else sampler
     num_samples = 1 if brute else settings.samples
@@ -197,7 +197,7 @@ def radiance_light_source(scene: Scene, trace_fn, origins, directions, pixel_ids
     on the triangle, pdf = pmf·dist²/area with both geometry cosines in the
     contribution, visibility by identity check; a shadow ray that escapes
     adds the sky (Renderer.cu:1388-1392)."""
-    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    sky = torch.as_tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     prim, prim_miss, prim_emission, prim_emissive = _primary(scene, trace_fn, origins, directions)
     path_lanes = ~(prim_miss | prim_emissive)
 
@@ -253,7 +253,7 @@ def radiance_nee_mis(scene: Scene, trace_fn, origins, directions, pixel_ids,
     trace_fn: (origins, dirs) -> (B,) i32 triangle ids (-1 miss);
     pixel_ids: (B,) RNG counter; frame: frame index (int or tensor).
     """
-    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    sky = torch.as_tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     mats = scene.materials
 
     prim, prim_miss, prim_emission, prim_emissive = _primary(scene, trace_fn, origins, directions)

@@ -240,7 +240,7 @@ def restir_di_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
 
     vis_tri = trace_fn(prim["position"] + prim["normal"] * ORIGIN_EPS, ldir)
     visible = vis_tri == sel_tri
-    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    sky = torch.as_tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     emission = material_emission(scene, scene.geometry.tri_mat[sel_tri.long()])
     lit = torch.where((ctx["shade"] & visible)[..., None], thr * emission * res["w"][..., None], 0.0)
     lit = lit + torch.where((ctx["shade"] & (vis_tri < 0))[..., None], thr * sky, 0.0)

@@ -105,7 +105,7 @@ def _trace_sample_path(scene: Scene, trace_fn, prim, view, key, settings):
       * sky_direct = first-bounce sky contribution (not reusable), with the
         visible-point BRDF applied, divided by src_pdf.
     """
-    sky = torch.tensor(settings.sky_color, dtype=view.dtype, device=view.device)
+    sky = torch.as_tensor(settings.sky_color, dtype=view.dtype, device=view.device)
     mats = scene.materials
     m0 = torch.clamp_min(prim["mat"], 0).long()
     albedo0 = fetch_albedo(scene, prim["mat"])
@@ -248,7 +248,7 @@ def restir_gi_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
     """Stage 2: spatial reuse with the reconnection Jacobian and the shade
     (PerPixel_ReSTIR_GI_Part2, Renderer.cu:2295-2387).  ``g`` holds stage
     1's full-image arrays."""
-    sky = torch.tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
+    sky = torch.as_tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     prim = dict(t=g["t"], mat=g["mat"], position=g["position"], normal=g["normal"], uv=g["uv"])
     prim_miss, prim_emission, prim_emissive, shade_lanes = _prim_lanes(scene, prim)
     view = -directions

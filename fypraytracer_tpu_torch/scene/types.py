@@ -9,7 +9,9 @@ fields stay int32 on the device: the CUDA kernels read them as ``int``.
 ``scene_from_arrays`` reads any object with the JAX ``Scene``'s attribute
 tree (every leaf through ``np.asarray``), so the tests can hand the JAX
 package's compiled scene to the port and both trace the same BVH and
-light tree.
+light tree.  ``materials_from_arrays`` does the same for a material table
+(the parameters of a training step), ``with_materials`` puts one into a
+scene.
 """
 
 from __future__ import annotations
@@ -176,3 +178,29 @@ def scene_from_arrays(obj, device="cpu") -> Scene:
         emissive_tris=np.asarray(obj.emissive_tris),
         textures=leaf(TextureAtlas, obj.textures))
     return host.to(device)
+
+
+# the float fields of a MaterialTable: what a training step may update
+FLOAT_MATERIAL_FIELDS = ("albedo", "roughness", "metallic", "emission_color", "emission_power")
+
+
+def materials_from_arrays(obj, device="cuda", requires_grad=()) -> MaterialTable:
+    """The port's ``MaterialTable`` from any object with the JAX
+    ``MaterialTable``'s fields (NumPy or JAX leaves, through ``np.asarray``),
+    on ``device``.  The float fields named in ``requires_grad`` are leaf
+    tensors that require grad."""
+    kw = {}
+    for f in dataclasses.fields(MaterialTable):
+        t = _leaf_to(np.asarray(getattr(obj, f.name)), device)
+        if f.name in requires_grad:
+            if f.name not in FLOAT_MATERIAL_FIELDS:
+                raise ValueError(f"{f.name} is not a float field of the material table")
+            t = t.requires_grad_(True)
+        kw[f.name] = t
+    return MaterialTable(**kw)
+
+
+def with_materials(scene: Scene, materials: MaterialTable) -> Scene:
+    """``scene`` with its material table replaced (the tensors are shared,
+    not copied, so a gradient reaches ``materials``)."""
+    return dataclasses.replace(scene, materials=materials)

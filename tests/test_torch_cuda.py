@@ -10,7 +10,8 @@ Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit;
 K2, K3+K4, K5-K7 (ReSTIR GI) and the renderers under
 tests/test_render_parity.py:111-114
 (median |Δ| < 1e-5, fewer than 1% of pixels off by more than 1e-3, mean
-within 1%).  Isolated pixels may differ by FMA contraction in the kernels'
+within 1%); K8 (the fused loss and albedo gradient): the loss within 1e-5
+relative, the gradients within 1e-4 of their largest entry.  Isolated pixels may differ by FMA contraction in the kernels'
 shading code, which can flip a RIS or lobe decision.
 """
 
@@ -23,6 +24,7 @@ from fypraytracer_tpu_torch.core.camera import generate_rays
 from fypraytracer_tpu_torch.ops import traverse as ttrav
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.render import megakernel as tmk
+from fypraytracer_tpu_torch.render import megakernel_diff as tmd
 from fypraytracer_tpu_torch.render import megakernel_restir as tmr
 from fypraytracer_tpu_torch.render import megakernel_restir_gi as tmg
 from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
@@ -256,3 +258,74 @@ def test_restir_gi_kernels_match_plain_over_frames(cuda, mode):
     after = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
     assert tuple(a - b for a, b in zip(after, before)) == want
     assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+
+
+def _diff_inputs(cuda, size):
+    """Cornell at ``size``², the default scene's albedo perturbed and a
+    target, both made from a seed with NumPy."""
+    builder, cam = tproc.cornell_box(size, size)
+    scene = builder.compile().to(cuda)
+    rng = np.random.default_rng(size)
+    alb = np.clip(scene.materials.albedo.cpu().numpy() + rng.normal(0.0, 0.1, scene.materials.albedo.shape),
+                  0.05, 0.95).astype(np.float32)
+    tgt = rng.uniform(0.0, 0.5, (size * size, 3)).astype(np.float32)
+    return scene, cam, torch.as_tensor(alb, device=cuda), torch.as_tensor(tgt, device=cuda)
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_diff_megakernel_matches_its_plain_version(cuda, size):
+    """K8 against ``diff_plain`` on the same inputs, 2 bounces, frame 3: the
+    loss within 1e-5 relative, d_tri and d_mat within 1e-4 of their largest
+    entry (float atomics sum in another order than ``index_add_``)."""
+    scene, cam, alb, tgt = _diff_inputs(cuda, size)
+    before = tmd.diff_megakernel.launches
+    loss, d_tri = tmd.diff_megakernel(scene, cam, alb, tgt, 3, 2, (0.05, 0.06, 0.08))
+    ref_loss, ref_tri = tmd.diff_plain(scene, cam, alb, tgt, 3, 2, (0.05, 0.06, 0.08))
+    torch.cuda.synchronize()
+    assert tmd.diff_megakernel.launches == before + 1
+    assert abs(loss.item() - ref_loss.item()) / ref_loss.item() <= 1e-5
+    tm = scene.geometry.tri_mat.long()
+    for got, ref in ((d_tri, ref_tri), (torch.zeros_like(alb).index_add_(0, tm, d_tri),
+                                        torch.zeros_like(alb).index_add_(0, tm, ref_tri))):
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    # a second launch into fresh buffers gives the same sums, not twice them
+    loss2, d_tri2 = tmd.diff_megakernel(scene, cam, alb, tgt, 3, 2, (0.05, 0.06, 0.08))
+    assert abs(loss2.item() - loss.item()) <= 1e-6 * loss.item()
+    assert (d_tri2 - d_tri).abs().max().item() <= 1e-5 * d_tri.abs().max().item()
+
+
+def test_diff_loss_backward_on_the_card(cuda):
+    scene, cam, alb, tgt = _diff_inputs(cuda, 64)
+    dr = tmd.DiffRenderer(scene, cam, bounces=2, device=cuda)
+    albedo = alb.clone().requires_grad_(True)
+    before = tmd.diff_megakernel.launches
+    loss = tmd.DiffLoss.apply(albedo, tgt, 3, dr) * 2.5
+    loss.backward()
+    assert tmd.diff_megakernel.launches == before + 1
+    ref_loss, d_mat = dr.loss_and_grad(alb, tgt, 3)
+    assert abs(loss.item() - 2.5 * ref_loss.item()) <= 1e-5 * loss.item()
+    assert (albedo.grad - 2.5 * d_mat).abs().max().item() <= 1e-4 * d_mat.abs().max().item() * 2.5
+    new, step_loss = dr.step(alb, tgt, 3, lr=0.5)
+    assert new.device.type == "cuda" and new.shape == alb.shape and bool(torch.isfinite(new).all())
+
+
+@pytest.mark.parametrize("fault", ["missing nvcc", "failed build"])
+def test_diff_megakernel_build_fault_raises(cuda, fault, monkeypatch, tmp_path):
+    """No fallback: without a library the wrapper raises, launches nothing
+    and never takes the plain version."""
+    from fypraytracer_tpu_torch.ops import kernels
+
+    scene, cam, alb, tgt = _diff_inputs(cuda, 64)
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    if fault == "missing nvcc":
+        def no_nvcc():
+            raise RuntimeError("nvcc not found")
+        monkeypatch.setattr(kernels, "find_nvcc", no_nvcc)
+    else:
+        monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ["--no-such-flag"])
+    monkeypatch.setattr(tmd, "diff_plain", lambda *a, **k: pytest.fail("fell back to the plain version"))
+    before = tmd.diff_megakernel.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tmd.diff_megakernel(scene, cam, alb, tgt, 3, 2, (0.05, 0.06, 0.08))
+    assert tmd.diff_megakernel.launches == before
