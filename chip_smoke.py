@@ -10,13 +10,31 @@ ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
      TF32 is switched off for matmuls and cuDNN;
   2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
      nvcc per source, started together;
-  3. K1 ``trace_closest`` against its plain PyTorch walk on the card;
+  3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
+     wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
+     random rays (a quad a ray) and on the 1920x1088 camera's rays (one
+     thread a ray); then both its walks of the wide BVH (``lanes=4``,
+     ``lanes=1``) against the threaded walk (``trace_closest_threaded``),
+     bit for bit and timed in turns (threaded, quad, one thread, one
+     thread, quad, threaded) on 65,536 camera rays, 65,536 random rays and
+     the 512² and 1920x1088 cameras' rays, with the node and leaf visits a
+     ray of both plain walks;
   4. K2 ``megakernel`` against its plain version under the parity gates of
      tests/test_render_parity.py:111-114: every technique 0-6 at the main
      path's shape (Cornell 256², 8 frames, 2 bounces, 1 spp) and NEE on the
      stress scene at 128², 8 frames; then at 64², 4 frames, NEE with 1
      bounce and with 2 spp, the other samplers, and light sampling at 4 spp
      without spheres and sky (the DI unbiasedness check's settings);
+  4b. K2 timed in turns through its wrappers: under NEE the threaded walk
+     (``megakernel_threaded``) and the wide walk with 1, 2 and 4 threads a
+     pixel (``megakernel(..., lanes=)``) at Cornell 256² (1, 2, 8 and 64
+     frames), 512² (8 frames), 1920x1088 (1, 2 and 8 frames) and stress
+     128² (8 frames); every other sampler with 1 and 4 threads a pixel at
+     Cornell 256², 8 frames; with each kernel's resident blocks a
+     multiprocessor (the CUDA runtime's occupancy) and the pixels that
+     differ from the first kernel's (more than one thread a pixel adds
+     the frames in another order); the walks' stack-overflow flag must
+     stay clear;
   5. K3 ``restir_di_k3`` and K4 ``restir_di_k4`` each against its plain
      version on the same inputs, and the frame loop of both against
      ``restir_di_megakernel_plain``: 128², 8 frames on the stress scene, and
@@ -72,6 +90,11 @@ ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
      ``make_train_step`` under NEE and cosine (median of 5 reps of 2 steps),
      each with the card's busy time and idle share.
 
+Every kernel's ``ms`` is its own time on the card: torch.profiler's self
+device time of its launches over at least 20 launches at the parity shape
+(5-10 in the walk comparisons of phases 3 and 4b), over their number;
+``wrapper_ms`` is the older measure, CUDA events around one call of the
+wrapper, which adds the wrapper's host work when the queue is idle.
 Every kernel's summary carries ``bound_ms``: the larger of its operations
 over the card's float32 rate and its bytes over its memory rate.  The
 operations are those of its BVH walks, counted in the plain version's run
@@ -221,15 +244,16 @@ def settings_for(technique: str, **kw):
 
 def port_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from fypraytracer_tpu_torch.ops.traverse import trace_closest
+    from fypraytracer_tpu_torch.ops.traverse import trace_closest, trace_closest_threaded
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
     from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
-    from fypraytracer_tpu_torch.render.megakernel import megakernel
+    from fypraytracer_tpu_torch.render.megakernel import megakernel, megakernel_threaded
     from fypraytracer_tpu_torch.render.megakernel_diff import diff_megakernel
 
     return dict(trace_closest=trace_closest, megakernel=megakernel, restir_di_k3=mr.restir_di_k3,
                 restir_di_k4=mr.restir_di_k4, restir_gi_mono=mg.restir_gi_mono,
-                restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2, diff_megakernel=diff_megakernel)
+                restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2, diff_megakernel=diff_megakernel,
+                trace_closest_threaded=trace_closest_threaded, megakernel_threaded=megakernel_threaded)
 
 
 def reset_launches() -> None:
@@ -261,8 +285,16 @@ def stress_scene(width: int, height: int):
     build_s = time.perf_counter() - t0
     scene = morton_permuted_scene(scene)[0].to("cuda")
     emit("stress_scene", triangles=int(scene.geometry.tri_v.shape[0]),
-         numpy_build_seconds=build_s, emissive=int(scene.emissive_tris.shape[0]))
+         numpy_build_seconds=build_s, emissive=int(scene.emissive_tris.shape[0]), **wide_sizes(scene))
     return scene, cam
+
+
+def wide_sizes(scene) -> dict:
+    """The sizes of a scene's binary and wide BVHs."""
+    w = scene.wide
+    return dict(binary_nodes=int(scene.bvh.lo.shape[0]), wide_nodes=int(w.nodes.shape[0]),
+                leaf_slots=int(w.tris.shape[0]), wide_bytes=nbytes(w.nodes, w.tris), wide_depth=w.depth,
+                stack_need=w.stack_need)
 
 
 def score(avg, golden_name: str, expect_shape) -> dict:
@@ -314,9 +346,37 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name, info in kernels.build_info.items():
         for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln:
+            if any(k in ln for k in ("registers", "spill", "Function properties")):
                 print(f"[ptxas {name}] {ln.strip()}", flush=True)
     emit("build", seconds=secs, libs={k: os.path.basename(v["path"]) for k, v in kernels.build_info.items()})
+
+
+def in_turns(variants: dict, order, calls: int) -> dict:
+    """The kernel's own device time per launch (``kernel_ms``) of each
+    variant, measured in the given order (old, new, new, old) within one
+    run; returns {variant: [ms, ...]} in that order."""
+    times: dict = {k: [] for k in variants}
+    for k in order:
+        times[k].append(kernel_ms(variants[k], calls))
+    return times
+
+
+def k1_parity(scene, o, d) -> dict:
+    """K1 (``trace_closest``, its lanes as the wrapper picks them) against
+    ``trace_rays`` on the same rays: the share of equal ids and the largest
+    |Δt| where both hit."""
+    import torch
+
+    from fypraytracer_tpu_torch.ops import traverse
+
+    k = traverse.trace_closest(scene, o, d)
+    p = traverse.trace_rays(scene.bvh, scene.geometry, o, d)
+    torch.cuda.synchronize()
+    same = (k["tri"] == p["tri"]).float().mean().item()
+    both = (k["tri"] >= 0) & (p["tri"] >= 0)
+    dt = (k["t"][both] - p["t"][both]).abs().max().item() if bool(both.any()) else 0.0
+    return dict(rays=int(o.shape[0]), lanes=traverse.k1_lanes(o.shape[0], o.device), ids_equal=same, max_abs_dt=dt,
+                hit_frac=both.float().mean().item(), ok=same >= 0.9999 and dt <= 1e-5)
 
 
 def phase_k1(summary: dict) -> None:
@@ -324,46 +384,160 @@ def phase_k1(summary: dict) -> None:
     import torch
 
     from fypraytracer_tpu_torch.core.camera import generate_rays
-    from fypraytracer_tpu_torch.ops.traverse import trace_closest, trace_rays
+    from fypraytracer_tpu_torch.ops import traverse
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow, trace_closest, trace_closest_threaded, \
+        trace_rays, trace_rays_wide
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
     builder, cam = cornell_box(256, 256)
     scene = builder.compile().to("cuda")
+    emit("cornell_scene", triangles=int(scene.geometry.tri_v.shape[0]), **wide_sizes(scene))
     o_cam, d_cam = generate_rays(cam.inv_projection, cam.inv_view, 256, 256, device="cuda")
     rng = np.random.default_rng(1234)
-    o_rnd = rng.uniform([-0.99, 0.01, -0.99], [0.99, 1.99, 0.99], (65536, 3)).astype(np.float32)
-    d_rnd = rng.normal(size=(65536, 3)).astype(np.float32)
-    o = torch.cat([o_cam, torch.as_tensor(o_rnd, device="cuda")]).contiguous()
-    d = torch.cat([d_cam, torch.as_tensor(d_rnd, device="cuda")]).contiguous()
+    o_rnd = torch.as_tensor(rng.uniform([-0.99, 0.01, -0.99], [0.99, 1.99, 0.99], (65536, 3)).astype(np.float32),
+                            device="cuda")
+    d_rnd = torch.as_tensor(rng.normal(size=(65536, 3)).astype(np.float32), device="cuda")
+    o_hd, d_hd = generate_rays(cam.inv_projection, cam.inv_view, 1920, 1088, device="cuda")
+    o_512, d_512 = generate_rays(cam.inv_projection, cam.inv_view, 512, 512, device="cuda")
 
-    k = trace_closest(scene.bvh, scene.geometry, o, d)
-    p = trace_rays(scene.bvh, scene.geometry, o, d)
-    torch.cuda.synchronize()
-    same = (k["tri"] == p["tri"]).float().mean().item()
-    both = (k["tri"] >= 0) & (p["tri"] >= 0)
-    dt = (k["t"][both] - p["t"][both]).abs().max().item() if bool(both.any()) else 0.0
+    # K1 against its plain walk at the main path's batch, the 256² camera's
+    # 65,536 rays (the quad kernel), on 65,536 random rays (the quad kernel)
+    # and on the 1920x1088 camera's rays (the one-thread kernel)
+    checks = {"camera 256x256": k1_parity(scene, o_cam, d_cam), "random 65536": k1_parity(scene, o_rnd, d_rnd),
+              "camera 1920x1088": k1_parity(scene, o_hd, d_hd)}
+    for name, row in checks.items():
+        emit("k1_vs_plain", batch=name, **row)
+    if not all(row["ok"] for row in checks.values()):
+        raise AssertionError(f"K1 disagrees with its plain version: {checks}")
 
-    # per-call times at the main path's shape: the 256² camera rays
-    ms = statistics.median(gpu_ms(lambda: trace_closest(scene.bvh, scene.geometry, o_cam, d_cam), 20))
+    # per-call times at the main path's batch: the kernel's own device
+    # time, and CUDA events around one wrapper call (its host work included)
+    ms = kernel_ms(lambda: trace_closest(scene, o_cam, d_cam))
+    wrapper_ms = statistics.median(gpu_ms(lambda: trace_closest(scene, o_cam, d_cam), 20))
     plain_ms = statistics.median(gpu_ms(lambda: trace_rays(scene.bvh, scene.geometry, o_cam, d_cam), 3))
-    ok = same >= 0.9999 and dt <= 1e-5
     walks = {"nodes": 0, "tris": 0}
     trace_rays(scene.bvh, scene.geometry, o_cam, d_cam, counts=walks)
     walks["tris"] = int(walks["tris"])
     # rays in, (tri, t, u, v) out
     io = nbytes(o_cam, d_cam) + 16 * o_cam.shape[0]
-    summary["trace_closest"] = dict(max_abs_err=dt, ms=ms, plain_ms=plain_ms, ids_equal=same,
+    main = checks["camera 256x256"]
+    summary["trace_closest"] = dict(max_abs_err=main["max_abs_dt"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                    ids_equal=main["ids_equal"], lanes=main["lanes"],
+                                    parity_shape="65,536 camera rays (Cornell 256x256)",
+                                    other_batches={k: dict(ids_equal=v["ids_equal"], max_abs_dt=v["max_abs_dt"],
+                                                           lanes=v["lanes"]) for k, v in checks.items()
+                                                   if k != "camera 256x256"},
                                     **bound(walks, scene_bytes(scene, surfaces=False) + io))
-    emit("k1_vs_plain", rays=int(o.shape[0]), ids_equal=same, max_abs_dt=dt, hit_frac=both.float().mean().item(),
-         ms_per_call_65536=ms, plain_ms_per_call_65536=plain_ms, ok=ok)
-    if not ok:
-        raise AssertionError("K1 disagrees with its plain version")
+    emit("k1_timing", rays=int(o_cam.shape[0]), lanes=main["lanes"], ms_per_call=ms, wrapper_ms_per_call=wrapper_ms,
+         plain_ms_per_call=plain_ms)
+
+    # the wrapper's two walks of the wide BVH (a quad a ray, one thread a
+    # ray) against the threaded walk, in turns, on 65,536 camera rays,
+    # 65,536 random rays and the 512² and 1920x1088 cameras' rays; all must
+    # give the same hits bit for bit
+    walks = {"threaded": lambda ro, rd: trace_closest_threaded(scene.bvh, scene.geometry, ro, rd),
+             "quad": lambda ro, rd: trace_closest(scene, ro, rd, lanes=4),
+             "lane": lambda ro, rd: trace_closest(scene, ro, rd, lanes=1)}
+    for name, (ro, rd) in {"camera 256x256": (o_cam, d_cam), "random 65536": (o_rnd, d_rnd),
+                           "camera 512x512": (o_512, d_512), "camera 1920x1088": (o_hd, d_hd)}.items():
+        hits = {k: fn(ro, rd) for k, fn in walks.items()}
+        differ = {k: sum(int((hits[k][f].view(torch.int32) != hits["threaded"][f].view(torch.int32)).sum())
+                         for f in hits[k]) for k in ("quad", "lane")}
+        counts = {"nodes": 0, "tris": 0}
+        wide_counts: dict = {}
+        trace_rays(scene.bvh, scene.geometry, ro, rd, counts=counts)
+        trace_rays_wide(scene.wide, ro, rd, counts=wide_counts)
+        n = ro.shape[0]
+        times = in_turns({k: functools.partial(fn, ro, rd) for k, fn in walks.items()},
+                         ("threaded", "quad", "lane", "lane", "quad", "threaded"), 20)
+        row = dict(rays=n, differing_values=differ, **{f"{k}_ms": v for k, v in times.items()},
+                   speedup={k: statistics.median(times["threaded"]) / statistics.median(times[k])
+                            for k in ("quad", "lane")},
+                   binary_nodes_per_ray=counts["nodes"] / n, binary_tris_per_ray=int(counts["tris"]) / n,
+                   wide_nodes_per_ray=wide_counts.get("nodes", 0) / n,
+                   wide_leaves_per_ray=wide_counts.get("leaves", 0) / n, ok=not any(differ.values()))
+        emit("k1_wide_vs_threaded", batch=name, default_lanes=traverse.k1_lanes(n, ro.device), **row)
+        if name == "camera 256x256":
+            summary["trace_closest"].update({f"{k}_ms": statistics.median(v) for k, v in times.items()})
+        if any(differ.values()):
+            raise AssertionError(f"K1's wide walks and threaded walk differ on {name}: {differ}")
+    check_overflow(scene)
+
+
+def k2_blocks_per_sm(scene, settings, lanes) -> int:
+    """The blocks of K2's kernel for this sampler and lane count (0: the
+    threaded walk) that one multiprocessor holds at once, by the CUDA
+    runtime (``fyp_megakernel_occupancy``), with the scene's stacks."""
+    import ctypes
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.ops.traverse import stack_depth
+    from fypraytracer_tpu_torch.render import megakernel as mk
+
+    fn = kernels.load("megakernel", "fyp_megakernel_occupancy", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    blocks = ctypes.c_int(0)
+    kernels.check(fn(mk._SAMPLER_ID[mk._sampler(settings)], lanes, stack_depth(scene.wide), ctypes.byref(blocks)),
+                  "fyp_megakernel_occupancy")
+    return blocks.value
+
+
+def phase_k2_walks(summary: dict) -> None:
+    """K2 in turns through its wrappers: under NEE the threaded walk
+    (``megakernel_threaded``) and the wide walk with 1, 2 and 4 threads a
+    pixel (``megakernel(..., lanes=)``) at Cornell 256² (1, 2, 8 and 64
+    frames), 512² (8 frames), 1920x1088 (1, 2 and 8 frames) and the stress
+    scene at 128² (8 frames); the other samplers with 1 and 4 threads a
+    pixel at Cornell 256², 8 frames.  Reports the lanes ``k2_lanes`` picks,
+    each kernel's resident blocks a multiprocessor, the pixels that differ
+    from the first kernel's image and the largest relative difference."""
+    import torch
+
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel as mk
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    def variant(name, scene, cam, frames, st):
+        if name == "threaded":
+            return lambda: mk.megakernel_threaded(scene, cam, 1, frames, st)
+        return lambda: mk.megakernel(scene, cam, 1, frames, st, lanes=int(name[-1]))
+
+    nee = ("threaded", "lanes1", "lanes2", "lanes4")
+    cases = [("NEE_MIS", "cornell", 256, 256, f, 10 if f <= 8 else 5, nee) for f in (1, 2, 8, 64)]
+    cases += [("NEE_MIS", "cornell", 512, 512, 8, 10, nee)]
+    cases += [("NEE_MIS", "cornell", 1920, 1088, f, 5, nee) for f in (1, 2, 8)]
+    cases += [("NEE_MIS", "stress", 128, 128, 8, 10, nee)]
+    cases += [(tech, "cornell", 256, 256, 8, 10, ("lanes1", "lanes4")) for tech in K2_NAMES if tech != "NEE_MIS"]
+    for tech, scene_name, w, h, frames, calls, names in cases:
+        st = settings_for(tech)
+        if scene_name == "stress":
+            scene, cam = stress_scene(w, h)
+        else:
+            builder, cam = cornell_box(w, h)
+            scene = builder.compile().to("cuda")
+        runs = {k: variant(k, scene, cam, frames, st) for k in names}
+        imgs = {k: run() for k, run in runs.items()}
+        torch.cuda.synchronize()
+        first = imgs[names[0]]
+        differ = {k: int((imgs[k] != first).any(dim=1).sum()) for k in names[1:]}
+        max_rel = max(((imgs[k] - first).abs() / first.abs().clamp_min(1e-6)).max().item() for k in names[1:])
+        times = in_turns(runs, names + names[::-1], calls)
+        emit("k2_walks", technique=tech, scene=scene_name, size=f"{w}x{h}", frames=frames,
+             default_lanes=mk.k2_lanes(frames),
+             blocks_per_sm={k: k2_blocks_per_sm(scene, st, 0 if k == "threaded" else int(k[-1])) for k in names},
+             differing_pixels_vs_first=differ, max_rel_diff_vs_first=max_rel,
+             **{f"{k}_ms": v for k, v in times.items()},
+             speedup_vs_first={k: statistics.median(times[names[0]]) / statistics.median(times[k])
+                               for k in names[1:]})
+        if (scene_name, w, frames) == ("cornell", 256, 8):
+            summary[K2_NAMES[tech]].update({f"{k}_ms": statistics.median(v) for k, v in times.items()},
+                                           differing_pixels_between_walks=differ)
+        check_overflow(scene)
 
 
 def phase_k2(summary: dict) -> None:
     from fypraytracer_tpu_torch.core.camera import generate_rays
     from fypraytracer_tpu_torch.ops.traverse import trace_rays
-    from fypraytracer_tpu_torch.render.megakernel import megakernel, megakernel_plain
+    from fypraytracer_tpu_torch.render.megakernel import k2_lanes, megakernel, megakernel_plain
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
     def cornell(size, with_spheres=True):
@@ -373,18 +547,21 @@ def phase_k2(summary: dict) -> None:
     scenes = {"cornell": cornell, "cornell_no_spheres": lambda size: cornell(size, False),
               "stress": lambda size: stress_scene(size, size)}
 
-    def check(tech, size, frames, scene_name="cornell", **kw):
-        """K2 against its plain version; per-launch times of both."""
+    def check(tech, size, frames, scene_name="cornell", timed=True, **kw):
+        """K2 against its plain version; per-launch times of both (the
+        kernel's device time only when ``timed``)."""
         st = settings_for(tech, **kw)
         scene, cam = scenes[scene_name](size)
         megakernel(scene, cam, 1, frames, st)                 # warm-up
         out = {}
-        ms = statistics.median(gpu_ms(lambda: out.update(got=megakernel(scene, cam, 1, frames, st)), 5))
+        wrapper_ms = statistics.median(gpu_ms(lambda: out.update(got=megakernel(scene, cam, 1, frames, st)), 5))
+        ms = kernel_ms(lambda: megakernel(scene, cam, 1, frames, st)) if timed else None
         with count_walks() as walks:
             plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=megakernel_plain(scene, cam, 1, frames, st)), 1))
         row = parity(out["got"].cpu().numpy(), out["ref"].cpu().numpy())
         emit("k2_vs_plain", technique=tech, scene=scene_name, size=f"{size}x{size}", frames=frames,
-             bounces=st.bounces, samples=st.samples, ms_per_launch=ms, plain_ms=plain_ms, **row)
+             bounces=st.bounces, samples=st.samples, ms_per_launch=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+             **row)
         if not row["ok"]:
             raise AssertionError(f"K2 disagrees with its plain version: {tech} on {scene_name} at {size}², {kw}")
         # K2 walks the primary rays once a launch, the plain version once a frame
@@ -393,7 +570,8 @@ def phase_k2(summary: dict) -> None:
         trace_rays(scene.bvh, scene.geometry, o, d, counts=prim)
         walks = {k: walks[k] - (frames - 1) * int(prim[k]) for k in walks}
         io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE")) + 2 * 16 * 4 + size * size * 12
-        return dict(max_abs_err=row["max_abs"], ms=ms, plain_ms=plain_ms, median_abs_err=row["median_abs"],
+        return dict(max_abs_err=row["max_abs"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                    lanes=k2_lanes(frames), median_abs_err=row["median_abs"],
                     frac_px_over_1e3=row["frac_px_over_1e3"], parity_shape=f"{scene_name} {size}x{size}x{frames}f",
                     **bound(walks, io))
 
@@ -407,10 +585,10 @@ def phase_k2(summary: dict) -> None:
     # without MIS) and two samples a pixel; the other samplers at the size of
     # the CPU tests; light sampling as the DI unbiasedness check drives it
     for bounces, samples in ((2, 1), (1, 1), (2, 2)):
-        check("NEE_MIS", 64, 4, bounces=bounces, samples=samples)
+        check("NEE_MIS", 64, 4, timed=False, bounces=bounces, samples=samples)
     for tech in ("UNIFORM", "COSINE", "GGX", "BRDF", "LIGHT_SOURCE"):
-        check(tech, 64, 4)
-    check("LIGHT_SOURCE", 64, 4, "cornell_no_spheres", samples=4, sky_color=(0.0, 0.0, 0.0))
+        check(tech, 64, 4, timed=False)
+    check("LIGHT_SOURCE", 64, 4, "cornell_no_spheres", timed=False, samples=4, sky_color=(0.0, 0.0, 0.0))
 
 
 def phase_restir(summary: dict) -> None:
@@ -435,14 +613,16 @@ def phase_restir(summary: dict) -> None:
     mr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, st, ppv, ppv)
     out = {}
     k3(scene, em, cam, 3, st, state, ppv)                              # warm-up
-    k3_ms = statistics.median(gpu_ms(lambda: out.update(stage=k3(scene, em, cam, 3, st, state, ppv)), 5))
+    k3_wrapper_ms = statistics.median(gpu_ms(lambda: out.update(stage=k3(scene, em, cam, 3, st, state, ppv)), 5))
+    k3_ms = kernel_ms(lambda: k3(scene, em, cam, 3, st, state, ppv))
     with count_walks() as k3_walks:
         k3_plain_ms = statistics.median(gpu_ms(
             lambda: out.update(ref=mr.restir_di_k3_plain(scene, em, cam, 3, st, state, ppv)), 1))
     d = (out["stage"] - out["ref"]).abs()
     k3_off = ((d > 1e-3 * torch.clamp_min(out["ref"].abs(), 1.0)).any(0)).float().mean().item()
     k3_row = dict(max_abs_err=d.max().item(), frac_px_over_1e3=k3_off, ok=k3_off < 0.01)
-    emit("k3_vs_plain", size="128x128", scene="stress", ms_per_launch=k3_ms, plain_ms=k3_plain_ms, **k3_row)
+    emit("k3_vs_plain", size="128x128", scene="stress", ms_per_launch=k3_ms, wrapper_ms=k3_wrapper_ms,
+         plain_ms=k3_plain_ms, **k3_row)
 
     acc_k, acc_p = (torch.zeros((B, 3), device="cuda") for _ in range(2))
     st_k, st_p = state.clone(), state.clone()
@@ -452,11 +632,13 @@ def phase_restir(summary: dict) -> None:
     k4_row["state_frac_px_over_1e3"] = ((st_k - st_p).abs() > 1e-3 * torch.clamp_min(st_p.abs(), 1.0)).any(0).float().mean().item()
     k4_row["ok"] = bool(k4_row["ok"] and k4_row["state_frac_px_over_1e3"] < 0.01)
     scratch = torch.zeros((B, 3), device="cuda")
-    k4_ms = statistics.median(gpu_ms(lambda: k4(scene, em, cam, 3, st, out["ref"], st_k, scratch), 5))
+    k4_wrapper_ms = statistics.median(gpu_ms(lambda: k4(scene, em, cam, 3, st, out["ref"], st_k, scratch), 5))
+    k4_ms = kernel_ms(lambda: k4(scene, em, cam, 3, st, out["ref"], st_k, scratch))
     with count_walks() as k4_walks:
         k4_plain_ms = statistics.median(gpu_ms(
             lambda: mr.restir_di_k4_plain(scene, em, cam, 3, st, out["ref"], st_p, scratch), 1))
-    emit("k4_vs_plain", size="128x128", scene="stress", ms_per_launch=k4_ms, plain_ms=k4_plain_ms, **k4_row)
+    emit("k4_vs_plain", size="128x128", scene="stress", ms_per_launch=k4_ms, wrapper_ms=k4_wrapper_ms,
+         plain_ms=k4_plain_ms, **k4_row)
     em_bytes = nbytes(em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid, em.tri)
     # K3 reads the camera, the previous proj @ view and 6 of the 9 state rows
     # (ST_NRM, ST_RM, ST_RIDX, ST_RW) and writes the stage; K4 reads the
@@ -464,10 +646,12 @@ def phase_restir(summary: dict) -> None:
     k3_io = scene_bytes(scene) + em_bytes + 3 * 16 * 4 + 6 * B * 4 + nbytes(out["stage"])
     k4_io = scene_bytes(scene, surfaces=False) + em_bytes + 2 * 16 * 4 + nbytes(out["stage"]) \
         + nbytes(state) + 2 * B * 12
-    summary["restir_di_k3"] = dict(max_abs_err=k3_row["max_abs_err"], ms=k3_ms, plain_ms=k3_plain_ms,
+    summary["restir_di_k3"] = dict(max_abs_err=k3_row["max_abs_err"], ms=k3_ms, wrapper_ms=k3_wrapper_ms,
+                                   plain_ms=k3_plain_ms,
                                    frac_px_over_1e3=k3_off, parity_shape="128x128 stress, 1 frame",
                                    **bound(k3_walks, k3_io))
-    summary["restir_di_k4"] = dict(max_abs_err=k4_row["max_abs"], ms=k4_ms, plain_ms=k4_plain_ms,
+    summary["restir_di_k4"] = dict(max_abs_err=k4_row["max_abs"], ms=k4_ms, wrapper_ms=k4_wrapper_ms,
+                                   plain_ms=k4_plain_ms,
                                    median_abs_err=k4_row["median_abs"],
                                    frac_px_over_1e3=k4_row["frac_px_over_1e3"], parity_shape="128x128 stress, 1 frame",
                                    **bound(k4_walks, k4_io))
@@ -573,15 +757,17 @@ def phase_restir_gi(summary: dict) -> None:
         out = {}
         # 10 launches a rep, back to back, so that the host's work for one
         # launch overlaps the card's for the one before
-        ms = statistics.median(gpu_ms(lambda: [out.update(got=run(kernel)) for _ in range(10)], 5)) / 10
+        wrapper_ms = statistics.median(gpu_ms(lambda: [out.update(got=run(kernel)) for _ in range(10)], 5)) / 10
+        ms = kernel_ms(lambda: run(kernel))
         with count_walks() as walks:
             plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=run(plain)), 1))
         frac = max(off(a, b) for a, b in zip(out["got"], out["ref"]))
         err = max((a - b).abs().max().item() for a, b in zip(out["got"], out["ref"]))
-        summary[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, frac_px_over_1e3=frac,
+        summary[name] = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, frac_px_over_1e3=frac,
                              parity_shape="cornell 256x256, frame 3 after 2 of history",
                              **bound(walks, in_bytes + nbytes(*out["ref"])))
-        emit("gi_kernel_vs_plain", kernel=name, size="256x256", ms_per_launch=ms, plain_ms=plain_ms,
+        emit("gi_kernel_vs_plain", kernel=name, size="256x256", ms_per_launch=ms, wrapper_ms=wrapper_ms,
+             plain_ms=plain_ms,
              frac_px_over_1e3=frac, max_abs_err=err, shading_pixels=n_shade, ok=frac < 0.01)
         if not frac < 0.01:
             raise AssertionError(f"{name} disagrees with its plain version")
@@ -666,7 +852,8 @@ def phase_diff(summary: dict) -> None:
     out = {}
     # 10 launches a rep, back to back, so that the host's work for one launch
     # overlaps the card's for the one before
-    ms = statistics.median(gpu_ms(lambda: [out.update(got=run()) for _ in range(10)], 5)) / 10
+    wrapper_ms = statistics.median(gpu_ms(lambda: [out.update(got=run()) for _ in range(10)], 5)) / 10
+    ms = kernel_ms(run)
     with count_walks() as walks:
         plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=md.diff_plain(scene, cam, alb, tgt, 3, 2, SKY)), 1))
     (loss, d_tri), (ref_loss, ref_tri) = out["got"], out["ref"]
@@ -675,8 +862,8 @@ def phase_diff(summary: dict) -> None:
                d_tri_rel_err=rel(d_tri, ref_tri), d_mat_rel_err=rel(d_mat(d_tri), d_mat(ref_tri)),
                max_abs_err=(d_tri - ref_tri).abs().max().item())
     row["ok"] = bool(row["loss_rel_err"] <= 1e-5 and row["d_tri_rel_err"] <= 1e-4 and row["d_mat_rel_err"] <= 1e-4)
-    emit("k8_vs_plain", size=f"{DIFF_SIZE}x{DIFF_SIZE}", bounces=2, frame=3, ms_per_launch=ms, plain_ms=plain_ms,
-         **row)
+    emit("k8_vs_plain", size=f"{DIFF_SIZE}x{DIFF_SIZE}", bounces=2, frame=3, ms_per_launch=ms, wrapper_ms=wrapper_ms,
+         plain_ms=plain_ms, **row)
     if not row["ok"]:
         raise AssertionError("K8 disagrees with its plain version")
 
@@ -705,7 +892,7 @@ def phase_diff(summary: dict) -> None:
 
     # bytes: the scene tables it reads, the camera, the target, d_tri, the loss
     io = scene_bytes(scene) + 2 * 16 * 4 + nbytes(tgt) + nbytes(d_tri) + 4
-    summary["diff_megakernel"] = dict(max_abs_err=row["max_abs_err"], ms=ms, plain_ms=plain_ms,
+    summary["diff_megakernel"] = dict(max_abs_err=row["max_abs_err"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                       loss_rel_err=row["loss_rel_err"], d_tri_rel_err=row["d_tri_rel_err"],
                                       d_mat_rel_err=row["d_mat_rel_err"],
                                       parity_shape=f"cornell {DIFF_SIZE}x{DIFF_SIZE}, 2 bounces, frame 3",
@@ -715,6 +902,7 @@ def phase_diff(summary: dict) -> None:
 def phase_main(summary: dict) -> None:
     import torch
 
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
     from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
     from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
@@ -756,6 +944,7 @@ def phase_main(summary: dict) -> None:
     path("MegakernelRenderer stress NEE_MIS",
          lambda: MegakernelRenderer(scene, cam, settings_for("NEE_MIS"), device="cuda").render_many(8),
          "stress_nee.png", (128, 128, 3), ["megakernel"])
+    check_overflow(scene)
     n = path("MegakernelReSTIRDI stress RESTIR_DI",
              lambda: MegakernelReSTIRDI(scene, cam, settings_for("RESTIR_DI"), device="cuda").render_many(8),
              "stress_di.png", (128, 128, 3), ["restir_di_k3", "restir_di_k4"])
@@ -899,7 +1088,7 @@ def phase_train(summary: dict) -> None:
 
 # the __global__ names of csrc/*.cu, to count the port's kernels in a trace
 PORT_KERNELS = ("trace_closest_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1",
-                "gi_stage2", "diff_kernel")
+                "gi_stage2", "diff_kernel", "trace_threaded_kernel", "frames_threaded_kernel", "trace_lane_kernel")
 
 
 def device_busy(fn, launches) -> dict:
@@ -935,9 +1124,30 @@ def device_busy(fn, launches) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1000.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    traced = sum(1 for e in kernels if any(k in e.name for k in PORT_KERNELS))
+    port = [e for e in kernels if any(k in e.name for k in PORT_KERNELS)]
     return dict(busy_ms=sum(by_name.values()), n_kernels=len(kernels),
-                top=[[name[:60], ms] for name, ms in top], traced=traced, launched=launched)
+                top=[[name[:60], ms] for name, ms in top], traced=len(port), launched=launched,
+                port_ms=sum(e.self_device_time_total for e in port) / 1000.0)
+
+
+def kernel_ms(fn, calls: int = 20) -> float:
+    """The kernel's own time on the card per launch: torch.profiler's self
+    device time of the port's kernel launches during ``calls`` calls of
+    ``fn`` (after the profiler's warm-up step), over their number.  Raises
+    unless the trace holds every launch the wrappers counted, and at least
+    ``calls``."""
+    # the profiler has been seen to drop launches from a trace (12 of 20, and
+    # once all 5 of 5 long ones): the mean over the traced launches still
+    # reads the kernel's time, and a trace with fewer than half is taken again
+    for attempt in range(3):
+        prof = device_busy(lambda: [fn() for _ in range(calls)], lambda: sum(launch_counts().values()))
+        if prof["traced"] != prof["launched"]:
+            print(f"kernel_ms: the trace holds {prof['traced']} of the {prof['launched']} launches the wrappers "
+                  f"counted (attempt {attempt + 1})", flush=True)
+        if max(calls // 2, 1) <= prof["traced"] <= prof["launched"]:
+            return prof["port_ms"] / prof["traced"]
+    raise AssertionError(f"kernel_ms: the trace holds {prof['traced']} of the port's launches, "
+                         f"the wrappers counted {prof['launched']} in {calls} calls")
 
 
 def phase_timing() -> None:
@@ -1101,6 +1311,7 @@ def main() -> int:
         phase_build()
         phase_k1(summary)
         phase_k2(summary)
+        phase_k2_walks(summary)
         phase_restir(summary)
         phase_restir_gi(summary)
         phase_diff(summary)

@@ -10,9 +10,11 @@ scenes and training, through these entry points:
 
   * ``render.renderer.Renderer`` — the wavefront renderer for techniques
     0-8; on CUDA tensors its closest-hit trace is the hand-written kernel
-    ``csrc/trace.cu`` (``ops.traverse.trace_closest``);
+    ``csrc/trace.cu`` (``ops.traverse.trace_closest``), a walk of the
+    scene's 4-wide BVH (``accel.wide``);
   * ``render.megakernel.MegakernelRenderer`` — N frames of techniques 0-6
-    per pixel in one hand-written kernel, ``csrc/megakernel.cu``;
+    per pixel in one hand-written kernel, ``csrc/megakernel.cu``, which
+    walks the same 4-wide BVH;
   * ``render.megakernel_restir.MegakernelReSTIRDI`` and
     ``render.megakernel_restir_gi.MegakernelReSTIRGI`` — ReSTIR DI and GI
     as hand-written kernels a frame, ``csrc/restir_di.cu`` and

@@ -6,10 +6,18 @@
 // source sampling and NEE+MIS.  The kernel is a template over the sampler, so
 // each technique compiles to its own code with no per-bounce dispatch; one C
 // entry takes the sampler as an int.  Brute force is UNIFORM at 1 sample, chosen
-// by the host (megakernel.py:2603).  One thread owns one pixel and runs the
-// frame loop and the sample loop inside; each ray is traced with the BVH walk of
-// traverse.cuh.  It works from the scene's SoA arrays, not from the TPU's packed
-// P/AT/L tables, which existed for one-hot MXU fetches.
+// by the host (megakernel.py:2603).  `lanes` threads (1, 2 or 4, chosen by
+// the host: render/megakernel.py::k2_lanes) own one pixel: each traces the
+// pixel's primary ray and then runs every lanes-th frame (lane k frames k,
+// k + lanes, ...) with the sample loop inside, tracing each ray alone through
+// the 4-wide BVH (wide.cuh, trace_closest_wide1; NEE calls it, the other
+// samplers inline it); the lanes add their sums by shuffles and lane 0 writes
+// the pixel (frames_kernel).  It works from the scene's SoA arrays and the
+// wide BVH's records, not from the TPU's packed P/AT/L tables, which existed
+// for one-hot MXU fetches.  The frame loop is a template over the walk: for
+// NEE it is also built with one thread a pixel and the threaded walk of
+// traverse.cuh (frames_threaded_kernel), so that chip_smoke.py can time both
+// in turns (fyp_megakernel's lanes argument 0).
 //
 // Semantics kept from the JAX kernel (and from render/integrators.py, whose
 // frame the PyTorch plain version sums):
@@ -33,18 +41,31 @@
 //     cos_y2, area2 and pmf2 at the actual hit; bounces == 1 is plain light
 //     sampling with no MIS weight.
 //
-// What bounds it on an H100: the traversal's dependent loads and divergence
-// (traverse.cuh), multiplied by the traces per frame (1 + 2 * bounces for NEE,
-// bounces for the hemisphere family, 1 for LIGHT), plus for NEE and LIGHT the
-// light-tree descent, whose importance evaluation (8 box corners per child) is
-// the main arithmetic.  Output is one float3 store per pixel per launch, so
-// device-memory traffic is the scene's, which stays in L2 for Cornell.  Path
-// regeneration, ray sorting and a persistent-thread schedule are later work.
+// What bounds it on an H100: the traversal's dependent loads (wide.cuh),
+// multiplied by the traces per frame (1 + 2 * bounces for NEE, bounces for the
+// hemisphere family, 1 for LIGHT), plus for NEE and LIGHT the light-tree
+// descent, whose importance evaluation (8 box corners per child) is the main
+// arithmetic.  Output is one float3 store per pixel per launch, so
+// device-memory traffic is the scene's, which stays in L2 for Cornell.  Four
+// threads a pixel launch 262,144 threads at 256², against 65,536 when one
+// thread ran a pixel's frames, without shading anything twice (a quad that
+// walked each ray together shaded each path four times and lost, PERF.md
+// Findings); the wide BVH cuts a Cornell ray's dependent visits from 18.4
+// nodes and 4.1 triangles to 3.6 nodes and 1.2 leaves.  More than one lane
+// adds a pixel's frames in another order than one thread would, so its sums
+// differ from one lane's in the last bits.  Path regeneration and ray sorting
+// are later work.
 //
-// C interface (loaded with ctypes by render/megakernel.py::megakernel): writes
-// the (H*W, 3) float32 HDR summed over n_frames, returns cudaGetLastError()
-// after the asynchronous launch (cudaErrorInvalidValue for an unknown sampler).
+// C interface (loaded with ctypes by render/megakernel.py::megakernel):
+//   fyp_megakernel           writes the (H*W, 3) float32 HDR summed over
+//                            n_frames, returns cudaGetLastError() after the
+//                            asynchronous launch (cudaErrorInvalidValue for an
+//                            unknown sampler or lane count, or the threaded
+//                            walk, lanes 0, with another sampler than NEE);
+//   fyp_megakernel_occupancy the blocks of the same kernel a multiprocessor
+//                            holds at once, by the CUDA runtime.
 #include "shading.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -52,16 +73,50 @@ using namespace fyp;
 
 enum Sampler { UNIFORM = 0, COSINE = 1, GGX = 2, BRDF = 3, LIGHT = 4, NEE = 5 };
 
+constexpr int kBlock = 128;  // threads; ptxas gives 72-96 registers a thread, no tighter bound pays
+
 struct Params {
   const float* cam;  // (2, 4, 4): inv_projection, inv_view, row-major
   int width, height;
   uint32_t frame0;
   int n_frames, bounces, samples;
+  int lanes;  // threads a pixel: 1, 2 or 4
   float3 sky;
   Geo geo;
   Mats mats;
   Bvh bvh;
+  WideBvh wide;
   LightTree lt;
+};
+
+// The closest hit of a ray, t < kBig: by one thread through the wide BVH ...
+struct LaneWalk {
+  WideBvh w;
+  LaneStack st;
+  __device__ __forceinline__ Hit operator()(float3 o, float3 d) const {
+    return trace_closest_wide1(w, st, o, d, kBig);
+  }
+};
+
+// ... the same, as a call: the walk then has the registers to itself, and
+// the path's live state is saved around the call instead (NEE, whose path
+// holds the most state: measured faster so at Cornell 256², slower at
+// stress 128², PERF.md Findings)
+__device__ __noinline__ Hit trace_closest_wide1_call(const WideBvh& w, const LaneStack& st, float3 o, float3 d) {
+  return trace_closest_wide1(w, st, o, d, kBig);
+}
+
+struct LaneCallWalk {
+  WideBvh w;
+  LaneStack st;
+  __device__ __forceinline__ Hit operator()(float3 o, float3 d) const { return trace_closest_wide1_call(w, st, o, d); }
+};
+
+// ... or by one thread through the threaded BVH
+struct ThreadedWalk {
+  Bvh bvh;
+  Tris tris;
+  __device__ __forceinline__ Hit operator()(float3 o, float3 d) const { return trace_closest(bvh, tris, o, d, kBig); }
 };
 
 // integrators.py::_scatter: a direction at surface s seen along view, and its pdf
@@ -100,8 +155,9 @@ __device__ __forceinline__ void light_point(const Params& P, int tid, float u1, 
 }
 
 // integrators.py::radiance_hemisphere, one sample of one frame
-template <int S>
-__device__ float3 hemisphere_path(const Params& P, const Tris& tris, uint32_t key, const Surf& prim, float3 dir) {
+template <int S, class Walk>
+__device__ __forceinline__ float3 hemisphere_path(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
+                                                  float3 dir) {
   float3 rad = make_float3(0.0f, 0.0f, 0.0f);
   float3 view = -dir;
   float3 l;
@@ -112,7 +168,7 @@ __device__ float3 hemisphere_path(const Params& P, const Tris& tris, uint32_t ke
   float3 ray_o = prim.pos + prim.n * kOriginEps;
   float3 ray_d = l;
   for (int b = 0; b < P.bounces; ++b) {
-    Hit hh = trace_closest(P.bvh, tris, ray_o, ray_d, kBig);
+    Hit hh = walk(ray_o, ray_d);
     if (hh.tri < 0) return rad + thr * P.sky;
     Surf s = surface(P.geo, P.mats, hh, ray_o, ray_d);
     float3 em = emission_of(P.mats, s.mat);
@@ -129,7 +185,9 @@ __device__ float3 hemisphere_path(const Params& P, const Tris& tris, uint32_t ke
 }
 
 // integrators.py::radiance_light_source, one sample of one frame
-__device__ float3 light_sample(const Params& P, const Tris& tris, uint32_t key, const Surf& prim, float3 dir) {
+template <class Walk>
+__device__ __forceinline__ float3 light_sample(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
+                                               float3 dir) {
   float u_pick = next_uniform(key);
   float u1 = next_uniform(key);
   float u2 = next_uniform(key);
@@ -146,7 +204,7 @@ __device__ float3 light_sample(const Params& P, const Tris& tris, uint32_t key, 
   float cos_y = fmaxf(dot(-l_dir, ln), 0.0f);
   float pdf = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist;
   float3 contrib = fd * (cos_x * cos_y / fmaxf(pdf, 1e-20f));
-  Hit sh = trace_closest(P.bvh, tris, prim.pos + prim.n * kOriginEps, l_dir, kBig);
+  Hit sh = walk(prim.pos + prim.n * kOriginEps, l_dir);
   float3 rad = make_float3(0.0f, 0.0f, 0.0f);
   if (lt_tri >= 0 && sh.tri == lt_tri && pmf > 0.0f)
     rad = contrib * emission_of(P.mats, __ldg(P.geo.tri_mat + lt_tri));
@@ -155,7 +213,9 @@ __device__ float3 light_sample(const Params& P, const Tris& tris, uint32_t key, 
 }
 
 // integrators.py::radiance_nee_mis, one sample of one frame
-__device__ float3 nee_path(const Params& P, const Tris& tris, uint32_t key, const Surf& prim, float3 dir) {
+template <class Walk>
+__device__ __forceinline__ float3 nee_path(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
+                                           float3 dir) {
   const bool single = P.bounces == 1;
   float3 rad = make_float3(0.0f, 0.0f, 0.0f);
   float3 thr = make_float3(1.0f, 1.0f, 1.0f);
@@ -178,7 +238,7 @@ __device__ float3 nee_path(const Params& P, const Tris& tris, uint32_t key, cons
       float3 tl = point - surf.pos;
       float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
       float3 l_dir = tl / dist;
-      Hit sh = trace_closest(P.bvh, tris, surf.pos + surf.n * kOriginEps, l_dir, kBig);
+      Hit sh = walk(surf.pos + surf.n * kOriginEps, l_dir);
       if (lt_tri >= 0 && sh.tri == lt_tri && pmf > 0.0f) {
         float3 fd = cook_torrance(surf.n, view, l_dir, surf.alb, surf.metal, surf.rough);
         float cos_x = fmaxf(dot(l_dir, surf.n), 0.0f);
@@ -206,7 +266,7 @@ __device__ float3 nee_path(const Params& P, const Tris& tris, uint32_t key, cons
 
     float3 ray_o = surf.pos + surf.n * kOriginEps;
     ray_d = l;
-    Hit hh = trace_closest(P.bvh, tris, ray_o, ray_d, kBig);
+    Hit hh = walk(ray_o, ray_d);
     if (hh.tri < 0) {
       rad = rad + thr * P.sky;
       break;
@@ -217,7 +277,7 @@ __device__ float3 nee_path(const Params& P, const Tris& tris, uint32_t key, cons
       // MIS with the light pdf at the actual hit point
       float cos_y2 = fmaxf(dot(-ray_d, next.n), 1e-12f);
       float3 q0, q1, q2;
-      triangle(tris, hh.tri, q0, q1, q2);
+      triangle(Tris{P.geo.positions, P.geo.tri_v}, hh.tri, q0, q1, q2);
       float3 cr2 = cross(q1 - q0, q2 - q0);
       float area2 = 0.5f * sqrtf(fmaxf(dot(cr2, cr2), 1e-20f));
       float dist2 = fmaxf(hh.t, 0.0f);
@@ -232,63 +292,119 @@ __device__ float3 nee_path(const Params& P, const Tris& tris, uint32_t key, cons
   return rad;
 }
 
-template <int S>
-__global__ void __launch_bounds__(128) frames_kernel(Params P, float* __restrict__ out) {
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= P.width * P.height) return;
-  Tris tris{P.geo.positions, P.geo.tri_v};
+// The HDR of pixel pix summed over frames f_first, f_first + f_step, ...
+// (below n_frames), traced by walk.  A primary miss or emitter gives
+// n_frames times its radiance, whatever the frames, and sets *whole.
+template <int S, class Walk>
+__device__ __forceinline__ float3 frames(const Params& P, const Walk& walk, int pix, int f_first, int f_step,
+                                         bool& whole) {
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
 
   // ---- primary hit, traced once and reused by every frame
   const float nf = static_cast<float>(P.n_frames);
-  Hit h0 = trace_closest(P.bvh, tris, orig, dir, kBig);
-  if (h0.tri < 0) {
-    out[3 * pix + 0] = nf * P.sky.x;
-    out[3 * pix + 1] = nf * P.sky.y;
-    out[3 * pix + 2] = nf * P.sky.z;
-    return;
-  }
-  const Surf prim = surface(P.geo, P.mats, h0, orig, dir);
-  const float3 em0 = emission_of(P.mats, prim.mat);
-  if (dot(em0, em0) > 0.0f) {
-    out[3 * pix + 0] = nf * em0.x;
-    out[3 * pix + 1] = nf * em0.y;
-    out[3 * pix + 2] = nf * em0.z;
-    return;
-  }
-
+  const Hit h0 = walk(orig, dir);
+  const Surf prim = h0.tri < 0 ? Surf{} : surface(P.geo, P.mats, h0, orig, dir);
+  const float3 em0 = h0.tri < 0 ? P.sky : emission_of(P.mats, prim.mat);
+  whole = h0.tri < 0 || dot(em0, em0) > 0.0f;
+  if (whole) return make_float3(nf * em0.x, nf * em0.y, nf * em0.z);
   const uint32_t pix_key = pcg(static_cast<uint32_t>(pix));
   float3 acc = make_float3(0.0f, 0.0f, 0.0f);
-  for (int f = 0; f < P.n_frames; ++f) {
+  for (int f = f_first; f < P.n_frames; f += f_step) {
     const uint32_t key_f = fold(pix_key, P.frame0 + static_cast<uint32_t>(f));
     float3 rad = make_float3(0.0f, 0.0f, 0.0f);
     for (int s = 0; s < P.samples; ++s) {
       const uint32_t key = fold(fold(key_f, static_cast<uint32_t>(s)), 0u);
       if (S == NEE) {
-        rad = rad + nee_path(P, tris, key, prim, dir);
+        rad = rad + nee_path(P, walk, key, prim, dir);
       } else if (S == LIGHT) {
-        rad = rad + light_sample(P, tris, key, prim, dir);
+        rad = rad + light_sample(P, walk, key, prim, dir);
       } else {
-        rad = rad + hemisphere_path<S>(P, tris, key, prim, dir);
+        rad = rad + hemisphere_path<S>(P, walk, key, prim, dir);
       }
     }
     acc = acc + rad / static_cast<float>(P.samples);
   }
-  out[3 * pix + 0] = acc.x;
-  out[3 * pix + 1] = acc.y;
-  out[3 * pix + 2] = acc.z;
+  return acc;
 }
+
+__device__ __forceinline__ void store(float* __restrict__ out, int pix, float3 v) {
+  out[3 * pix + 0] = v.x;
+  out[3 * pix + 1] = v.y;
+  out[3 * pix + 2] = v.z;
+}
+
+// `lanes` threads a pixel, lane k with frames k, k + lanes, ... and the wide
+// walk by the thread; the lanes add their sums by xor shuffles, for four
+// (l0 + l1) + (l2 + l3)
+template <int S, class Walk>
+__device__ __forceinline__ void lane_frames(const Params& P, const Walk& walk, int pix, float* __restrict__ out) {
+  const int lanes = P.lanes;
+  const int lane = threadIdx.x & (lanes - 1);
+  const unsigned mask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  bool whole;  // the same in the pixel's lanes: one primary ray
+  float3 acc = frames<S>(P, walk, pix, lane, lanes, whole);
+  if (whole && lane != 0) acc = make_float3(0.0f, 0.0f, 0.0f);  // n_frames times its radiance, once
+  for (int off = 1; off < lanes; off <<= 1) {
+    acc.x += __shfl_xor_sync(mask, acc.x, off, lanes);
+    acc.y += __shfl_xor_sync(mask, acc.y, off, lanes);
+    acc.z += __shfl_xor_sync(mask, acc.z, off, lanes);
+  }
+  if (lane == 0) store(out, pix, acc);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kBlock) frames_kernel(Params P, float* __restrict__ out) {
+  const int pix = (blockIdx.x * kBlock + threadIdx.x) / P.lanes;
+  if (pix >= P.width * P.height) return;  // the ragged edge leaves a pixel's lanes whole
+  const LaneStack st = lane_stack(P.wide.stack_depth);
+  if constexpr (S == NEE) {
+    lane_frames<S>(P, LaneCallWalk{P.wide, st}, pix, out);
+  } else {
+    lane_frames<S>(P, LaneWalk{P.wide, st}, pix, out);
+  }
+}
+
+// one thread a pixel, the threaded walk
+template <int S>
+__global__ void __launch_bounds__(kBlock) frames_threaded_kernel(Params P, float* __restrict__ out) {
+  const int pix = blockIdx.x * kBlock + threadIdx.x;
+  if (pix >= P.width * P.height) return;
+  bool whole;
+  store(out, pix, frames<S>(P, ThreadedWalk{P.bvh, Tris{P.geo.positions, P.geo.tri_v}}, pix, 0, 1, whole));
+}
+
+using Kernel = void (*)(Params, float*);
+
+// The kernel of a sampler and lane count (0: the threaded walk, NEE only),
+// or null
+Kernel kernel_of(int sampler, int lanes) {
+  if (lanes == 0) return sampler == NEE ? frames_threaded_kernel<NEE> : nullptr;
+  if (lanes != 1 && lanes != 2 && lanes != 4) return nullptr;
+  switch (sampler) {
+    case UNIFORM: return frames_kernel<UNIFORM>;
+    case COSINE: return frames_kernel<COSINE>;
+    case GGX: return frames_kernel<GGX>;
+    case BRDF: return frames_kernel<BRDF>;
+    case LIGHT: return frames_kernel<LIGHT>;
+    case NEE: return frames_kernel<NEE>;
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory of a block: a stack for each thread of the wide walk
+size_t smem_of(int lanes, int stack_depth) { return lanes == 0 ? 0 : wide_stack_bytes(kBlock, stack_depth); }
 
 }  // namespace
 
 extern "C" int fyp_megakernel(
-    int sampler, const void* cam, int width, int height, unsigned int frame0, int n_frames, int bounces,
+    int sampler, int lanes, const void* cam, int width, int height, unsigned int frame0, int n_frames, int bounces,
     int samples, float sky_r, float sky_g, float sky_b,
     const void* positions, const void* normals, const void* tri_v, const void* tri_mat,
     const void* albedo, const void* roughness, const void* metallic, const void* emission,
     const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
     const void* bvh_prim_idx, int n_nodes, int leaf_size,
+    const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* lt_energy, const void* lt_axis, const void* lt_cos_o, const void* lt_sin_o,
     const void* lt_cos_e, const void* lt_sin_e, const void* lt_box_lo, const void* lt_box_hi,
     const void* lt_left, const void* lt_right, const void* lt_tri, const void* lt_parent,
@@ -296,6 +412,8 @@ extern "C" int fyp_megakernel(
     void* out, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
+  const Kernel k = kernel_of(sampler, lanes);
+  if (k == nullptr || wide_stack_depth < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
   Params P;
@@ -306,25 +424,30 @@ extern "C" int fyp_megakernel(
   P.n_frames = n_frames;
   P.bounces = bounces;
   P.samples = samples;
+  P.lanes = max(lanes, 1);
   P.sky = make_float3(sky_r, sky_g, sky_b);
   P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
   P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
   P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
+                   static_cast<int*>(wide_overflow), wide_stack_depth};
   P.lt = LightTree{F(lt_energy), F(lt_axis), F(lt_cos_o), F(lt_sin_o), F(lt_cos_e), F(lt_sin_e),
                    F(lt_box_lo), F(lt_box_hi), I(lt_left), I(lt_right), I(lt_tri), I(lt_parent),
                    I(lt_leaf_of_tri), lt_max_depth};
-  const int block = 128;
-  const int grid = (n_pix + block - 1) / block;
+  const size_t smem = smem_of(lanes, wide_stack_depth);
+  const cudaError_t e = allow_stack_smem(k, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = static_cast<int>((static_cast<long long>(P.lanes) * n_pix + kBlock - 1) / kBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  switch (sampler) {
-    case UNIFORM: frames_kernel<UNIFORM><<<grid, block, 0, st>>>(P, o); break;
-    case COSINE: frames_kernel<COSINE><<<grid, block, 0, st>>>(P, o); break;
-    case GGX: frames_kernel<GGX><<<grid, block, 0, st>>>(P, o); break;
-    case BRDF: frames_kernel<BRDF><<<grid, block, 0, st>>>(P, o); break;
-    case LIGHT: frames_kernel<LIGHT><<<grid, block, 0, st>>>(P, o); break;
-    case NEE: frames_kernel<NEE><<<grid, block, 0, st>>>(P, o); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  k<<<grid, kBlock, smem, st>>>(P, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fyp_megakernel_occupancy(int sampler, int lanes, int wide_stack_depth, int* blocks_per_sm) {
+  const Kernel k = kernel_of(sampler, lanes);
+  if (k == nullptr || wide_stack_depth < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_of(lanes, wide_stack_depth);
+  cudaError_t e = allow_stack_smem(k, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k, kBlock, smem);
+  return static_cast<int>(e);
 }

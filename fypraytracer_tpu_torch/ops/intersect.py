@@ -23,11 +23,16 @@ def ray_aabb(origin, inv_dir, lo, hi, t_best):
     exactly at ``t_best`` is still visited (the JAX test is strict), so a
     triangle tying the best hit can win the tie (ops/traverse.py).
     """
+    return ray_aabb_entry(origin, inv_dir, lo, hi, t_best)[0]
+
+
+def ray_aabb_entry(origin, inv_dir, lo, hi, t_best):
+    """``ray_aabb``'s hit mask and the entry t of each box."""
     t0 = (lo - origin) * inv_dir
     t1 = (hi - origin) * inv_dir
     tmin = torch.minimum(t0, t1).amax(dim=-1)
     tmax = torch.maximum(t0, t1).amin(dim=-1)
-    return (tmax >= torch.clamp_min(tmin, 0.0)) & (tmin <= t_best)
+    return (tmax >= torch.clamp_min(tmin, 0.0)) & (tmin <= t_best), tmin
 
 
 def moller_trumbore(origin, direction, p0, p1, p2):
@@ -36,8 +41,12 @@ def moller_trumbore(origin, direction, p0, p1, p2):
     Returns ``(t, u, v, hit)``; ``hit`` enforces 0<=u, 0<=v, u+v<=1,
     t > T_EPSILON and a non-degenerate determinant.
     """
-    e1 = p1 - p0
-    e2 = p2 - p0
+    return moller_trumbore_edges(origin, direction, p0, p1 - p0, p2 - p0)
+
+
+def moller_trumbore_edges(origin, direction, p0, e1, e2):
+    """``moller_trumbore`` of the triangle (p0, p0 + e1, p0 + e2), given its
+    edges ``e1 = p1 - p0`` and ``e2 = p2 - p0`` (the wide BVH's records)."""
     pvec = cross3(direction, e2)
     det = dot3(e1, pvec, keepdims=False)
     valid_det = torch.abs(det) > DET_EPSILON

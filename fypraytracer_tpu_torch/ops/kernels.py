@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # neither, so that its loss and gradient round as its plain version's
 EXTRA_FLAGS = {"restir_gi": ["-fmad=false"], "megakernel_diff": ["-fmad=false"]}
 
-_libs: dict[str, ctypes.CDLL] = {}
+# per library: the loaded library and its C entries with their argtypes set
+_libs: dict[str, tuple[ctypes.CDLL, dict]] = {}
 # per library: {"path", "seconds" (0.0 when it was already built), "log"}
 build_info: dict[str, dict] = {}
 
@@ -62,7 +63,12 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}_{_source_hash()}.so")
     if os.path.exists(out):
-        build_info.setdefault(name, dict(path=out, seconds=0.0, log=""))
+        if name not in build_info:
+            log = ""
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as f:
+                    log = f.read()
+            build_info[name] = dict(path=out, seconds=0.0, log=log)
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp,
@@ -72,20 +78,28 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    log = (proc.stdout + proc.stderr).strip()
+    with open(f"{tmp}.log", "w") as f:        # the compiler's report, for a later cached load
+        f.write(log)
+    os.replace(f"{tmp}.log", out + ".log")
     os.replace(tmp, out)
-    build_info[name] = dict(path=out, seconds=time.perf_counter() - t0,
-                            log=(proc.stdout + proc.stderr).strip())
+    build_info[name] = dict(path=out, seconds=time.perf_counter() - t0, log=log)
     return out
 
 
 def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of library ``name`` with its argtypes set
-    (every pointer and the stream must be ``c_void_p``); returns int."""
+    (every pointer and the stream must be ``c_void_p``); returns int.  The
+    library is built and loaded, and the entry bound, once."""
     if name not in _libs:
-        _libs[name] = ctypes.CDLL(build(name))
-    fn = getattr(_libs[name], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        _libs[name] = (ctypes.CDLL(build(name)), {})
+    lib, fns = _libs[name]
+    fn = fns.get(symbol)
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[symbol] = fn
     return fn
 
 
@@ -106,7 +120,7 @@ def stream_ptr(device) -> ctypes.c_void_p:
 def check_inputs(name: str, floats=(), ints=()) -> None:
     """Raise unless every tensor lies on one CUDA device, is contiguous and
     is float32 (``floats``) or int32 (``ints``)."""
-    dev = (list(floats) + list(ints))[0].device
+    dev = (floats or ints)[0].device
     for ts, dtype in ((floats, torch.float32), (ints, torch.int32)):
         for t in ts:
             if t.device != dev or t.device.type != "cuda":

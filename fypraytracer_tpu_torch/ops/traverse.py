@@ -1,16 +1,26 @@
-"""Closest-hit tracing against the threaded BVH.
+"""Closest-hit tracing against the scene's BVH.
 
-``trace_rays`` is the plain PyTorch walk, the same algorithm as
-``fypraytracer_tpu/ops/traverse.py::trace_rays``: every ray carries one
-node index; an inner node whose box is hit falls through to ``i+1``,
-anything else jumps to the skip link.  Each step works on the rays still
-walking only, so a batch costs as many steps as its longest walk.
+``trace_rays`` is the plain PyTorch walk of the threaded binary BVH, the
+same algorithm as ``fypraytracer_tpu/ops/traverse.py::trace_rays``: every
+ray carries one node index; an inner node whose box is hit falls through
+to ``i+1``, anything else jumps to the skip link.  Each step works on the
+rays still walking only, so a batch costs as many steps as its longest
+walk.  It is the plain version every kernel is held against.
 
-``trace_closest`` is the wrapper of the hand-written CUDA kernel
-``csrc/trace.cu``, which replaces the TPU kernel
-``fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel``.  It takes the
-plain walk for CPU tensors only; for CUDA tensors it launches the kernel
-or raises.  ``trace_closest.launches`` counts its kernel launches.
+``trace_rays_wide`` walks the scene's 4-wide BVH (``Scene.wide``,
+``accel/wide.py``) in the order of the CUDA walk ``csrc/wide.cuh``: near
+child first, a stack, entries pruned on pop.  It gives what ``trace_rays``
+gives, bit for bit, and rehearses the kernel's logic on the CPU.
+
+``trace_closest(scene, ...)`` is the wrapper of the hand-written CUDA
+kernel ``csrc/trace.cu`` (K1), which replaces the TPU kernel
+``fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel`` and walks the
+wide BVH with ``k1_lanes`` threads a ray.  It takes the plain walk for CPU
+tensors only; for CUDA tensors it launches the kernel or raises (also on
+a scene without its wide BVH).  ``trace_closest.launches`` counts its
+kernel launches.  ``trace_closest_threaded`` launches the threaded walk
+instead, one thread a ray: K1's design before the wide BVH, kept to be
+timed beside it.
 
 Both return ``dict(tri (B,) i32 (-1 miss), t (B,) f32 (-1 miss), u, v)``,
 with t/u/v from Möller–Trumbore, as the JAX tracers do.
@@ -32,12 +42,14 @@ the edges where the walls meet the floor and ceiling.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from fypraytracer_tpu_torch.accel.wide import EMPTY, MAX_STACK, WIDTH, unpack_nodes
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.intersect import moller_trumbore, ray_aabb
-from fypraytracer_tpu_torch.scene.types import FlatBVH, Geometry
+from fypraytracer_tpu_torch.ops.intersect import moller_trumbore, moller_trumbore_edges, ray_aabb, ray_aabb_entry
+from fypraytracer_tpu_torch.scene.types import FlatBVH, Geometry, WideBVH
 
 _BIG = 3.0e38
 
@@ -92,21 +104,9 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
             p1 = geometry.positions[tv[..., 1]]
             p2 = geometry.positions[tv[..., 2]]
             tt, uu, vv, hit = moller_trumbore(origins[r][:, None], directions[r][:, None], p0, p1, p2)
-            hit = hit & (tri_ids >= 0)
             if counts is not None:
                 counts["tris"] = counts["tris"] + (tri_ids >= 0).sum()
-            tt = torch.where(hit, tt, _BIG)
-            t_leaf = tt.amin(dim=1)
-            # lowest id among the slots at the leaf's closest t
-            best = hit & (tt == t_leaf[:, None])
-            id_leaf = torch.where(best, tri_ids, torch.iinfo(torch.int32).max).amin(dim=1)
-            k = (best & (tri_ids == id_leaf[:, None])).int().argmax(dim=1, keepdim=True)
-            closer = best.any(dim=1) & ((t_leaf < t[r]) | ((t_leaf == t[r]) & (id_leaf < tri[r])))
-            rc = r[closer]
-            t[rc] = t_leaf[closer]
-            tri[rc] = id_leaf[closer]
-            u[rc] = uu.gather(1, k)[:, 0][closer]
-            v[rc] = vv.gather(1, k)[:, 0][closer]
+            _keep_closest(r, tri_ids, tt, uu, vv, hit, t, tri, u, v)
 
         nxt = torch.where(hit_box & ~is_leaf, nd + 1, bvh.miss[nd].long())
         node[ray] = nxt
@@ -114,6 +114,115 @@ def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None
         if stop_below is not None:
             walking = walking & ~(t[ray] < stop_below[ray])
         ray = ray[walking]
+
+    return dict(tri=tri, t=torch.where(tri < 0, -1.0, t), u=u, v=v)
+
+
+def _keep_closest(r, ids, tt, uu, vv, hit, t, tri, u, v):
+    """Fold the tests of a leaf's slots (L, K) into the running hits of the
+    rays r: the leaf's closest hit, of those at the same t the lowest id,
+    replaces the ray's (t, tri, u, v) where it is closer or ties it with a
+    lower id.  Padding slots (id -1) never hit."""
+    hit = hit & (ids >= 0)
+    tt = torch.where(hit, tt, _BIG)
+    t_leaf = tt.amin(dim=1)
+    best = hit & (tt == t_leaf[:, None])
+    id_leaf = torch.where(best, ids, torch.iinfo(torch.int32).max).amin(dim=1)
+    k = (best & (ids == id_leaf[:, None])).int().argmax(dim=1, keepdim=True)
+    closer = best.any(dim=1) & ((t_leaf < t[r]) | ((t_leaf == t[r]) & (id_leaf < tri[r])))
+    rc = r[closer]
+    t[rc] = t_leaf[closer]
+    tri[rc] = id_leaf[closer]
+    u[rc] = uu.gather(1, k)[:, 0][closer]
+    v[rc] = vv.gather(1, k)[:, 0][closer]
+
+
+_POP = -1     # the walk's "take the next stack entry"
+
+
+def trace_rays_wide(wide: WideBVH, origins, directions, t_max=None, counts: dict | None = None):
+    """Closest hit of a ray batch (B, 3) through the 4-wide BVH's records —
+    plain PyTorch, in the order of ``csrc/wide.cuh::trace_closest_wide``.
+
+    At an inner node the four child boxes are tested with the slab test
+    of ``ray_aabb`` (inclusive at ``t_best``), the hit children sorted by
+    entry t (ties to the lower child), the nearest taken next and the
+    others pushed, farthest first.  At a leaf the four slots are tested
+    and the best (t, id) of them kept as ``trace_rays`` keeps it.  An
+    entry popped from the stack is skipped unless its entry t is still
+    ``<= t_best``.  Returns what ``trace_rays`` returns, and the same hits:
+    the closest, ties to the lowest id, whatever the order of the walk.
+    ``counts`` (optional dict) gets ``"nodes"`` (inner node visits) and
+    ``"leaves"`` (leaf visits) added.  The CPU rehearsal of the kernel's
+    logic; ``trace_rays`` stays the plain version the kernels are held to.
+    """
+    origins, directions = origins.detach(), directions.detach()
+    B = origins.shape[0]
+    dev = origins.device
+    box_lo, box_hi, box_ref = unpack_nodes(wide.nodes)
+    box_ref = box_ref.long()
+    p0, e1, e2 = wide.tris[:, 0, :3], wide.tris[:, 1, :3], wide.tris[:, 2, :3]
+    tri_id = wide.tris[:, 0, 3].contiguous().view(torch.int32)
+    lanes = torch.arange(WIDTH, device=dev)
+
+    d_safe = torch.where(torch.abs(directions) < 1e-20,
+                         torch.where(directions < 0, -1e-20, 1e-20), directions)
+    inv_dir = 1.0 / d_safe
+
+    t = (torch.full((B,), _BIG, dtype=torch.float32, device=dev) if t_max is None
+         else torch.as_tensor(t_max, dtype=torch.float32, device=dev).detach().clone())
+    tri = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(B, dtype=torch.float32, device=dev)
+    v = torch.zeros(B, dtype=torch.float32, device=dev)
+    cur = torch.zeros(B, dtype=torch.int64, device=dev)          # the root
+    depth = max(wide.stack_need, 1)
+    st_ref = torch.zeros((B, depth), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((B, depth), dtype=torch.float32, device=dev)
+    sp = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    ray = torch.arange(B, device=dev)           # rays still walking
+    while ray.numel():
+        c = cur[ray]
+        inner, leaf = c >= 0, c <= -2
+        if bool(inner.any()):
+            r, nd = ray[inner], c[inner]
+            if counts is not None:
+                counts["nodes"] = counts.get("nodes", 0) + r.numel()
+            hit, tmin = ray_aabb_entry(origins[r][:, None], inv_dir[r][:, None], box_lo[nd], box_hi[nd],
+                                       t[r][:, None])
+            ref = box_ref[nd]
+            hit = hit & (ref != EMPTY)
+            key = torch.where(hit, tmin, float("inf"))
+            key, order = torch.sort(key, dim=1, stable=True)
+            ref = ref.gather(1, order)
+            n_hit = hit.sum(dim=1)
+            for j in range(WIDTH - 1, 0, -1):       # farthest first, so the nearest pops first
+                m = n_hit > j
+                rm = r[m]
+                st_ref[rm, sp[rm]] = ref[m, j]
+                st_t[rm, sp[rm]] = key[m, j]
+                sp[rm] += 1
+            cur[r] = torch.where(n_hit > 0, ref[:, 0], _POP)
+        if bool(leaf.any()):
+            r = ray[leaf]
+            if counts is not None:
+                counts["leaves"] = counts.get("leaves", 0) + r.numel()
+            slot = WIDTH * (-c[leaf] - 2)[:, None] + lanes                  # (L, 4)
+            tt, uu, vv, hit = moller_trumbore_edges(origins[r][:, None], directions[r][:, None],
+                                                    p0[slot], e1[slot], e2[slot])
+            _keep_closest(r, tri_id[slot], tt, uu, vv, hit, t, tri, u, v)
+            cur[r] = _POP
+        # pop the nearest entry still in reach; a ray with an empty stack is done
+        popping = ray[cur[ray] == _POP]
+        while popping.numel():
+            has = sp[popping] > 0
+            popping = popping[has]
+            sp[popping] -= 1
+            te = st_t[popping, sp[popping]]
+            take = te <= t[popping]
+            cur[popping[take]] = st_ref[popping[take], sp[popping[take]]]
+            popping = popping[~take]
+        ray = ray[cur[ray] != _POP]
 
     return dict(tri=tri, t=torch.where(tri < 0, -1.0, t), u=u, v=v)
 
@@ -135,56 +244,140 @@ def segment_visible(bvh: FlatBVH, geometry: Geometry, origins, directions, dist)
     return (h["tri"] >= 0) & (h["t"] >= lo)
 
 
-_TRACE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+def wide_records(scene) -> WideBVH:
+    """The scene's wide BVH for a CUDA walk.  Raises if the scene has none
+    (``SceneBuilder.compile``, ``scene_from_arrays`` and
+    ``morton_permuted_scene`` build it) or if its walk could need more
+    stack than the kernels hold."""
+    wide = scene.wide
+    if wide is None:
+        raise ValueError("the scene has no wide BVH (accel/wide.py::build_wide); the CUDA walk needs it")
+    if wide.stack_need > MAX_STACK:
+        raise ValueError(f"the wide BVH needs a stack of {wide.stack_need} entries; the kernels' stacks fit "
+                         f"{MAX_STACK} in a block's shared memory (accel/wide.py::MAX_STACK)")
+    return wide
 
 
-def trace_closest(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None):
-    """Closest hit through the CUDA kernel ``csrc/trace.cu`` (plain walk
-    for CPU tensors).  Same contract as ``trace_rays``: the rays are
-    detached, so the kernel never sees a tensor that requires grad."""
-    if origins.device.type == "cpu":
-        return trace_rays(bvh, geometry, origins, directions, t_max)
+def stack_depth(wide: WideBVH) -> int:
+    """The entries of a walk's stack the kernels allocate for this tree."""
+    return max(wide.stack_need, 1)
+
+
+def check_overflow(scene) -> None:
+    """Raise if a CUDA walk over the scene's wide BVH ever dropped a stack
+    entry (the kernels' flag; reading it waits for the card)."""
+    if int(scene.wide.overflow.item()) != 0:
+        raise RuntimeError("a wide-BVH walk overflowed its stack")
+
+
+def _rays(name, origins, directions, t_max):
+    """The rays as contiguous float32 (B, 3), detached, and t_max or None."""
     origins = origins.detach().to(torch.float32).contiguous()
     directions = directions.detach().to(torch.float32).contiguous()
-    tm = None if t_max is None else torch.as_tensor(
-        t_max, dtype=torch.float32, device=origins.device).detach().contiguous()
     B = origins.shape[0]
     if origins.shape != (B, 3) or directions.shape != (B, 3):
-        raise ValueError(f"trace_closest: rays must be (B, 3), got {tuple(origins.shape)}, "
-                         f"{tuple(directions.shape)}")
-    kernels.check_inputs("trace_closest",
-                         floats=(origins, directions, geometry.positions, bvh.lo, bvh.hi)
-                         + (() if tm is None else (tm,)),
-                         ints=(geometry.tri_v, bvh.miss, bvh.first, bvh.prim_idx))
-    return _launch_trace(bvh, geometry, origins, directions, tm,
-                         kernels.stream_ptr(origins.device))
+        raise ValueError(f"{name}: rays must be (B, 3), got {tuple(origins.shape)}, {tuple(directions.shape)}")
+    tm = None if t_max is None else torch.as_tensor(
+        t_max, dtype=torch.float32, device=origins.device).detach().contiguous()
+    if tm is not None and tm.shape != (B,):
+        raise ValueError(f"{name}: t_max must be (B,), got {tuple(tm.shape)}")
+    return origins, directions, tm
 
 
-def _launch_trace(bvh, geometry, origins, directions, tm, stream):
+def _outputs(B, dev):
+    """The (tri, t, u, v) outputs of a trace, in one allocation."""
+    out = torch.empty((4, B), dtype=torch.float32, device=dev)
+    return dict(tri=out[0].view(torch.int32), t=out[1], u=out[2], v=out[3])
+
+
+_P = ctypes.c_void_p
+_TRACE_ARGTYPES = [_P] * 6 + [ctypes.c_int] + [_P] * 4 + [ctypes.c_int] * 2 + [_P]
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_threads(index: int) -> int:
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+def k1_lanes(n_rays: int, device) -> int:
+    """K1's threads a ray (csrc/trace.cu): a quad, which shares each node's
+    four children, while the batch's quads fit on the card at once; one
+    thread, which tests all four itself and costs fewer instructions a
+    ray, for a batch larger than that."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return 4 if 4 * n_rays <= _resident_threads(index) else 1
+
+
+_THREADED_ARGTYPES = [_P] * 5 + [ctypes.c_int] * 2 + [_P] * 5 + [ctypes.c_int] + [_P] * 5
+
+
+def trace_closest(scene, origins, directions, t_max=None, lanes=None):
+    """Closest hit through the CUDA kernel ``csrc/trace.cu``, ``lanes``
+    threads (4 or 1; by default ``k1_lanes``) walking each ray through the
+    scene's wide BVH (``trace_rays`` for CPU tensors).  Same contract as
+    ``trace_rays``: the rays are detached, so the kernel never sees a
+    tensor that requires grad."""
+    if origins.device.type == "cpu":
+        return trace_rays(scene.bvh, scene.geometry, origins, directions, t_max)
+    wide = wide_records(scene)
+    origins, directions, tm = _rays("trace_closest", origins, directions, t_max)
+    kernels.check_inputs("trace_closest", floats=(origins, directions, wide.nodes, wide.tris)
+                         + (() if tm is None else (tm,)), ints=(wide.overflow,))
+    if lanes is None:
+        lanes = k1_lanes(origins.shape[0], origins.device)
+    return _launch_trace(wide, origins, directions, tm, kernels.stream_ptr(origins.device), lanes)
+
+
+def _launch_trace(wide, origins, directions, tm, stream, lanes):
     """Allocate the outputs and launch ``fyp_trace_closest`` on ``stream``
-    (inputs already checked)."""
+    with ``lanes`` threads a ray (inputs already checked)."""
     fn = kernels.load("trace", "fyp_trace_closest", _TRACE_ARGTYPES)
     B = origins.shape[0]
-    dev = origins.device
-    tri = torch.empty(B, dtype=torch.int32, device=dev)
-    t, u, v = (torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3))
+    out = _outputs(B, origins.device)
     P = kernels.ptr
-    rc = fn(P(bvh.lo), P(bvh.hi), P(bvh.miss), P(bvh.first), P(bvh.prim_idx),
-            bvh.lo.shape[0], bvh.leaf_size, P(geometry.positions), P(geometry.tri_v),
-            P(origins), P(directions), ctypes.c_void_p(None) if tm is None else P(tm), B,
-            P(tri), P(t), P(u), P(v), stream)
+    rc = fn(P(wide.nodes), P(wide.tris), P(wide.overflow), P(origins), P(directions),
+            _P(None) if tm is None else P(tm), B, P(out["tri"]), P(out["t"]), P(out["u"]), P(out["v"]), lanes,
+            stack_depth(wide), stream)
     trace_closest.launches += 1
     kernels.check(rc, "trace_closest")
-    return dict(tri=tri, t=t, u=u, v=v)
+    return out
 
 
 trace_closest.launches = 0
+
+
+def trace_closest_threaded(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None):
+    """``trace_closest`` through the threaded walk, one thread a ray
+    (``csrc/trace.cu::fyp_trace_closest_threaded``; ``trace_rays`` for CPU
+    tensors).  K1's design before the wide BVH, kept to be timed beside it
+    while K3-K8 still walk the threaded BVH."""
+    if origins.device.type == "cpu":
+        return trace_rays(bvh, geometry, origins, directions, t_max)
+    origins, directions, tm = _rays("trace_closest_threaded", origins, directions, t_max)
+    kernels.check_inputs("trace_closest_threaded",
+                         floats=(origins, directions, geometry.positions, bvh.lo, bvh.hi)
+                         + (() if tm is None else (tm,)),
+                         ints=(geometry.tri_v, bvh.miss, bvh.first, bvh.prim_idx))
+    fn = kernels.load("trace", "fyp_trace_closest_threaded", _THREADED_ARGTYPES)
+    B = origins.shape[0]
+    out = _outputs(B, origins.device)
+    P = kernels.ptr
+    rc = fn(P(bvh.lo), P(bvh.hi), P(bvh.miss), P(bvh.first), P(bvh.prim_idx),
+            bvh.lo.shape[0], bvh.leaf_size, P(geometry.positions), P(geometry.tri_v),
+            P(origins), P(directions), _P(None) if tm is None else P(tm), B,
+            P(out["tri"]), P(out["t"]), P(out["u"]), P(out["v"]), kernels.stream_ptr(origins.device))
+    trace_closest_threaded.launches += 1
+    kernels.check(rc, "trace_closest_threaded")
+    return out
+
+
+trace_closest_threaded.launches = 0
 
 
 def pick_tracer(scene):
     """A ``trace(o, d) -> tri`` closure over the scene: the CUDA kernel for
     CUDA tensors, the plain walk for CPU tensors (``trace_closest``)."""
     def trace(o, d):
-        return trace_closest(scene.bvh, scene.geometry, o, d)["tri"]
+        return trace_closest(scene, o, d)["tri"]
     return trace

@@ -5,8 +5,12 @@ The torch counterpart of ``fypraytracer_tpu/render/megakernel.py``'s
 brute force, uniform, cosine, GGX, BRDF, light-source sampling and NEE+MIS.
 ``megakernel`` wraps the hand-written CUDA kernel ``csrc/megakernel.cu``,
 which replaces the TPU kernel ``make_megakernel`` (megakernel.py:1788,
-launched at :2404): one thread per pixel runs raygen, a primary hit traced
-once per launch, and for each frame and sample the technique's path.
+launched at :2404): ``k2_lanes`` threads a pixel (up to four) each trace
+the primary hit and run every lanes-th frame's paths, every ray walking
+the scene's wide BVH (``Scene.wide``) alone, and add their sums.
+``megakernel_threaded`` launches the NEE kernel with the threaded walk
+instead, one thread a pixel (K2's design before the wide BVH), kept to be
+timed beside it.
 
 ``megakernel_plain`` is its plain PyTorch version: the sum of ``n_frames``
 frames of the matching wavefront integrator (``renderer.frame_hdr``) with
@@ -31,10 +35,11 @@ import numpy as np
 import torch
 
 from fypraytracer_tpu_torch.accel.morton import morton3d
+from fypraytracer_tpu_torch.accel.wide import build_wide
 from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.traverse import trace_rays
+from fypraytracer_tpu_torch.ops.traverse import stack_depth, trace_rays, wide_records
 from fypraytracer_tpu_torch.render.renderer import check_supported, frame_hdr
 from fypraytracer_tpu_torch.scene.types import Scene
 
@@ -49,6 +54,18 @@ SAMPLER_OF = {
     SamplingTechnique.NEE_MIS: "nee",
 }
 _SAMPLER_ID = {"uniform": 0, "cosine": 1, "ggx": 2, "brdf": 3, "light": 4, "nee": 5}
+# csrc/megakernel.cu's lanes argument for the threaded walk, one thread a
+# pixel (NEE only)
+THREADED = 0
+
+
+def k2_lanes(n_frames: int) -> int:
+    """K2's threads a pixel (csrc/megakernel.cu), each with its share of
+    the frames: four, or for a launch of fewer frames 2 or 1, so that no
+    lane idles.  Measured so at every size on an H100 (PERF.md): at
+    Cornell 1920x1088, 8 frames, four lanes beat one, and at one frame one
+    lane beats four by 2.7x."""
+    return 4 if n_frames >= 4 else 2 if n_frames >= 2 else 1
 
 
 def morton_permuted_scene(scene: Scene):
@@ -76,7 +93,8 @@ def morton_permuted_scene(scene: Scene):
     new_g = dataclasses.replace(g, tri_v=tv[perm], tri_mat=np.asarray(g.tri_mat)[perm])
     new_bvh = dataclasses.replace(scene.bvh, prim_idx=remap(scene.bvh.prim_idx))
     new_scene = dataclasses.replace(scene, geometry=new_g, light_tree=new_lt, bvh=new_bvh,
-                                    emissive_tris=remap(scene.emissive_tris))
+                                    emissive_tris=remap(scene.emissive_tris),
+                                    wide=build_wide(new_bvh, new_g))
     return new_scene, perm
 
 
@@ -108,62 +126,86 @@ def megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
 
 
 _ARGTYPES = (
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p] * 4          # geometry
     + [ctypes.c_void_p] * 4          # materials
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2            # bvh
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int]                # wide bvh
     + [ctypes.c_void_p] * 13 + [ctypes.c_int]               # light tree
     + [ctypes.c_void_p] * 2)         # out, stream
 
 
 def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
-               settings: RenderSettings) -> torch.Tensor:
+               settings: RenderSettings, lanes: int | None = None) -> torch.Tensor:
     """(H*W, 3) HDR summed over ``n_frames`` frames of ``settings.technique``
     starting at ``frame0``, through the CUDA kernel ``csrc/megakernel.cu``
+    with ``lanes`` threads a pixel (1, 2 or 4; by default ``k2_lanes``)
     (plain version for CPU tensors)."""
     sampler = _sampler(settings)
-    dev = scene.geometry.positions.device
-    if dev.type == "cpu":
+    if scene.geometry.positions.device.type == "cpu":
         return megakernel_plain(scene, camera, frame0, n_frames, settings)
-    g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
-    cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
-                          device=dev)
-    emission = m.emission().contiguous()
-    kernels.check_inputs(
-        "megakernel",
-        floats=(cam, g.positions, g.normals, m.albedo, m.roughness, m.metallic, emission,
-                b.lo, b.hi, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi),
-        ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx,
-              lt.left, lt.right, lt.tri, lt.parent, lt.leaf_of_tri))
-    # brute force traces exactly 1 path a frame whatever the sample count
-    # (megakernel.py:2603, Renderer.cu:565-701)
-    samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
-    return _launch(scene, camera, cam, emission, _SAMPLER_ID[sampler], frame0, n_frames,
-                   settings.bounces, samples, settings.sky_color, kernels.stream_ptr(dev))
-
-
-def _launch(scene, camera, cam, emission, sampler, frame0, n_frames, bounces, samples, sky, stream):
-    """Allocate the output and launch ``fyp_megakernel`` on ``stream``
-    (inputs already checked)."""
-    fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
-    g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
-    out = torch.empty((camera.height * camera.width, 3), dtype=torch.float32, device=cam.device)
-    P = kernels.ptr
-    rc = fn(sampler, P(cam), camera.width, camera.height, int(frame0) & 0xFFFFFFFF, n_frames,
-            bounces, samples, *(float(c) for c in sky),
-            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
-            P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
-            P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size,
-            P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
-            P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
-            P(out), stream)
+    if lanes is None:
+        lanes = k2_lanes(n_frames)
+    if lanes not in (1, 2, 4):
+        raise ValueError(f"megakernel: lanes must be 1, 2 or 4, got {lanes}")
+    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, "megakernel")
     megakernel.launches += 1
-    kernels.check(rc, "megakernel")
     return out
 
 
 megakernel.launches = 0
+
+
+def megakernel_threaded(scene: Scene, camera: Camera, frame0: int, n_frames: int,
+                        settings: RenderSettings) -> torch.Tensor:
+    """``megakernel`` under NEE through the threaded walk, one thread a pixel
+    (plain version for CPU tensors)."""
+    if _sampler(settings) != "nee":
+        raise NotImplementedError("the threaded walk is built for NEE only")
+    if scene.geometry.positions.device.type == "cpu":
+        return megakernel_plain(scene, camera, frame0, n_frames, settings)
+    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID["nee"], THREADED, "megakernel_threaded")
+    megakernel_threaded.launches += 1
+    return out
+
+
+megakernel_threaded.launches = 0
+
+
+def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name):
+    """Check the inputs, allocate the output and launch ``fyp_megakernel``
+    with ``lanes`` threads a pixel (``THREADED``: the threaded walk) on the
+    current stream."""
+    g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
+    wide = wide_records(scene)
+    dev = g.positions.device
+    cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
+                          device=dev)
+    emission = m.emission().contiguous()
+    kernels.check_inputs(
+        name,
+        floats=(cam, g.positions, g.normals, m.albedo, m.roughness, m.metallic, emission,
+                b.lo, b.hi, wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi),
+        ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx, wide.overflow,
+              lt.left, lt.right, lt.tri, lt.parent, lt.leaf_of_tri))
+    # brute force traces exactly 1 path a frame whatever the sample count
+    # (megakernel.py:2603, Renderer.cu:565-701)
+    samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
+    fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
+    out = torch.empty((camera.height * camera.width, 3), dtype=torch.float32, device=dev)
+    P = kernels.ptr
+    rc = fn(sampler, lanes, P(cam), camera.width, camera.height, int(frame0) & 0xFFFFFFFF, n_frames,
+            settings.bounces, samples, *(float(c) for c in settings.sky_color),
+            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
+            P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
+            P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size,
+            P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
+            P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
+            P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
+            P(out), kernels.stream_ptr(dev))
+    kernels.check(rc, name)
+    return out
 
 
 class MegakernelRenderer:

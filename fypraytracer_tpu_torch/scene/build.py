@@ -22,6 +22,7 @@ import numpy as np
 
 from fypraytracer_tpu_torch.accel import bvh as bvh_mod
 from fypraytracer_tpu_torch.accel import lighttree as lt_mod
+from fypraytracer_tpu_torch.accel.wide import build_wide
 from fypraytracer_tpu_torch.scene.types import (
     Geometry,
     LightTreeArrays,
@@ -196,7 +197,8 @@ class SceneBuilder:
         atlas = pack_atlas(self.textures)
 
         return Scene(geometry=geometry, materials=materials, bvh=flat_bvh,
-                     light_tree=lt, emissive_tris=emissive_tris, textures=atlas)
+                     light_tree=lt, emissive_tris=emissive_tris, textures=atlas,
+                     wide=build_wide(flat_bvh, geometry))
 
 
 def empty_light_tree(num_tris: int) -> LightTreeArrays:

@@ -86,6 +86,29 @@ class FlatBVH:
 
 
 @dataclasses.dataclass(frozen=True)
+class WideBVH:
+    """The 4-wide BVH the CUDA walk reads (``accel/wide.py`` builds it from
+    a ``FlatBVH``), as 16-byte records.
+
+    ``nodes`` (Nw, 8, 4) f32: record k holds child k's (lo.x, lo.y, lo.z,
+    hi.x), record 4 + k its (hi.y, hi.z, ref, 0) with ``ref`` an int32 in
+    float bits: >= 0 an inner node, -1 no child, <= -2 the leaf of slots
+    4·(-ref - 2) .. +3.  Node 0 is the root.  ``tris`` (S, 3, 4) f32, one
+    row per leaf slot of the ``FlatBVH``: (p0, id), (p1 - p0, 0),
+    (p2 - p0, 0), the id in int32 bits, -1 on a padding slot.
+    ``overflow`` (1,) i32: set to 1 by a CUDA walk whose stack overflowed.
+    ``depth``: levels of nodes; ``stack_need``: the most entries a walk's
+    stack can hold at once.
+    """
+
+    nodes: Array
+    tris: Array
+    overflow: Array
+    depth: int = 1
+    stack_need: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class LightTreeArrays:
     """Flat light tree in preorder with child and parent links
     (LightTree.cuh:28-49 node fields, SoA)."""
@@ -140,6 +163,7 @@ class Scene:
     light_tree: LightTreeArrays
     emissive_tris: Array  # (E,) i32
     textures: TextureAtlas
+    wide: WideBVH | None = None   # the records of the CUDA walk (accel/wide.py)
 
     @property
     def num_triangles(self) -> int:
@@ -157,7 +181,8 @@ class Scene:
             bvh=_to(self.bvh, device, meta=("leaf_size",)),
             light_tree=_to(self.light_tree, device, meta=("max_depth",)),
             emissive_tris=_leaf_to(self.emissive_tris, device),
-            textures=_to(self.textures, device))
+            textures=_to(self.textures, device),
+            wide=None if self.wide is None else _to(self.wide, device, meta=("depth", "stack_need")))
 
 
 def scene_from_arrays(obj, device="cpu") -> Scene:
@@ -170,13 +195,17 @@ def scene_from_arrays(obj, device="cpu") -> Scene:
             kw[f.name] = int(v) if f.name in meta else (None if v is None else np.asarray(v))
         return cls(**kw)
 
+    from fypraytracer_tpu_torch.accel.wide import build_wide
+
+    bvh, geometry = leaf(FlatBVH, obj.bvh, meta=("leaf_size",)), leaf(Geometry, obj.geometry)
     host = Scene(
-        geometry=leaf(Geometry, obj.geometry),
+        geometry=geometry,
         materials=leaf(MaterialTable, obj.materials),
-        bvh=leaf(FlatBVH, obj.bvh, meta=("leaf_size",)),
+        bvh=bvh,
         light_tree=leaf(LightTreeArrays, obj.light_tree, meta=("max_depth",)),
         emissive_tris=np.asarray(obj.emissive_tris),
-        textures=leaf(TextureAtlas, obj.textures))
+        textures=leaf(TextureAtlas, obj.textures),
+        wide=build_wide(bvh, geometry))
     return host.to(device)
 
 

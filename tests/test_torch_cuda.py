@@ -6,7 +6,9 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit;
+Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit,
+and its walks of the wide BVH equal to the threaded walk bit for bit; K2
+NEE with one thread a pixel the same against its threaded walk;
 K2, K3+K4, K5-K7 (ReSTIR GI) and the renderers under
 tests/test_render_parity.py:111-114
 (median |Δ| < 1e-5, fewer than 1% of pixels off by more than 1e-3, mean
@@ -32,6 +34,7 @@ from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
 from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
 from fypraytracer_tpu_torch.render.renderer import Renderer
 from fypraytracer_tpu_torch.scene import procedural as tproc
+from torch_skewed_bvh import skewed_scene
 
 W = H = 32
 FRAMES = 3
@@ -61,23 +64,136 @@ def _scene():
     return builder.compile(), cam
 
 
-def test_trace_closest_kernel_matches_plain_walk(cuda):
-    builder, cam = tproc.cornell_box(64, 64)
-    scene = builder.compile().to(cuda)
+def _k1_rays(cuda, cam, n_random):
+    """The camera's rays and ``n_random`` random rays in the box."""
     r = np.random.default_rng(2026)
-    o_rnd = r.uniform([-0.99, 0.01, -0.99], [0.99, 1.99, 0.99], (4096, 3)).astype(np.float32)
-    d_rnd = r.normal(size=(4096, 3)).astype(np.float32)
-    o_cam, d_cam = generate_rays(cam.inv_projection, cam.inv_view, 64, 64, device=cuda)
+    o_rnd = r.uniform([-0.99, 0.01, -0.99], [0.99, 1.99, 0.99], (n_random, 3)).astype(np.float32)
+    d_rnd = r.normal(size=(n_random, 3)).astype(np.float32)
+    o_cam, d_cam = generate_rays(cam.inv_projection, cam.inv_view, cam.width, cam.height, device=cuda)
     o = torch.cat([o_cam, torch.as_tensor(o_rnd, device=cuda)]).contiguous()
     d = torch.cat([d_cam, torch.as_tensor(d_rnd, device=cuda)]).contiguous()
+    return o, d
+
+
+# 4096 + 4096 rays fill 256 blocks of 32 quads; 4096 + 1001 leave a ragged block
+@pytest.mark.parametrize("n_random, with_t_max", [(4096, False), (1001, False), (1001, True)],
+                         ids=["whole blocks", "ragged", "ragged t_max"])
+def test_trace_closest_kernel_matches_plain_walk(cuda, n_random, with_t_max):
+    builder, cam = tproc.cornell_box(64, 64)
+    scene = builder.compile().to(cuda)
+    o, d = _k1_rays(cuda, cam, n_random)
+    tm = (torch.as_tensor(np.random.default_rng(4).uniform(0.05, 2.0, o.shape[0]).astype(np.float32), device=cuda)
+          if with_t_max else None)
     before = ttrav.trace_closest.launches
-    k = ttrav.trace_closest(scene.bvh, scene.geometry, o, d)
-    p = ttrav.trace_rays(scene.bvh, scene.geometry, o, d)
+    k = ttrav.trace_closest(scene, o, d, tm)
+    p = ttrav.trace_rays(scene.bvh, scene.geometry, o, d, tm)
     torch.cuda.synchronize()
     assert ttrav.trace_closest.launches == before + 1
     assert (k["tri"] == p["tri"]).float().mean().item() >= 0.9999
     both = (k["tri"] >= 0) & (p["tri"] >= 0)
     assert (k["t"][both] - p["t"][both]).abs().max().item() <= 1e-5
+    if with_t_max:
+        assert (k["t"][k["tri"] >= 0] < tm[k["tri"] >= 0]).all()
+    ttrav.check_overflow(scene)
+
+
+@pytest.mark.parametrize("lanes", [4, 1], ids=["quad", "one thread"])
+def test_trace_closest_wide_equals_threaded(cuda, lanes):
+    """The walks of the wide BVH (a quad a ray, one thread a ray) and the
+    threaded walk give the same hits, bit for bit (all rank exact ties to
+    the lowest id)."""
+    builder, cam = tproc.cornell_box(64, 64)
+    scene = builder.compile().to(cuda)
+    o, d = _k1_rays(cuda, cam, 4096)
+    before = (ttrav.trace_closest.launches, ttrav.trace_closest_threaded.launches)
+    wide = ttrav.trace_closest(scene, o, d, lanes=lanes)
+    threaded = ttrav.trace_closest_threaded(scene.bvh, scene.geometry, o, d)
+    torch.cuda.synchronize()
+    assert (ttrav.trace_closest.launches, ttrav.trace_closest_threaded.launches) == (before[0] + 1, before[1] + 1)
+    for k in ("tri", "t", "u", "v"):
+        off = (wide[k].view(torch.int32) != threaded[k].view(torch.int32)).nonzero().flatten()
+        assert off.numel() == 0, f"{k} differs at rays {off[:16].tolist()}"
+    ttrav.check_overflow(scene)
+
+
+def test_wide_walk_on_the_stress_scene(cuda):
+    """The 200,712-triangle stress scene, whose wide BVH is the deepest the
+    repository builds: K1 against the plain walk on its camera rays, K2 NEE
+    against its plain version, and the stack-overflow flag stays clear."""
+    builder, cam = tproc.stress(64, 64)
+    scene = tmk.morton_permuted_scene(builder.compile())[0].to(cuda)
+    assert ttrav.wide_records(scene) is scene.wide
+    o, d = generate_rays(cam.inv_projection, cam.inv_view, 64, 64, device=cuda)
+    k = ttrav.trace_closest(scene, o, d)
+    p = ttrav.trace_rays(scene.bvh, scene.geometry, o, d)
+    assert (k["tri"] == p["tri"]).float().mean().item() >= 0.9999
+    got = tmk.megakernel(scene, cam, 1, 2, SETTINGS)
+    ref = tmk.megakernel_plain(scene, cam, 1, 2, SETTINGS)
+    torch.cuda.synchronize()
+    _gates(got.cpu().numpy(), ref.cpu().numpy())
+    ttrav.check_overflow(scene)
+
+
+def test_wide_walk_on_a_skewed_tree(cuda):
+    """A chain BVH over the Cornell box (tests/torch_skewed_bvh.py) whose
+    walk needs a stack of 149 entries: K1 (both lane counts) and K2 give
+    the plain versions' hits and image with every stack in shared memory
+    (152 KB a block for one thread a ray, past the default 48 KB), and the
+    overflow flag stays clear."""
+    builder, cam = tproc.cornell_box(W, H)
+    scene = skewed_scene(builder.compile(), 8).to(cuda)
+    assert scene.wide.stack_need == 149
+    o, d = _k1_rays(cuda, cam, 4096)
+    p = ttrav.trace_rays(scene.bvh, scene.geometry, o, d)
+    for lanes in (4, 1):
+        k = ttrav.trace_closest(scene, o, d, lanes=lanes)
+        for f in ("tri", "t", "u", "v"):
+            assert torch.equal(k[f].view(torch.int32), p[f].view(torch.int32)), (lanes, f)
+    got = tmk.megakernel(scene, cam, 1, 2, SETTINGS, lanes=2)
+    ref = tmk.megakernel_plain(scene, cam, 1, 2, SETTINGS)
+    torch.cuda.synchronize()
+    _gates(got.cpu().numpy(), ref.cpu().numpy())
+    ttrav.check_overflow(scene)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("tech", [SamplingTechnique.NEE_MIS, SamplingTechnique.BRDF, SamplingTechnique.LIGHT_SOURCE],
+                         ids=lambda t: t.name)
+def test_megakernel_walks_match_the_plain_version(cuda, lanes, tech):
+    """K2 with each count of threads a pixel against ``megakernel_plain``."""
+    scene, cam = _scene()
+    scene = scene.to(cuda)
+    settings = SETTINGS.replace(technique=tech)
+    got = tmk.megakernel(scene, cam, 1, 4, settings, lanes=lanes)
+    ref = tmk.megakernel_plain(scene, cam, 1, 4, settings)
+    torch.cuda.synchronize()
+    _gates(got.cpu().numpy(), ref.cpu().numpy())
+    ttrav.check_overflow(scene)
+
+
+def test_megakernel_nee_wide_equals_threaded(cuda):
+    """K2 under NEE through the wide BVH against the same kernel with the
+    threaded walk, one thread a pixel: the same paths, so the same image.
+    One thread a pixel sums the frames in the same order and matches it
+    bit for bit (any pixel that differs is named); ``megakernel`` here
+    splits the frames over four threads and adds their sums in another
+    order, within 1e-6 relative."""
+    scene, cam = _scene()
+    scene = scene.to(cuda)
+    assert tmk.k2_lanes(4) == 4
+    before = (tmk.megakernel.launches, tmk.megakernel_threaded.launches)
+    wide = tmk.megakernel(scene, cam, 1, 4, SETTINGS)
+    threaded = tmk.megakernel_threaded(scene, cam, 1, 4, SETTINGS)
+    one = tmk.megakernel(scene, cam, 1, 4, SETTINGS, lanes=1)
+    torch.cuda.synchronize()
+    assert (tmk.megakernel.launches, tmk.megakernel_threaded.launches) == (before[0] + 2, before[1] + 1)
+    assert ((wide - threaded).abs() <= 1e-6 * threaded.abs().clamp_min(1e-3)).all()
+    off = (one != threaded).any(dim=1).nonzero().flatten()
+    assert off.numel() == 0, f"pixels {off[:16].tolist()} differ by up to {(one - threaded).abs().max().item()}"
+    with pytest.raises(NotImplementedError):
+        tmk.megakernel_threaded(scene, cam, 1, 1, SETTINGS.replace(technique=SamplingTechnique.COSINE))
+    with pytest.raises(ValueError, match="lanes"):
+        tmk.megakernel(scene, cam, 1, 1, SETTINGS, lanes=3)
 
 
 @pytest.mark.parametrize("bounces, samples", [(2, 1), (1, 1), (2, 2)])

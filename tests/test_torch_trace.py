@@ -126,7 +126,7 @@ def test_trace_closest_on_cpu_is_the_plain_walk(cornell, rays):
     _, ts, _ = cornell
     o, d = (torch.as_tensor(x) for x in rays)
     before = ttrav.trace_closest.launches
-    a = ttrav.trace_closest(ts.bvh, ts.geometry, o, d)
+    a = ttrav.trace_closest(ts, o, d)
     b = ttrav.trace_rays(ts.bvh, ts.geometry, o, d)
     assert ttrav.trace_closest.launches == before
     for k in ("tri", "t", "u", "v"):
