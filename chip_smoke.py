@@ -4,12 +4,14 @@
 Drives ``fypraytracer_tpu_torch`` — and nothing of the JAX package — through
 its main paths: the Cornell box under NEE+MIS (2 bounces, 1 spp), every other
 technique 0-8, the 200,712-triangle stress scene under NEE, ReSTIR DI and
-ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
+ReSTIR GI, textured albedo, and training (inverse rendering of the Cornell
+albedos), in phases:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN;
   2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
-     nvcc per source, started together;
+     nvcc per source, started together; ptxas's registers and spills of every
+     kernel, the untextured and the textured instantiations by name;
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
      wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
      random rays (a quad a ray) and on the 1920x1088 camera's rays (one
@@ -51,6 +53,16 @@ ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
      within 1e-4 of their largest entry), its d_mat against torch autograd of
      the port's cosine wavefront on the card (K1 traces; 1e-4, 1e-3), and one
      launch per ``DiffRenderer.loss_and_grad``;
+  5d. textured: on the textured Cornell box at 256² (the 64² checker and a
+     seeded 1024² page, which the kernels' primary level box-filters to
+     256²), K2's textured instantiation under NEE, cosine and light
+     sampling (8 frames) against ``megakernel_plain`` under the parity gates,
+     with its difference from the native-mip-0 wavefront printed (the
+     documented deviation, no gate); K3's textured instantiation alone
+     against its plain version and the K3+K4 frame loop; K5 (both modes)
+     and K6 textured, one frame after two of history, and the K5, K5
+     ``final_vis`` and K6+K7 frame loops; textured ReSTIR DI's mean within
+     5% of light sampling's at 64²;
   6. the main paths, each with the kernels' launch counters reset just before
      and read just after: Cornell at 256² through ``Renderer`` and
      ``MegakernelRenderer`` under NEE, 8 frames, scored against
@@ -65,7 +77,10 @@ ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
      ReSTIR GI; and GI's unbiasedness at 64² without spheres: mono and
      ``mono=False`` against the K2 BRDF path tracer at 4 spp (mean within 6%,
      quadrants within 15%), ``final_vis`` against per-neighbour visibility
-     with spheres (5%, 12%), tests/test_megakernel_restir.py:158-286;
+     with spheres (5%, 12%), tests/test_megakernel_restir.py:158-286; the
+     textured Cornell box at 256², 8 frames, through ``MegakernelRenderer``
+     (NEE, cosine, light), ``MegakernelReSTIRDI`` and ``MegakernelReSTIRGI``
+     (mono, ``final_vis``, ``mono=False``);
   6b. training at Cornell 256², each entry point with the counters reset just
      before and read just after: the JAX CLI's ``_train_fast`` loop through
      ``DiffRenderer`` (targets: the cosine wavefront's frames 1-3, as in
@@ -80,7 +95,10 @@ ReSTIR GI, and training (inverse rendering of the Cornell albedos), in phases:
      ``MegakernelReSTIRGI`` (mono in both visibility modes) at 256² and
      1920x1088, GI ``mono=False`` at 256², the stress paths at 128², and of
      ``render_many(8)`` for the plain PyTorch wavefront (NEE) and the K1
-     wavefront under ReSTIR DI and GI at 256²; for the NEE K1 and K2 paths and
+     wavefront under ReSTIR DI and GI at 256²; K2 NEE, ``MegakernelReSTIRDI``
+     and ``MegakernelReSTIRGI`` on the textured Cornell box at 256² and
+     1920x1088; the stack-overflow watch's cost (``MegakernelRenderer`` NEE
+     at 256² with and without it, in turns); for the NEE K1 and K2 paths and
      the ReSTIR paths on Cornell, the card's busy time per frame from
      torch.profiler and the idle share it implies.  The profiler's first
      step is a warm-up it discards; the kept step is "not measured" (null)
@@ -104,7 +122,9 @@ taken with the counting on, one reduction a leaf step); shading arithmetic
 is not counted, so the bound is low.  The bytes are what the kernel reads,
 once, and what it writes, once: the scene tables it reads, the camera,
 the rows of the state and stage it reads (a ReSTIR GI state row at the
-pixels that shade, since only they read it) and its outputs.
+pixels that shade, since only they read it) and its outputs; a textured
+instantiation adds its texel reads, 4 texels of 12 bytes a fetch times the
+fetches its plain version counts (at most the texture tables once).
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -112,6 +132,8 @@ the last is the kernels' summary, the last line is
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --quick    # phases 1-6: build, check, main paths
+    python3 chip_smoke.py --ab DIR   # untextured entry points, DIR's package
+                                     # against this one's, in turns (ab_turn)
 """
 
 from __future__ import annotations
@@ -344,11 +366,59 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(kernels.build, names))      # raises if any build failed
     secs = time.perf_counter() - t0
+    ptxas = {}
     for name, info in kernels.build_info.items():
         for ln in info["log"].splitlines():
             if any(k in ln for k in ("registers", "spill", "Function properties")):
                 print(f"[ptxas {name}] {ln.strip()}", flush=True)
-    emit("build", seconds=secs, libs={k: os.path.basename(v["path"]) for k, v in kernels.build_info.items()})
+        ptxas.update(ptxas_report(info["log"]))
+    for kernel, row in ptxas.items():
+        print(f"[ptxas] {kernel}: {row}", flush=True)
+    emit("build", seconds=secs, libs={k: os.path.basename(v["path"]) for k, v in kernels.build_info.items()},
+         ptxas=ptxas)
+
+
+# the template arguments of a kernel in its mangled name: frames_kernel<5, true>
+# is ...frames_kernelILi5ELb1EE...
+_SAMPLER_NAMES = {"0": "uniform", "1": "cosine", "2": "ggx", "3": "brdf", "4": "light", "5": "nee"}
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an nvcc -Xptxas -v log, by a
+    readable name: K2's instantiations as frames_kernel[nee] and
+    frames_kernel[nee,textured], K3, K5 and K6 with [textured]."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    named = {}
+    for mangled, row in out.items():
+        if "registers" not in row:
+            continue                                     # a device function's frame, not a kernel
+        base = next((k for k in ("frames_threaded_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono",
+                                 "gi_stage1", "gi_stage2", "diff_kernel", "trace_lane_kernel", "trace_closest_kernel",
+                                 "trace_threaded_kernel") if k in mangled), mangled)
+        args = re.findall(r"L([ib])(\d+)E", mangled[mangled.find(base) + len(base):])
+        tags = []
+        for i, (kind, v) in enumerate(args):
+            if base.startswith("frames") and kind == "i":
+                tags.append(_SAMPLER_NAMES.get(v, v))
+            elif kind == "b" and v == "1":                   # the last bool is textured, gi_mono's first final_vis
+                tags.append("textured" if i == len(args) - 1 else "final_vis")
+        named[base + (f"[{','.join(tags)}]" if tags else "")] = row
+    return named
 
 
 def in_turns(variants: dict, order, calls: int) -> dict:
@@ -464,20 +534,21 @@ def phase_k1(summary: dict) -> None:
     check_overflow(scene)
 
 
-def k2_blocks_per_sm(scene, settings, lanes) -> int:
+def k2_blocks_per_sm(scene, settings, lanes, textured=False) -> int:
     """The blocks of K2's kernel for this sampler and lane count (0: the
-    threaded walk) that one multiprocessor holds at once, by the CUDA
-    runtime (``fyp_megakernel_occupancy``), with the scene's stacks."""
+    threaded walk), untextured or textured, that one multiprocessor holds
+    at once, by the CUDA runtime (``fyp_megakernel_occupancy``), with the
+    scene's stacks."""
     import ctypes
 
     from fypraytracer_tpu_torch.ops import kernels
     from fypraytracer_tpu_torch.ops.traverse import stack_depth
     from fypraytracer_tpu_torch.render import megakernel as mk
 
-    fn = kernels.load("megakernel", "fyp_megakernel_occupancy", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = kernels.load("megakernel", "fyp_megakernel_occupancy", [ctypes.c_int] * 4 + [ctypes.c_void_p])
     blocks = ctypes.c_int(0)
-    kernels.check(fn(mk._SAMPLER_ID[mk._sampler(settings)], lanes, stack_depth(scene.wide), ctypes.byref(blocks)),
-                  "fyp_megakernel_occupancy")
+    kernels.check(fn(mk._SAMPLER_ID[mk._sampler(settings)], lanes, int(textured), stack_depth(scene.wide),
+                     ctypes.byref(blocks)), "fyp_megakernel_occupancy")
     return blocks.value
 
 
@@ -899,6 +970,250 @@ def phase_diff(summary: dict) -> None:
                                       **bound(walks, io))
 
 
+# the textured phase's seeded page: larger than the kernels' 256² primary
+# level, which box-filters it (ops/texture.py::kernel_atlas)
+TEX_BIG = 1024
+TEX_SEED = 2026
+# each textured kernel's row in the summary, and the JAX kernel and fetch it replaces
+TEX_ROWS = {"NEE_MIS": "megakernel[nee,textured]", "COSINE": "megakernel[cosine,textured]",
+            "LIGHT_SOURCE": "megakernel[light,textured]"}
+
+
+@functools.lru_cache(maxsize=None)
+def textured_host(width: int, height: int):
+    """The textured Cornell box (the 64² checker and a seeded 1024² page) as
+    host arrays, triangles in Morton order, and its camera; built once per
+    size."""
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.scene.procedural import textured_cornell_box
+
+    builder, cam = textured_cornell_box(width, height, big=TEX_BIG, seed=TEX_SEED)
+    return morton_permuted_scene(builder.compile())[0], cam
+
+
+@functools.lru_cache(maxsize=None)
+def textured_scene(width: int, height: int):
+    """``textured_host`` on the card."""
+    host, cam = textured_host(width, height)
+    return host.to("cuda"), cam
+
+
+@contextlib.contextmanager
+def count_fetches():
+    """Count the textured albedo fetches of every plain render inside the
+    block: the lanes of ``sample_bilinear`` calls whose texture id is >= 0.
+    Yields a dict whose "fetches" is an int once the block has ended."""
+    from unittest import mock
+
+    from fypraytracer_tpu_torch.render import integrators
+
+    counts = {"fetches": 0}
+    sample = integrators.sample_bilinear
+
+    def counted(atlas, tex_id, u, v, bounce=False):
+        counts["fetches"] += (tex_id >= 0).sum()
+        return sample(atlas, tex_id, u, v, bounce=bounce)
+
+    with mock.patch.object(integrators, "sample_bilinear", counted):
+        yield counts
+    counts["fetches"] = int(counts["fetches"])
+
+
+def tex_bytes(tex, fetches: int) -> int:
+    """The texel reads of ``fetches`` bilinear fetches (4 texels of 12 bytes
+    each), at most the texture tables read once."""
+    return min(48 * fetches, nbytes(tex.prim, tex.bounce) * 3 // 4)
+
+
+def phase_textured(summary: dict) -> None:
+    """The textured instantiations of K2, K3, K5 and K6 against their plain
+    versions on the textured Cornell box at 256² (a seeded 1024² page
+    box-filtered to the kernels' 256² primary level, and the 64² checker)."""
+    import torch
+
+    from fypraytracer_tpu_torch.ops.traverse import trace_rays
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import (MegakernelRenderer, megakernel, megakernel_plain,
+                                                         morton_permuted_scene)
+    from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
+    from fypraytracer_tpu_torch.render.renderer import frame_hdr
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices, camera_rays
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    scene, cam = textured_scene(256, 256)
+    size, B = 256, 256 * 256
+    tex = scene.tex
+    if tex is None:
+        raise AssertionError("the textured scene has no texture tables")
+    amap = scene.materials.albedo_map
+    o, d = camera_rays(cam, "cuda")
+    prim = trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
+    prim_tex = int(((prim >= 0) & (amap[scene.geometry.tri_mat[prim.clamp_min(0).long()].long()] >= 0)).sum())
+    emit("textured_scene", atlas=list(scene.textures.pages.shape), bounce_level=list(scene.textures.bounce_pages.shape),
+         kernel_levels=[list(tex.prim.shape), list(tex.bounce.shape)], textured_primary_pixels=prim_tex,
+         triangles=int(scene.geometry.tri_v.shape[0]))
+
+    # K2: NEE, cosine and light at the main path's shape, 8 frames
+    for tech, name in TEX_ROWS.items():
+        st = settings_for(tech)
+        frames = 8
+        megakernel(scene, cam, 1, frames, st)                   # warm-up
+        out = {}
+        wrapper_ms = statistics.median(gpu_ms(lambda: out.update(got=megakernel(scene, cam, 1, frames, st)), 5))
+        ms = kernel_ms(lambda: megakernel(scene, cam, 1, frames, st))
+        with count_walks() as walks, count_fetches() as fetches:
+            plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=megakernel_plain(scene, cam, 1, frames, st)), 1))
+        row = parity(out["got"].cpu().numpy(), out["ref"].cpu().numpy())
+        # the documented deviation: the kernel's 256² level against the
+        # wavefront's native 1024² mip 0 (K1 traces), no gate
+        native = sum(frame_hdr(scene, cam, 1 + f, st).reshape(-1, 3) for f in range(frames))
+        dev = parity(out["got"].cpu().numpy(), native.cpu().numpy())
+        emit("textured_k2_vs_plain", technique=tech, size=f"{size}x{size}", frames=frames, ms_per_launch=ms,
+             wrapper_ms=wrapper_ms, plain_ms=plain_ms, fetches=fetches["fetches"], **row)
+        emit("textured_k2_vs_native_mip0_wavefront", technique=tech, frames=frames,
+             **{k: v for k, v in dev.items() if k != "ok"})
+        if not row["ok"]:
+            raise AssertionError(f"textured K2 disagrees with its plain version: {tech}")
+        # K2 walks and fetches at the primary hit once a launch, the plain version once a frame
+        pw = {"nodes": 0, "tris": 0}
+        trace_rays(scene.bvh, scene.geometry, o, d, counts=pw)
+        walks = {k: walks[k] - (frames - 1) * int(pw[k]) for k in walks}
+        n_fetch = fetches["fetches"] - (frames - 1) * prim_tex
+        io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE")) + nbytes(scene.geometry.uvs, amap) \
+            + 2 * 16 * 4 + B * 12 + tex_bytes(tex, n_fetch)
+        summary[name] = dict(max_abs_err=row["max_abs"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                             median_abs_err=row["median_abs"], frac_px_over_1e3=row["frac_px_over_1e3"],
+                             untextured_ms=summary[K2_NAMES[tech]]["ms"],
+                             fetches=n_fetch, parity_shape=f"textured cornell {size}x{size}x{frames}f",
+                             vs_native_mip0=dict(median_abs=dev["median_abs"], frac_px_over_1e3=dev["frac_px_over_1e3"],
+                                                 mean_rel=dev["mean_rel"]),
+                             **bound(walks, io))
+
+    # K3 alone against its plain version after two frames of history, and
+    # the K3+K4 frame loop (4 frames)
+    st = settings_for("RESTIR_DI")
+    em = mr.prepare_emissive_table(scene)
+    ppv = torch.as_tensor(cam.proj_view, device="cuda")
+    cam_t = camera_matrices(cam, "cuda")
+    k3 = functools.partial(mr.restir_di_k3, cam=cam_t)
+    state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+    mr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, st, ppv, ppv)
+    out = {}
+    k3(scene, em, cam, 3, st, state, ppv)                        # warm-up
+    wrapper_ms = statistics.median(gpu_ms(lambda: out.update(stage=k3(scene, em, cam, 3, st, state, ppv)), 5))
+    ms = kernel_ms(lambda: k3(scene, em, cam, 3, st, state, ppv))
+    with count_walks() as walks, count_fetches() as fetches:
+        plain_ms = statistics.median(gpu_ms(
+            lambda: out.update(ref=mr.restir_di_k3_plain(scene, em, cam, 3, st, state, ppv)), 1))
+    dd = (out["stage"] - out["ref"]).abs()
+    off = ((dd > 1e-3 * torch.clamp_min(out["ref"].abs(), 1.0)).any(0)).float().mean().item()
+    alb = slice(mr.S_ALB, mr.S_ALB + 3)
+    alb_err = dd[alb].max().item()
+    emit("textured_k3_vs_plain", size=f"{size}x{size}", ms_per_launch=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+         frac_px_over_1e3=off, max_abs_err=dd.max().item(), albedo_rows_max_abs_err=alb_err,
+         fetches=fetches["fetches"], ok=off < 0.01)
+    if not off < 0.01:
+        raise AssertionError("textured K3 disagrees with its plain version")
+    em_bytes = nbytes(em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid, em.tri)
+    io = scene_bytes(scene) + nbytes(scene.geometry.uvs, amap) + em_bytes + 3 * 16 * 4 + 6 * B * 4 \
+        + nbytes(out["stage"]) + tex_bytes(tex, fetches["fetches"])
+    # the untextured K3 at the same shape (Cornell 256², frame 3 after 2 of
+    # history), beside it
+    plain_host, _ = cornell_box(size, size)
+    flat = morton_permuted_scene(plain_host.compile())[0].to("cuda")
+    flat_em = mr.prepare_emissive_table(flat)
+    flat_state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+    mr.restir_di_megakernel_plain(flat, flat_em, cam, flat_state, 1, 2, st, ppv, ppv)
+    k3(flat, flat_em, cam, 3, st, flat_state, ppv)              # warm-up
+    untextured_ms = kernel_ms(lambda: k3(flat, flat_em, cam, 3, st, flat_state, ppv))
+    emit("textured_k3_beside_untextured", size=f"{size}x{size}", textured_ms=ms, untextured_ms=untextured_ms)
+    summary["restir_di_k3[textured]"] = dict(max_abs_err=dd.max().item(), ms=ms, wrapper_ms=wrapper_ms,
+                                             plain_ms=plain_ms, frac_px_over_1e3=off, fetches=fetches["fetches"],
+                                             untextured_ms=untextured_ms,
+                                             parity_shape=f"textured cornell {size}x{size}, frame 3 after 2 of history",
+                                             **bound(walks, io))
+    loops = []
+    for fn in (mr.restir_di_megakernel, mr.restir_di_megakernel_plain):
+        stt = torch.zeros((mr.ST_ROWS, B), device="cuda")
+        loops.append(fn(scene, em, cam, stt, 1, 4, st, cam.proj_view, cam.proj_view).cpu().numpy())
+    row = parity(*loops)
+    emit("textured_k3k4_frames_vs_plain", size=f"{size}x{size}", frames=4, **row)
+    if not row["ok"]:
+        raise AssertionError("the textured K3+K4 frame loop disagrees with its plain version")
+
+    # K5 (both modes) and K6 against their plain versions, one frame after two
+    # of history on the same inputs; then the K5 and K6+K7 frame loops
+    gst = settings_for("RESTIR_GI")
+    z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+    _, gstate, gstage = mg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, gst, ppv, ppv)
+
+    def gi_off(got, ref):
+        return ((got - ref).abs() > 1e-3 * torch.clamp_min(ref.abs(), 1.0)).any(0).float().mean().item()
+
+    def k1(fn):
+        return (fn(scene, cam, 3, gst, gstate, ppv),)
+
+    def mono(final_vis):
+        def run(fn):
+            a, s_, g_ = torch.zeros((B, 3), device="cuda"), torch.empty_like(gstate), torch.empty_like(gstage)
+            fn(scene, cam, 3, gst, gstate, gstage, ppv, a, s_, g_, final_vis=final_vis)
+            return s_, g_, a.T
+        return run
+
+    n_shade = int((gstage[mg.GS_SHADE] > 0.5).sum())
+    k1_in = scene_bytes(scene) + nbytes(scene.geometry.uvs, amap) + 3 * 16 * 4 + 15 * n_shade * 4
+    # (row, the untextured kernel's row at the same shape, ...)
+    cases = [("restir_gi_k1[textured]", "restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t),
+              mg.restir_gi_k1_plain, k1_in),
+             ("restir_gi_mono[textured]", "restir_gi_mono", mono(False),
+              functools.partial(mg.restir_gi_mono, cam=cam_t), mg.restir_gi_mono_plain, k1_in + 19 * B * 4 + B * 12),
+             ("restir_gi_mono[final_vis,textured]", "restir_gi_mono[final_vis]", mono(True),
+              functools.partial(mg.restir_gi_mono, cam=cam_t), mg.restir_gi_mono_plain, k1_in + 19 * B * 4 + B * 12)]
+    for name, flat_name, run, kernel, plain, in_bytes in cases:
+        run(kernel)                                              # warm-up
+        out = {}
+        wrapper_ms = statistics.median(gpu_ms(lambda: [out.update(got=run(kernel)) for _ in range(10)], 5)) / 10
+        ms = kernel_ms(lambda: run(kernel))
+        with count_walks() as walks, count_fetches() as fetches:
+            plain_ms = statistics.median(gpu_ms(lambda: out.update(ref=run(plain)), 1))
+        frac = max(gi_off(a, b) for a, b in zip(out["got"], out["ref"]))
+        err = max((a - b).abs().max().item() for a, b in zip(out["got"], out["ref"]))
+        summary[name] = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, frac_px_over_1e3=frac,
+                             fetches=fetches["fetches"], untextured_ms=summary[flat_name]["ms"],
+                             parity_shape=f"textured cornell {size}x{size}, frame 3 after 2 of history",
+                             **bound(walks, in_bytes + nbytes(*out["ref"]) + tex_bytes(tex, fetches["fetches"])))
+        emit("textured_gi_kernel_vs_plain", kernel=name, size=f"{size}x{size}", ms_per_launch=ms,
+             wrapper_ms=wrapper_ms, plain_ms=plain_ms, frac_px_over_1e3=frac, max_abs_err=err,
+             fetches=fetches["fetches"], ok=frac < 0.01)
+        if not frac < 0.01:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    for mode in (dict(mono=True), dict(mono=True, final_vis=True), dict(mono=False)):
+        loops = []
+        for fn in (mg.restir_gi_megakernel, mg.restir_gi_megakernel_plain):
+            zz = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+            loops.append(fn(scene, cam, *zz, 1, 4, gst, cam.proj_view, cam.proj_view, **mode)[0].cpu().numpy())
+        row = parity(*loops)
+        emit("textured_gi_frames_vs_plain", size=f"{size}x{size}", frames=4, mode=mode, **row)
+        if not row["ok"]:
+            raise AssertionError(f"the textured GI frame loop {mode} disagrees with its plain version")
+
+    # textured ReSTIR DI is unbiased: its mean against light sampling's at 64²
+    # (tests/test_textured_megakernel.py:54-72, the 5% bound)
+    host, c64 = textured_host(64, 64)
+    di = MegakernelReSTIRDI(host, c64, settings_for("RESTIR_DI", light_candidates=4, spatial_neighbors=3,
+                                                    spatial_radius=8, sky_color=(0.0, 0.0, 0.0)),
+                            device="cuda").render_many(64)
+    light = MegakernelRenderer(host, c64, settings_for("LIGHT_SOURCE", samples=4, sky_color=(0.0, 0.0, 0.0)),
+                               device="cuda").render_many(256)
+    rel = abs(di.mean().item() - light.mean().item()) / light.mean().item()
+    ok = bool(torch.isfinite(di).all()) and rel < 0.05
+    emit("textured_restir_di_unbiased", size="64x64", di_frames=64, light_frames=256, di_mean=di.mean().item(),
+         light_mean=light.mean().item(), rel=rel, ok=ok)
+    if not ok:
+        raise AssertionError("textured ReSTIR DI's mean is off light-source sampling's by 5% or more")
+
+
 def phase_main(summary: dict) -> None:
     import torch
 
@@ -1015,6 +1330,25 @@ def phase_main(summary: dict) -> None:
         emit("restir_gi_unbiased", check=name, size="64x64", frames=256, **row)
     if not all(row["ok"] for _, row in checks):
         raise AssertionError("ReSTIR GI's mean is off its reference beyond the JAX package's bounds")
+
+    # the textured Cornell box at 256², 8 frames, through the entry points:
+    # every textured instantiation launches (no golden in the repository)
+    host, tcam = textured_host(256, 256)
+    tex_paths = [("MegakernelRenderer", MegakernelRenderer, tech, {}, ["megakernel"], row)
+                 for tech, row in TEX_ROWS.items()]
+    tex_paths += [("MegakernelReSTIRDI", MegakernelReSTIRDI, "RESTIR_DI", {}, ["restir_di_k3", "restir_di_k4"],
+                   "restir_di_k3[textured]"),
+                  ("MegakernelReSTIRGI mono", MegakernelReSTIRGI, "RESTIR_GI", {}, ["restir_gi_mono"],
+                   "restir_gi_mono[textured]"),
+                  ("MegakernelReSTIRGI mono final_vis", MegakernelReSTIRGI, "RESTIR_GI", dict(final_vis=True),
+                   ["restir_gi_mono"], "restir_gi_mono[final_vis,textured]"),
+                  ("MegakernelReSTIRGI mono=False", MegakernelReSTIRGI, "RESTIR_GI", dict(mono=False),
+                   ["restir_gi_k1", "restir_gi_k2"], "restir_gi_k1[textured]")]
+    for label, cls, tech, kw, needs, row in tex_paths:
+        n = path(f"{label} textured cornell {tech}",
+                 lambda: cls(host, tcam, settings_for(tech), device="cuda", **kw).render_many(8), None, (256, 256, 3),
+                 needs)
+        summary[row]["launches"] = n[needs[0]]
 
 
 def phase_train(summary: dict) -> None:
@@ -1215,6 +1549,12 @@ def phase_timing() -> None:
                64, 16),
               ("k5_megakernel_gi", gi, "RESTIR_GI", stress_scene, 128, 128, 64, 8),
               ("k1_wavefront", k1, "RESTIR_GI", cornell, 256, 256, 8, 2)]
+    # the textured Cornell box (ops/texture.py), beside the untextured rows above
+    cases += [(f"{path}_textured", make, tech, textured_host, w, h, 64, 0)
+              for path, make, tech in (("k2_megakernel", k2, "NEE_MIS"), ("k3k4_megakernel_di", di, "RESTIR_DI"),
+                                       ("k5_megakernel_gi", gi, "RESTIR_GI"))
+              for w, h in ((256, 256), (1920, 1088))]
+    scene_names = {stress_scene: "stress", textured_host: "textured cornell"}
     for name, make, tech, scene_of, w, h, frames, prof_frames in cases:
         st = settings_for(tech)
         scene, cam = scene_of(w, h)
@@ -1223,7 +1563,7 @@ def phase_timing() -> None:
         torch.cuda.synchronize()
         reps = gpu_ms(lambda: run(frames), 5)
         ms_frame = statistics.median(reps) / frames
-        row = dict(path=name, technique=tech, scene="stress" if scene_of is stress_scene else "cornell",
+        row = dict(path=name, technique=tech, scene=scene_names.get(scene_of, "cornell"),
                    size=f"{w}x{h}", frames_per_rep=frames, reps_ms=reps, ms_per_frame=ms_frame,
                    rays_per_s=rays(tech, w, h, st, name.endswith("final_vis")) / (ms_frame / 1000.0))
         if prof_frames:
@@ -1242,7 +1582,71 @@ def phase_timing() -> None:
         del run
         torch.cuda.empty_cache()
 
+    phase_timing_overflow_watch()
     phase_timing_train()
+
+
+class _NoWatch:
+    """An overflow watch that reads nothing: the A/B's other side."""
+
+    def poll(self) -> None:
+        pass
+
+    def queue(self) -> None:
+        pass
+
+
+def phase_timing_overflow_watch() -> None:
+    """The cost of the entry points' stack-overflow watch
+    (ops/traverse.py::OverflowWatch: a copy of the flag to pinned memory and
+    an event a call, read at the next call without a wait): the
+    ``MegakernelRenderer`` NEE ``render_many(64)`` at Cornell 256² with the
+    watch and without it, in turns (with, without, without, with), 5 reps
+    each, by CUDA events."""
+    import torch
+
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    builder, cam = cornell_box(256, 256)
+    mk = MegakernelRenderer(builder.compile(), cam, settings_for("NEE_MIS"), device="cuda")
+    watch = mk.overflow
+    times: dict = {"watch": [], "no_watch": []}
+    for variant in ("watch", "no_watch", "no_watch", "watch"):
+        mk.overflow = watch if variant == "watch" else _NoWatch()
+        mk.render_many(2)                          # warm-up
+        torch.cuda.synchronize()
+        times[variant] += gpu_ms(lambda: mk.render_many(64), 5)
+    mk.overflow = watch
+    med = {k: statistics.median(v) / 64 for k, v in times.items()}
+    spread = {k: (max(v) - min(v)) / 64 for k, v in times.items()}
+    emit("timing_overflow_watch", path="MegakernelRenderer NEE_MIS", size="256x256", frames_per_rep=64,
+         reps_ms=times, ms_per_frame=med, spread_ms_per_frame=spread,
+         watch_minus_no_watch_ms_per_frame=med["watch"] - med["no_watch"])
+
+
+def train_steps(scene, cam, technique: str, settings):
+    """``run(n)``: ``n`` steps of ``make_train_step`` under ``technique``
+    (``"nee"`` or a hemisphere sampler) on ``scene`` (on the card), each
+    from the scene's own materials, against that wavefront's frame 1."""
+    import torch
+
+    from fypraytracer_tpu_torch.core.camera import generate_rays
+    from fypraytracer_tpu_torch.ops.traverse import pick_tracer
+    from fypraytracer_tpu_torch.parallel.shard import make_train_step
+    from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere, radiance_nee_mis
+
+    w, h = cam.width, cam.height
+    o, d = generate_rays(cam.inv_projection, cam.inv_view, w, h, device="cuda")
+    pix = torch.arange(w * h, device="cuda")
+    target = (radiance_nee_mis(scene, pick_tracer(scene), o, d, pix, 1, settings) if technique == "nee" else
+              radiance_hemisphere(scene, pick_tracer(scene), o, d, pix, 1, settings, technique))
+    step = make_train_step(scene, w, h, settings, technique=technique, device="cuda")
+
+    def run(n):
+        for _ in range(n):
+            step(scene.materials, cam.inv_projection, cam.inv_view, 1, target)
+    return run
 
 
 def phase_timing_train() -> None:
@@ -1253,18 +1657,12 @@ def phase_timing_train() -> None:
     busy time per step from torch.profiler and the idle share it implies."""
     import torch
 
-    from fypraytracer_tpu_torch.core.camera import generate_rays
-    from fypraytracer_tpu_torch.ops.traverse import pick_tracer
-    from fypraytracer_tpu_torch.parallel.shard import make_train_step
     from fypraytracer_tpu_torch.render import megakernel_diff as md
-    from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere, radiance_nee_mis
 
     scene, cam, cam_t, tgt = diff_inputs()
     w, h = cam.width, cam.height
     alb = scene.materials.albedo
     dr = md.DiffRenderer(scene, cam, bounces=2, sky_color=SKY, device="cuda")
-    o, d = generate_rays(cam.inv_projection, cam.inv_view, w, h, device="cuda")
-    pix = torch.arange(w * h, device="cuda")
 
     def diff_steps(n):
         a = alb
@@ -1275,19 +1673,9 @@ def phase_timing_train() -> None:
         for _ in range(n):
             md.diff_megakernel(scene, cam, alb, tgt, 3, 2, SKY, cam=cam_t)
 
-    def train(technique, settings):
-        target = (radiance_nee_mis(scene, pick_tracer(scene), o, d, pix, 1, settings) if technique == "nee" else
-                  radiance_hemisphere(scene, pick_tracer(scene), o, d, pix, 1, settings, technique))
-        step = make_train_step(scene, w, h, settings, technique=technique, device="cuda")
-
-        def run(n):
-            for _ in range(n):
-                step(scene.materials, cam.inv_projection, cam.inv_view, 1, target)
-        return run
-
     cases = [("DiffRenderer.step", diff_steps, 10), ("diff_megakernel launch", kernel_launches, 10),
-             ("make_train_step NEE_MIS", train("nee", settings_for("NEE_MIS")), 2),
-             ("make_train_step COSINE", train("cosine", settings_for("COSINE")), 2)]
+             ("make_train_step NEE_MIS", train_steps(scene, cam, "nee", settings_for("NEE_MIS")), 2),
+             ("make_train_step COSINE", train_steps(scene, cam, "cosine", settings_for("COSINE")), 2)]
     for name, run, n in cases:
         run(1)                                       # warm-up
         torch.cuda.synchronize()
@@ -1302,11 +1690,104 @@ def phase_timing_train() -> None:
              kernels_per_step=prof["n_kernels"] / n if seen else None, top_kernels_ms=prof["top"])
 
 
+def ab_turn(tree: str) -> None:
+    """One turn of ``--ab``, in a process of its own: the untextured entry
+    points of the package in ``tree`` (its kernels built there) at Cornell
+    256² and 1920x1088: ``Renderer`` NEE (``render_many(8)``),
+    ``MegakernelRenderer`` NEE, ``MegakernelReSTIRDI`` and
+    ``MegakernelReSTIRGI`` (mono; ``render_many(64)``); and
+    ``make_train_step`` under NEE and cosine at 256² (2 steps a rep).  Each
+    5 reps after a warm-up; prints one ``AB`` line with, per path and rep,
+    the ms a frame (a step) by CUDA events and the host's ms a frame to
+    enqueue the call (wall clock up to its return, before the
+    synchronize): where the two are close the path waits on the host."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import fypraytracer_tpu_torch
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
+    from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
+    from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
+    from fypraytracer_tpu_torch.render.renderer import Renderer
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    if not os.path.abspath(fypraytracer_tpu_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
+        raise RuntimeError(f"imported {fypraytracer_tpu_torch.__file__}, not the package in {tree}")
+
+    def reps(fn, n):
+        dev, host = [], []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn(n)
+            t1 = time.perf_counter()
+            end.record()
+            torch.cuda.synchronize()
+            dev.append(start.elapsed_time(end) / n)
+            host.append((t1 - t0) * 1000.0 / n)
+        return dict(ms=dev, host_ms=host)
+
+    out = {}
+    for cls, tech, frames in ((Renderer, "NEE_MIS", 8), (MegakernelRenderer, "NEE_MIS", 64),
+                              (MegakernelReSTIRDI, "RESTIR_DI", 64), (MegakernelReSTIRGI, "RESTIR_GI", 64)):
+        for w, h in ((256, 256), (1920, 1088)):
+            builder, cam = cornell_box(w, h)
+            r = cls(builder.compile(), cam, settings_for(tech), device="cuda")
+            r.render_many(2)                       # warm-up
+            torch.cuda.synchronize()
+            out[f"{cls.__name__} {tech} {w}x{h}"] = reps(r.render_many, frames)
+            del r
+            torch.cuda.empty_cache()
+    scene, cam, _, _ = diff_inputs()
+    for technique, tech in (("nee", "NEE_MIS"), ("cosine", "COSINE")):
+        run = train_steps(scene, cam, technique, settings_for(tech))
+        run(1)                                     # warm-up
+        torch.cuda.synchronize()
+        out[f"make_train_step {tech} 256x256"] = reps(run, 2)
+    print("AB " + json.dumps(out), flush=True)
+
+
+def ab(parent: str) -> None:
+    """``--ab PARENT``: this checkout's package against the one in
+    ``PARENT`` (another checkout, e.g. ``git archive`` of the parent commit
+    unpacked into a git-ignored directory), ``ab_turn`` in turns: parent,
+    change, change, parent.  Prints one line a path: both sides' medians
+    and ranges over their 10 reps, change / parent, and each turn's median
+    device and host ms in the order of the turns."""
+    runs: dict = {"parent": [], "change": []}
+    turns = []
+    for side in ("parent", "change", "change", "parent"):
+        tree = os.path.abspath(parent) if side == "parent" else REPO
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-turn", tree], capture_output=True,
+                           text=True, cwd=tree, timeout=900)
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("AB ")]
+        if r.returncode != 0 or not line:
+            raise RuntimeError(f"the {side} turn failed ({r.returncode}): {(r.stdout + r.stderr)[-3000:]}")
+        runs[side].append(json.loads(line[0][3:]))
+        turns.append((side, runs[side][-1]))
+    for key in runs["parent"][0]:
+        p, c = ([x for t in runs[side] for x in t[key]["ms"]] for side in ("parent", "change"))
+        emit("ab", path=key, parent_median=statistics.median(p), change_median=statistics.median(c),
+             parent_range=[min(p), max(p)], change_range=[min(c), max(c)],
+             change_over_parent=statistics.median(c) / statistics.median(p),
+             turn_ms=[[side, statistics.median(t[key]["ms"])] for side, t in turns],
+             turn_host_ms=[[side, statistics.median(t[key]["host_ms"])] for side, t in turns],
+             parent_reps=p, change_reps=c)
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]     # phases 1-6 only, no timing
+    args = sys.argv[1:]
+    if args[:1] == ["--ab-turn"]:
+        ab_turn(args[1])
+        return 0
     summary: dict = {}
     try:
         phase_env()
+        if args[:1] == ["--ab"]:
+            ab(args[1])
+            return 0
         sys.path.insert(0, REPO)
         phase_build()
         phase_k1(summary)
@@ -1315,6 +1796,7 @@ def main() -> int:
         phase_restir(summary)
         phase_restir_gi(summary)
         phase_diff(summary)
+        phase_textured(summary)
         phase_main(summary)
         phase_train(summary)
         if not quick:
@@ -1341,6 +1823,13 @@ def main() -> int:
                                  "fypraytracer_tpu/render/megakernel_restir_gi.py:447+:544"),
                 "diff_megakernel": ("fypraytracer_tpu_torch/csrc/megakernel_diff.cu",
                                     "fypraytracer_tpu/render/megakernel_diff.py:117")}
+    # the textured instantiations: the kernel beside the JAX fetch it carries
+    fetch = " + fypraytracer_tpu/render/megakernel.py:1526 (build_tex_lookup)"
+    replaces.update({name: (k2[0], k2[1] + fetch) for name in TEX_ROWS.values()})
+    replaces.update({f"{k}[textured]": (src, rep + fetch) for k, (src, rep) in replaces.items()
+                     if k in ("restir_di_k3", "restir_gi_mono", "restir_gi_k1")})
+    replaces["restir_gi_mono[final_vis,textured]"] = (replaces["restir_gi_mono"][0],
+                                                      replaces["restir_gi_mono"][1] + fetch)
     kern = [dict(name=k, route="cuda", source=src, replaces=rep, **summary[k]) for k, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

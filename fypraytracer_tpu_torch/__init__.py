@@ -5,8 +5,8 @@ H100.  The layout mirrors the JAX package module for module, so each
 module's counterpart is found by path; the JAX package stays the
 reference every port module is tested against at matched seeds.
 
-What this package covers: the nine sampling techniques on untextured
-scenes and training, through these entry points:
+What this package covers: the nine sampling techniques on untextured and
+textured scenes, and training, through these entry points:
 
   * ``render.renderer.Renderer`` — the wavefront renderer for techniques
     0-8; on CUDA tensors its closest-hit trace is the hand-written kernel
@@ -24,9 +24,13 @@ scenes and training, through these entry points:
   * ``parallel.shard.make_train_step`` — a training step by torch autograd
     through the wavefront integrators.
 
-Textured materials raise ``NotImplementedError``.  On CPU tensors the
+A material with an albedo map reads the scene's atlas
+(``ops.texture``); K2, K3, K5 and K6 are built a second time with that
+fetch, which a textured scene launches.  ``DiffRenderer`` refuses
+textured scenes (its JAX kernel has no textured path).  On CPU tensors the
 entry points run their plain PyTorch versions; on CUDA tensors they launch
-the kernels or raise.  The package imports ``torch``
+the kernels or raise, and each call reads the walks' stack-overflow flag
+(``ops.traverse.OverflowWatch``).  The package imports ``torch``
 and ``numpy`` only: the host builders (BVH, light tree, scene compiler)
 are NumPy copies, so it imports on a machine without JAX.
 """

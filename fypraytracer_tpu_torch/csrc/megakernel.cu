@@ -18,6 +18,12 @@
 // NEE it is also built with one thread a pixel and the threaded walk of
 // traverse.cuh (frames_threaded_kernel), so that chip_smoke.py can time both
 // in turns (fyp_megakernel's lanes argument 0).
+// Each sampler is built untextured and textured (frames_kernel's T): the
+// textured build fetches a mapped material's albedo from the atlas
+// (shading.cuh::tex_surface, the JAX kernel's build_tex_lookup, :1526, built
+// at :1837-1841), the primary hit from the primary level, every hit after a
+// scatter from the bounce level; the untextured build compiles to the code it
+// had before textures.  The threaded walk is built untextured only.
 //
 // Semantics kept from the JAX kernel (and from render/integrators.py, whose
 // frame the PyTorch plain version sums):
@@ -84,6 +90,7 @@ struct Params {
   float3 sky;
   Geo geo;
   Mats mats;
+  Tex tex;  // the textured instantiations' levels
   Bvh bvh;
   WideBvh wide;
   LightTree lt;
@@ -155,7 +162,7 @@ __device__ __forceinline__ void light_point(const Params& P, int tid, float u1, 
 }
 
 // integrators.py::radiance_hemisphere, one sample of one frame
-template <int S, class Walk>
+template <int S, bool T, class Walk>
 __device__ __forceinline__ float3 hemisphere_path(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
                                                   float3 dir) {
   float3 rad = make_float3(0.0f, 0.0f, 0.0f);
@@ -170,7 +177,7 @@ __device__ __forceinline__ float3 hemisphere_path(const Params& P, const Walk& w
   for (int b = 0; b < P.bounces; ++b) {
     Hit hh = walk(ray_o, ray_d);
     if (hh.tri < 0) return rad + thr * P.sky;
-    Surf s = surface(P.geo, P.mats, hh, ray_o, ray_d);
+    Surf s = tex_surface<T>(P.geo, P.mats, P.tex, hh, ray_o, ray_d, true);
     float3 em = emission_of(P.mats, s.mat);
     if (dot(em, em) > 0.0f) return rad + thr * em;
     view = -ray_d;
@@ -213,7 +220,7 @@ __device__ __forceinline__ float3 light_sample(const Params& P, const Walk& walk
 }
 
 // integrators.py::radiance_nee_mis, one sample of one frame
-template <class Walk>
+template <bool T, class Walk>
 __device__ __forceinline__ float3 nee_path(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
                                            float3 dir) {
   const bool single = P.bounces == 1;
@@ -271,7 +278,7 @@ __device__ __forceinline__ float3 nee_path(const Params& P, const Walk& walk, ui
       rad = rad + thr * P.sky;
       break;
     }
-    Surf next = surface(P.geo, P.mats, hh, ray_o, ray_d);
+    Surf next = tex_surface<T>(P.geo, P.mats, P.tex, hh, ray_o, ray_d, true);
     float3 em = emission_of(P.mats, next.mat);
     if (dot(em, em) > 0.0f) {
       // MIS with the light pdf at the actual hit point
@@ -293,9 +300,10 @@ __device__ __forceinline__ float3 nee_path(const Params& P, const Walk& walk, ui
 }
 
 // The HDR of pixel pix summed over frames f_first, f_first + f_step, ...
-// (below n_frames), traced by walk.  A primary miss or emitter gives
-// n_frames times its radiance, whatever the frames, and sets *whole.
-template <int S, class Walk>
+// (below n_frames), traced by walk; textured when T.  A primary miss or
+// emitter gives n_frames times its radiance, whatever the frames, and sets
+// *whole.
+template <int S, bool T, class Walk>
 __device__ __forceinline__ float3 frames(const Params& P, const Walk& walk, int pix, int f_first, int f_step,
                                          bool& whole) {
   float3 orig, dir;
@@ -304,7 +312,7 @@ __device__ __forceinline__ float3 frames(const Params& P, const Walk& walk, int 
   // ---- primary hit, traced once and reused by every frame
   const float nf = static_cast<float>(P.n_frames);
   const Hit h0 = walk(orig, dir);
-  const Surf prim = h0.tri < 0 ? Surf{} : surface(P.geo, P.mats, h0, orig, dir);
+  const Surf prim = h0.tri < 0 ? Surf{} : tex_surface<T>(P.geo, P.mats, P.tex, h0, orig, dir, false);
   const float3 em0 = h0.tri < 0 ? P.sky : emission_of(P.mats, prim.mat);
   whole = h0.tri < 0 || dot(em0, em0) > 0.0f;
   if (whole) return make_float3(nf * em0.x, nf * em0.y, nf * em0.z);
@@ -316,11 +324,11 @@ __device__ __forceinline__ float3 frames(const Params& P, const Walk& walk, int 
     for (int s = 0; s < P.samples; ++s) {
       const uint32_t key = fold(fold(key_f, static_cast<uint32_t>(s)), 0u);
       if (S == NEE) {
-        rad = rad + nee_path(P, walk, key, prim, dir);
+        rad = rad + nee_path<T>(P, walk, key, prim, dir);
       } else if (S == LIGHT) {
         rad = rad + light_sample(P, walk, key, prim, dir);
       } else {
-        rad = rad + hemisphere_path<S>(P, walk, key, prim, dir);
+        rad = rad + hemisphere_path<S, T>(P, walk, key, prim, dir);
       }
     }
     acc = acc + rad / static_cast<float>(P.samples);
@@ -337,13 +345,13 @@ __device__ __forceinline__ void store(float* __restrict__ out, int pix, float3 v
 // `lanes` threads a pixel, lane k with frames k, k + lanes, ... and the wide
 // walk by the thread; the lanes add their sums by xor shuffles, for four
 // (l0 + l1) + (l2 + l3)
-template <int S, class Walk>
+template <int S, bool T, class Walk>
 __device__ __forceinline__ void lane_frames(const Params& P, const Walk& walk, int pix, float* __restrict__ out) {
   const int lanes = P.lanes;
   const int lane = threadIdx.x & (lanes - 1);
   const unsigned mask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
   bool whole;  // the same in the pixel's lanes: one primary ray
-  float3 acc = frames<S>(P, walk, pix, lane, lanes, whole);
+  float3 acc = frames<S, T>(P, walk, pix, lane, lanes, whole);
   if (whole && lane != 0) acc = make_float3(0.0f, 0.0f, 0.0f);  // n_frames times its radiance, once
   for (int off = 1; off < lanes; off <<= 1) {
     acc.x += __shfl_xor_sync(mask, acc.x, off, lanes);
@@ -353,43 +361,50 @@ __device__ __forceinline__ void lane_frames(const Params& P, const Walk& walk, i
   if (lane == 0) store(out, pix, acc);
 }
 
-template <int S>
+// T: textured (the albedo fetch of shading.cuh::tex_surface); the untextured
+// instantiations compile to the code they had before textures
+template <int S, bool T>
 __global__ void __launch_bounds__(kBlock) frames_kernel(Params P, float* __restrict__ out) {
   const int pix = (blockIdx.x * kBlock + threadIdx.x) / P.lanes;
   if (pix >= P.width * P.height) return;  // the ragged edge leaves a pixel's lanes whole
   const LaneStack st = lane_stack(P.wide.stack_depth);
   if constexpr (S == NEE) {
-    lane_frames<S>(P, LaneCallWalk{P.wide, st}, pix, out);
+    lane_frames<S, T>(P, LaneCallWalk{P.wide, st}, pix, out);
   } else {
-    lane_frames<S>(P, LaneWalk{P.wide, st}, pix, out);
+    lane_frames<S, T>(P, LaneWalk{P.wide, st}, pix, out);
   }
 }
 
-// one thread a pixel, the threaded walk
+// one thread a pixel, the threaded walk (untextured only)
 template <int S>
 __global__ void __launch_bounds__(kBlock) frames_threaded_kernel(Params P, float* __restrict__ out) {
   const int pix = blockIdx.x * kBlock + threadIdx.x;
   if (pix >= P.width * P.height) return;
   bool whole;
-  store(out, pix, frames<S>(P, ThreadedWalk{P.bvh, Tris{P.geo.positions, P.geo.tri_v}}, pix, 0, 1, whole));
+  store(out, pix, frames<S, false>(P, ThreadedWalk{P.bvh, Tris{P.geo.positions, P.geo.tri_v}}, pix, 0, 1, whole));
 }
 
 using Kernel = void (*)(Params, float*);
 
-// The kernel of a sampler and lane count (0: the threaded walk, NEE only),
-// or null
-Kernel kernel_of(int sampler, int lanes) {
-  if (lanes == 0) return sampler == NEE ? frames_threaded_kernel<NEE> : nullptr;
-  if (lanes != 1 && lanes != 2 && lanes != 4) return nullptr;
+template <bool T>
+Kernel sampler_kernel(int sampler) {
   switch (sampler) {
-    case UNIFORM: return frames_kernel<UNIFORM>;
-    case COSINE: return frames_kernel<COSINE>;
-    case GGX: return frames_kernel<GGX>;
-    case BRDF: return frames_kernel<BRDF>;
-    case LIGHT: return frames_kernel<LIGHT>;
-    case NEE: return frames_kernel<NEE>;
+    case UNIFORM: return frames_kernel<UNIFORM, T>;
+    case COSINE: return frames_kernel<COSINE, T>;
+    case GGX: return frames_kernel<GGX, T>;
+    case BRDF: return frames_kernel<BRDF, T>;
+    case LIGHT: return frames_kernel<LIGHT, T>;
+    case NEE: return frames_kernel<NEE, T>;
     default: return nullptr;
   }
+}
+
+// The kernel of a sampler, lane count (0: the threaded walk, NEE and
+// untextured only) and texturing, or null
+Kernel kernel_of(int sampler, int lanes, bool textured) {
+  if (lanes == 0) return sampler == NEE && !textured ? frames_threaded_kernel<NEE> : nullptr;
+  if (lanes != 1 && lanes != 2 && lanes != 4) return nullptr;
+  return textured ? sampler_kernel<true>(sampler) : sampler_kernel<false>(sampler);
 }
 
 // Dynamic shared memory of a block: a stack for each thread of the wide walk
@@ -400,8 +415,10 @@ size_t smem_of(int lanes, int stack_depth) { return lanes == 0 ? 0 : wide_stack_
 extern "C" int fyp_megakernel(
     int sampler, int lanes, const void* cam, int width, int height, unsigned int frame0, int n_frames, int bounces,
     int samples, float sky_r, float sky_g, float sky_b,
-    const void* positions, const void* normals, const void* tri_v, const void* tri_mat,
-    const void* albedo, const void* roughness, const void* metallic, const void* emission,
+    const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
+    const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
+    int textured, const void* tex_prim, const void* tex_bounce, int tex_k, int tex_hp, int tex_wp, int tex_hb,
+    int tex_wb,
     const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
     const void* bvh_prim_idx, int n_nodes, int leaf_size,
     const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
@@ -412,8 +429,8 @@ extern "C" int fyp_megakernel(
     void* out, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
-  const Kernel k = kernel_of(sampler, lanes);
-  if (k == nullptr || wide_stack_depth < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel k = kernel_of(sampler, lanes, textured != 0);
+  if (k == nullptr || wide_stack_depth < 1 || (textured && tex_k < 1)) return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
   Params P;
@@ -426,8 +443,10 @@ extern "C" int fyp_megakernel(
   P.samples = samples;
   P.lanes = max(lanes, 1);
   P.sky = make_float3(sky_r, sky_g, sky_b);
-  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
-  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
+  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat), F(uvs)};
+  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission), I(albedo_map)};
+  P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
+              tex_hb, tex_wb};
   P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
   P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
                    static_cast<int*>(wide_overflow), wide_stack_depth};
@@ -443,8 +462,9 @@ extern "C" int fyp_megakernel(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fyp_megakernel_occupancy(int sampler, int lanes, int wide_stack_depth, int* blocks_per_sm) {
-  const Kernel k = kernel_of(sampler, lanes);
+extern "C" int fyp_megakernel_occupancy(int sampler, int lanes, int textured, int wide_stack_depth,
+                                        int* blocks_per_sm) {
+  const Kernel k = kernel_of(sampler, lanes, textured != 0);
   if (k == nullptr || wide_stack_depth < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_of(lanes, wide_stack_depth);
   cudaError_t e = allow_stack_smem(k, smem);

@@ -31,6 +31,9 @@
 //   * the shadow ray leaves pos + n * 1e-12 towards a uniform point on the
 //     chosen emitter; visible means its closest hit is that emitter; an escaping
 //     shadow ray adds the sky (:546-590);
+//   * textures (megakernel_restir.py:278-288): K3 is built with and without
+//     the albedo fetch (shading.cuh::tex_surface); its primary hit reads the
+//     primary level, and K4 shades with the albedo K3 staged (S_ALB);
 //   * keys: fold(fold(fold(pcg(pix), frame), 0), 7001) in K3, 7002 in K4; draws
 //     in K3: u_sel, u_acc per candidate, then the two temporal draws; in K4: one
 //     for self, one per neighbour, then two for the point on the emitter.
@@ -148,13 +151,15 @@ struct K3Params {
   int temporal;
   Geo geo;
   Mats mats;
+  Tex tex;             // the textured instantiation's levels
   Bvh bvh;
   Emitters em;
   const float* state;  // (ST rows, B), read
   float* stage;        // (S rows, B), written
 };
 
-// K3: one block per tile of C = blockDim.x pixels
+// K3: one block per tile of C = blockDim.x pixels; textured when T
+template <bool T>
 __global__ void __launch_bounds__(512) k3_candidates(K3Params P) {
   const int C = blockDim.x;
   const int lane = threadIdx.x;
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(512) k3_candidates(K3Params P) {
   Surf s{};
   float3 em0 = make_float3(0.0f, 0.0f, 0.0f);
   if (hit) {
-    s = surface(P.geo, P.mats, h0, orig, dir);
+    s = tex_surface<T>(P.geo, P.mats, P.tex, h0, orig, dir, false);
     em0 = emission_of(P.mats, s.mat);
   }
   const bool shade = hit && !(dot(em0, em0) > 0.0f);
@@ -391,8 +396,10 @@ Emitters emitters(const void* p0, const void* e1, const void* e2, const void* ar
 extern "C" int fyp_restir_di_k3(
     const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int candidates,
     float history_limit, int temporal,
-    const void* positions, const void* normals, const void* tri_v, const void* tri_mat,
-    const void* albedo, const void* roughness, const void* metallic, const void* emission,
+    const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
+    const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
+    int textured, const void* tex_prim, const void* tex_bounce, int tex_k, int tex_hp, int tex_wp, int tex_hb,
+    int tex_wb,
     const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
     const void* bvh_prim_idx, int n_nodes, int leaf_size,
     const void* em_p0, const void* em_e1, const void* em_e2, const void* em_area, const void* em_normal,
@@ -400,7 +407,8 @@ extern "C" int fyp_restir_di_k3(
     const void* state, void* stage, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
-  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || n_emissive <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || n_emissive <= 0 || (textured && tex_k < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
   K3Params P;
@@ -412,13 +420,20 @@ extern "C" int fyp_restir_di_k3(
   P.candidates = candidates;
   P.history_limit = history_limit;
   P.temporal = temporal;
-  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
-  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
+  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat), F(uvs)};
+  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission), I(albedo_map)};
+  P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
+              tex_hb, tex_wb};
   P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
   P.em = emitters(em_p0, em_e1, em_e2, em_area, em_normal, em_emission, em_centroid, em_tri, n_emissive);
   P.state = F(state);
   P.stage = static_cast<float*>(stage);
-  k3_candidates<<<n_pix / lanes, lanes, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (textured) {
+    k3_candidates<true><<<n_pix / lanes, lanes, 0, st>>>(P);
+  } else {
+    k3_candidates<false><<<n_pix / lanes, lanes, 0, st>>>(P);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

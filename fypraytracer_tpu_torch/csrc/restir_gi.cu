@@ -31,6 +31,12 @@
 // segment_visible from the neighbour's sample point (+ n * 1e-12) to this
 // pixel's visible point.
 //
+// Textures (megakernel_restir_gi.py:193-199, 966-972): K5 and K6 are built with
+// and without the albedo fetch (shading.cuh::tex_surface); the primary hit
+// reads the primary level, the path's hits after a scatter the bounce level,
+// and K7 shades with the albedo K6 staged (GS_ALB).  The fetch is compiled
+// with -fmad=false too.
+//
 // RNG: fold(fold(fold(pcg(pix), frame), 0), 8001), drawn u_sel, u1, u2, three a
 // bounce after the first, u0, and ut under temporal reuse; K5 then folds 8002
 // into that key, K7 starts from fold(..., 8002); one u_acc per neighbour.  A
@@ -106,6 +112,7 @@ struct Params {
   float3 sky;
   Geo geo;
   Mats mats;
+  Tex tex;                // the textured instantiations' levels
   Bvh bvh;
   const float* state_in;  // K5: previous state; K6: state
   const float* stage_in;  // K5: previous stage; K7: this frame's stage
@@ -165,8 +172,11 @@ __device__ __forceinline__ float rad_norm(float3 r) { return sqrtf(fmaxf(dot(r, 
 // ---- the first half of a frame (K6; K5 before its spatial reuse) ------------------
 
 // Primary hit, the BRDF path sample and temporal reuse of pixel pix, written to
-// the stage.  Every thread of the block must call it (the tile's reprojection
-// offset is a block reduction).
+// the stage; textured when T (the primary hit reads the primary level, the
+// path's later hits the bounce level, megakernel_restir_gi.py:202-282).  Every
+// thread of the block must call it (the tile's reprojection offset is a block
+// reduction).
+template <bool T>
 __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t& key) {
   const int C = blockDim.x;
   const int lane = threadIdx.x;
@@ -182,7 +192,7 @@ __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t&
   Surf s0{};
   o.em = zero3();
   if (o.hit) {
-    s0 = surface(P.geo, P.mats, h0, orig, dir);
+    s0 = tex_surface<T>(P.geo, P.mats, P.tex, h0, orig, dir, false);
     o.em = emission_of(P.mats, s0.mat);
   }
   o.shade = o.hit && !(dot(o.em, o.em) > 0.0f);
@@ -211,7 +221,7 @@ __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t&
     Surf s1{};
     float3 em1 = zero3();
     if (hit1) {
-      s1 = surface(P.geo, P.mats, h1, o1, d0);
+      s1 = tex_surface<T>(P.geo, P.mats, P.tex, h1, o1, d0, true);
       em1 = emission_of(P.mats, s1.mat);
     }
     const bool reconnect = hit1 && pdf0 > 0.0f;
@@ -248,7 +258,7 @@ __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t&
         active = false;
         continue;
       }
-      const Surf nxt = surface(P.geo, P.mats, h, no, l);
+      const Surf nxt = tex_surface<T>(P.geo, P.mats, P.tex, h, no, l, true);
       const float3 em = emission_of(P.mats, nxt.mat);
       if (dot(em, em) > 0.0f) {
         rad = rad + thr * em;
@@ -433,14 +443,14 @@ __device__ void shade_out(const Params& P, int pix, const Own& o, const PathRes&
 // ---- the kernels: one block per tile of C = blockDim.x pixels ------------------------
 
 // K5: the whole frame; spatial reuse reads the previous frame's stage.
-template <bool kFinalVis>
+template <bool kFinalVis, bool T>
 __global__ void __launch_bounds__(512) gi_mono(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = P.width * P.height;
   Own o;
   PathRes res;
   uint32_t key;
-  stage1(P, pix, o, res, key);
+  stage1<T>(P, pix, o, res, key);
   write_stage(P.stage_out, B, pix, o, res);
   key = fold(key, 8002u);
   if (P.neighbors > 0) spatial(P, P.stage_in, pix, o, res, key, !kFinalVis);
@@ -450,12 +460,13 @@ __global__ void __launch_bounds__(512) gi_mono(Params P) {
 }
 
 // K6: the stage of this frame.
+template <bool T>
 __global__ void __launch_bounds__(512) gi_stage1(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   Own o;
   PathRes res;
   uint32_t key;
-  stage1(P, pix, o, res, key);
+  stage1<T>(P, pix, o, res, key);
   write_stage(P.stage_out, P.width * P.height, pix, o, res);
 }
 
@@ -489,14 +500,17 @@ __global__ void __launch_bounds__(512) gi_stage2(Params P) {
 extern "C" int fyp_restir_gi(
     int kernel, const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int bounces,
     int neighbors, float radius, float history_limit, int temporal, float sky_r, float sky_g, float sky_b,
-    const void* positions, const void* normals, const void* tri_v, const void* tri_mat,
-    const void* albedo, const void* roughness, const void* metallic, const void* emission,
+    const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
+    const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
+    int textured, const void* tex_prim, const void* tex_bounce, int tex_k, int tex_hp, int tex_wp, int tex_hb,
+    int tex_wb,
     const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first, const void* bvh_prim_idx,
     int n_nodes, int leaf_size,
     const void* state_in, const void* stage_in, void* state_out, void* stage_out, void* accum, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
-  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || (textured && tex_k < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
   Params P;
@@ -511,8 +525,10 @@ extern "C" int fyp_restir_gi(
   P.history_limit = history_limit;
   P.temporal = temporal;
   P.sky = make_float3(sky_r, sky_g, sky_b);
-  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
-  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
+  P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat), F(uvs)};
+  P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission), I(albedo_map)};
+  P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
+              tex_hb, tex_wb};
   P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
   P.state_in = F(state_in);
   P.stage_in = F(stage_in);
@@ -523,13 +539,25 @@ extern "C" int fyp_restir_gi(
   const int blocks = n_pix / lanes;
   switch (kernel) {
     case kMono:
-      gi_mono<false><<<blocks, lanes, 0, s>>>(P);
+      if (textured) {
+        gi_mono<false, true><<<blocks, lanes, 0, s>>>(P);
+      } else {
+        gi_mono<false, false><<<blocks, lanes, 0, s>>>(P);
+      }
       break;
     case kMonoFinalVis:
-      gi_mono<true><<<blocks, lanes, 0, s>>>(P);
+      if (textured) {
+        gi_mono<true, true><<<blocks, lanes, 0, s>>>(P);
+      } else {
+        gi_mono<true, false><<<blocks, lanes, 0, s>>>(P);
+      }
       break;
     case kStage1:
-      gi_stage1<<<blocks, lanes, 0, s>>>(P);
+      if (textured) {
+        gi_stage1<true><<<blocks, lanes, 0, s>>>(P);
+      } else {
+        gi_stage1<false><<<blocks, lanes, 0, s>>>(P);
+      }
       break;
     case kStage2:
       gi_stage2<<<blocks, lanes, 0, s>>>(P);

@@ -8,7 +8,9 @@
 //     operation order;
 //   * the light tree's importance descent and its bottom-up emitter pmf
 //     (ops/lighttree.py);
-//   * the surface record of a hit (ops/hit.py::hit_payload).
+//   * the surface record of a hit (ops/hit.py::hit_payload), and for the
+//     textured kernels its albedo fetched from the atlas
+//     (ops/texture.py::sample_bilinear, fetch_bilinear below).
 //
 // Vector products are uncontracted (traverse.cuh); scalar expressions may be
 // FMA-contracted by nvcc, so a kernel and its plain PyTorch version differ
@@ -33,6 +35,7 @@ struct Geo {
   const float* normals;    // (V, 3)
   const int* tri_v;        // (T, 3)
   const int* tri_mat;      // (T,)
+  const float* uvs;        // (V, 2); read by the textured kernels only
 };
 
 struct Mats {
@@ -40,6 +43,18 @@ struct Mats {
   const float* roughness;  // (M,)
   const float* metallic;   // (M,)
   const float* emission;   // (M, 3) emission_color * emission_power
+  const int* albedo_map;   // (M,) atlas page, -1 none; read by the textured kernels only
+};
+
+// The megakernels' texture levels (Scene.tex, ops/texture.py::make_kernel_tex): one float4 a
+// texel (RGB and a zero, one 16-byte load), texel (y, x) of page k at
+// (k * h + y) * w + x.  prim is the atlas's mip 0 box-filtered down to at most
+// 256 a side, bounce its prefiltered bounce level (the TextureAtlas policy:
+// primary hits read prim, hits after a scatter read bounce).
+struct Tex {
+  const float4* prim;    // (K, hp, wp)
+  const float4* bounce;  // (K, hb, wb)
+  int k, hp, wp, hb, wb;
 };
 
 struct LightTree {
@@ -303,5 +318,61 @@ __device__ __forceinline__ Surf surface(const Geo& g, const Mats& m, const Hit& 
 }
 
 __device__ __forceinline__ float3 emission_of(const Mats& m, int mat) { return ldg3(m.emission, mat); }
+
+// ---- textures (ops/texture.py) -------------------------------------------------------
+
+// sample_bilinear on one level, page `page`: the UV wrapped by floor-mod
+// (u - floorf(u), as torch.remainder; fmodf keeps the sign and would take the
+// wrong texel for a negative u), fx = wrap(u) * (w - 1), x1 = min(x0 + 1, w - 1),
+// four 16-byte texel loads, then the x-lerps and the y-lerp, each product and
+// sum rounded alone, so that it rounds as the plain version's elementwise ops.
+// Hardware texture filtering is not used: its weights keep 8 fractional bits.
+// x0 and y0 are clamped into the page, which changes nothing for a finite UV
+// and keeps a NaN UV's reads inside the level.
+__device__ __forceinline__ float3 fetch_bilinear(const float4* level, int h, int w, int page, float u, float v) {
+  const float fx = __fmul_rn(u - floorf(u), static_cast<float>(w - 1));
+  const float fy = __fmul_rn(v - floorf(v), static_cast<float>(h - 1));
+  const float x0f = floorf(fx), y0f = floorf(fy);
+  const int x0 = min(max(static_cast<int>(x0f), 0), w - 1);
+  const int y0 = min(max(static_cast<int>(y0f), 0), h - 1);
+  const int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
+  const float ax = fx - x0f, ay = fy - y0f;
+  const float bx = 1.0f - ax, by = 1.0f - ay;
+  const float4* r0 = level + (page * h + y0) * w;
+  const float4* r1 = level + (page * h + y1) * w;
+  const float4 c00 = __ldg(r0 + x0), c10 = __ldg(r0 + x1), c01 = __ldg(r1 + x0), c11 = __ldg(r1 + x1);
+  auto lerp = [](float a, float wa, float b, float wb) { return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb)); };
+  const float3 top = make_float3(lerp(c00.x, bx, c10.x, ax), lerp(c00.y, bx, c10.y, ax), lerp(c00.z, bx, c10.z, ax));
+  const float3 bot = make_float3(lerp(c01.x, bx, c11.x, ax), lerp(c01.y, bx, c11.y, ax), lerp(c01.z, bx, c11.z, ax));
+  return make_float3(lerp(top.x, by, bot.x, ay), lerp(top.y, by, bot.y, ay), lerp(top.z, by, bot.z, ay));
+}
+
+// The surface record of a kernel built with or without textures.  Textured,
+// a material with an albedo map (page >= 0, clipped to K - 1) takes its albedo
+// from the bounce level at a hit after a scatter (`bounce`), else from the
+// primary level, at the hit's UV w * uv0 + u * uv1 + v * uv2 (ops/hit.py's
+// interpolation, with the hit's own barycentrics; render/integrators.py::
+// fetch_albedo).  Untextured it is surface() itself.
+template <bool kTextured>
+__device__ __forceinline__ Surf tex_surface(const Geo& g, const Mats& m, const Tex& tex, const Hit& h, float3 o,
+                                            float3 d, bool bounce) {
+  Surf s = surface(g, m, h, o, d);
+  if constexpr (kTextured) {
+    const int page = __ldg(m.albedo_map + s.mat);
+    if (page >= 0) {
+      const int a = __ldg(g.tri_v + 3 * h.tri), b = __ldg(g.tri_v + 3 * h.tri + 1), c = __ldg(g.tri_v + 3 * h.tri + 2);
+      const float w = 1.0f - h.u - h.v;
+      auto interp = [&](int k) {
+        return __fadd_rn(__fadd_rn(__fmul_rn(__ldg(g.uvs + 2 * a + k), w), __fmul_rn(__ldg(g.uvs + 2 * b + k), h.u)),
+                         __fmul_rn(__ldg(g.uvs + 2 * c + k), h.v));
+      };
+      const float u = interp(0), v = interp(1);
+      const int p = min(page, tex.k - 1);
+      s.alb = bounce ? fetch_bilinear(tex.bounce, tex.hb, tex.wb, p, u, v)
+                     : fetch_bilinear(tex.prim, tex.hp, tex.wp, p, u, v);
+    }
+  }
+  return s;
+}
 
 }  // namespace fyp

@@ -263,11 +263,63 @@ def stack_depth(wide: WideBVH) -> int:
     return max(wide.stack_need, 1)
 
 
+_OVERFLOW_MSG = ("a wide-BVH walk overflowed its stack (Scene.wide.overflow): the tree needs more than its "
+                 "stack_need, and the hits of that call are wrong")
+
+
 def check_overflow(scene) -> None:
     """Raise if a CUDA walk over the scene's wide BVH ever dropped a stack
     entry (the kernels' flag; reading it waits for the card)."""
-    if int(scene.wide.overflow.item()) != 0:
-        raise RuntimeError("a wide-BVH walk overflowed its stack")
+    if scene.wide is not None and int(scene.wide.overflow.item()) != 0:
+        raise RuntimeError(_OVERFLOW_MSG)
+
+
+class OverflowWatch:
+    """An entry point's read of ``Scene.wide.overflow``, the flag a CUDA
+    walk sets when it drops a stack entry, without a host wait.
+
+    At the end of each call ``queue()`` puts a copy of the flag into pinned
+    host memory on the stream, behind the call's launches, and records an
+    event; at the start of the next call ``poll()`` raises if that copy
+    has landed (the event has completed: a query, never a wait) and shows
+    the flag set.  The flag is never cleared, so a copy that has not landed
+    yet is read by a later call.  ``check()`` waits for the card and reads
+    the flag itself, for a caller that reads the image on the host anyway.
+    On CPU tensors the flag is read directly: the plain walks never set it.
+    """
+
+    def __init__(self, scene):
+        self.flag = None if scene.wide is None else scene.wide.overflow
+        self.cuda = self.flag is not None and self.flag.device.type == "cuda"
+        self.host = torch.zeros(1, dtype=torch.int32).pin_memory() if self.cuda else None
+        self.event = None
+
+    def poll(self) -> None:
+        """Raise if a copy queued by an earlier call has landed and is set."""
+        if self.flag is None:
+            return
+        if not self.cuda:
+            if int(self.flag[0]) != 0:
+                raise RuntimeError(_OVERFLOW_MSG)
+            return
+        if self.event is not None and self.event.query():
+            self.event = None
+            if int(self.host[0]) != 0:
+                raise RuntimeError(_OVERFLOW_MSG)
+
+    def queue(self) -> None:
+        """Copy the flag to the host behind the launches queued so far
+        (nothing to copy on the CPU: ``poll`` reads the flag)."""
+        if not self.cuda:
+            return
+        self.host.copy_(self.flag, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def check(self) -> None:
+        """Wait for the card and raise if the flag is set."""
+        if self.flag is not None and int(self.flag.item()) != 0:
+            raise RuntimeError(_OVERFLOW_MSG)
 
 
 def _rays(name, origins, directions, t_max):

@@ -6,8 +6,12 @@ integrators (NEE by default, or a hemisphere sampler), where every trace is
 the kernel ``csrc/trace.cu`` on a CUDA device.  Discrete choices (hit
 triangles, light picks, lobe choices) carry no gradient, as in the JAX
 package; radiance differentiates with respect to the material table's float
-fields.  The pixel mesh and the gradient all-reduce wait for the multi-GPU
-slice.
+fields.  On a textured scene the integrators fetch the albedo maps, as the
+JAX step does; the texels are no parameters of the step (the JAX step
+optimises the material table only), though the fetch is differentiable
+(``ops/texture.py``).  Each step reads the walks' stack-overflow flag
+without waiting (``ops.traverse.OverflowWatch``).  The pixel mesh and the
+gradient all-reduce wait for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import dataclasses
 import torch
 
 from fypraytracer_tpu_torch.core.camera import generate_rays
-from fypraytracer_tpu_torch.ops.traverse import pick_tracer
+from fypraytracer_tpu_torch.ops.texture import check_scene_tex
+from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, pick_tracer
 from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere, radiance_nee_mis
 from fypraytracer_tpu_torch.scene.types import FLOAT_MATERIAL_FIELDS, MaterialTable, Scene, with_materials
 
@@ -48,9 +53,11 @@ def make_train_step(scene: Scene, width: int, height: int, settings, lr: float =
     """
     device = torch.device(device)
     scene = scene.to(device)
+    check_scene_tex(scene)
     n_pix = width * height
     pixel_ids = torch.arange(n_pix, device=device)
     trace = pick_tracer(scene)
+    overflow = OverflowWatch(scene)
 
     def loss_of(params: MaterialTable, inv_proj, inv_view, frame, target):
         sc = with_materials(scene, params)
@@ -71,11 +78,13 @@ def make_train_step(scene: Scene, width: int, height: int, settings, lr: float =
 
     if optimizer is None:
         def step(params, inv_proj, inv_view, frame, target):
+            overflow.poll()
             p = leaves(params)
             loss = loss_of(table(params, p), inv_proj, inv_view, frame, target)
             grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
             with torch.no_grad():
                 new = {f: v if g is None else v - lr * g for (f, v), g in zip(p.items(), grads)}
+            overflow.queue()
             return table(params, {f: v.detach() for f, v in new.items()}), loss.detach()
 
         return step
@@ -85,6 +94,7 @@ def make_train_step(scene: Scene, width: int, height: int, settings, lr: float =
         return dict(leaves=p, optimizer=optimizer(list(p.values())))
 
     def step_opt(params, opt_state, inv_proj, inv_view, frame, target):
+        overflow.poll()
         p, opt = opt_state["leaves"], opt_state["optimizer"]
         with torch.no_grad():                      # the step starts from the given parameters
             for f, v in p.items():
@@ -93,6 +103,7 @@ def make_train_step(scene: Scene, width: int, height: int, settings, lr: float =
         loss = loss_of(table(params, p), inv_proj, inv_view, frame, target)
         loss.backward()
         opt.step()
+        overflow.queue()
         return table(params, {f: v.detach().clone() for f, v in p.items()}), opt_state, loss.detach()
 
     return step_opt, init_opt_state

@@ -5,8 +5,10 @@ The torch counterpart of ``fypraytracer_tpu/render/integrators.py``:
 Renderer.cu:565-1284), ``radiance_light_source`` (Renderer.cu:1287-1408)
 and ``radiance_nee_mis`` (Renderer.cu:1411-1626), with their helpers.
 Divergent CUDA ``break``s are per-lane ``active`` masks; the bounce and
-sample loops are Python loops over whole ray batches.  Textured albedo is
-not ported: ``fetch_albedo`` reads the flat albedo.
+sample loops are Python loops over whole ray batches.  ``fetch_albedo``
+reads a material's albedo map through ``ops/texture.py::sample_bilinear``
+at the hit's UV, from mip 0 at the primary hit and from the prefiltered
+bounce level at later hits (the TextureAtlas policy).
 
 Kept exactly as the JAX package has them (see its docstring for why):
 the next-ray origin offset ``ORIGIN_EPS`` (a no-op in float32 at |p| ≈ 1;
@@ -35,6 +37,7 @@ from fypraytracer_tpu_torch.core.mathutils import (
 )
 from fypraytracer_tpu_torch.ops.hit import hit_payload
 from fypraytracer_tpu_torch.ops.lighttree import emitter_pmf, pick_light
+from fypraytracer_tpu_torch.ops.texture import sample_bilinear
 from fypraytracer_tpu_torch.scene.types import Scene
 
 ORIGIN_EPS = 1e-12  # Renderer.cu:636 — kept for parity
@@ -47,21 +50,33 @@ def material_emission(scene: Scene, mat_id):
     return torch.where((mat_id >= 0)[..., None], em, 0.0)
 
 
-def fetch_albedo(scene: Scene, mat_id):
-    """Flat albedo (Renderer.cu:609-621).  Textured materials are refused
-    by the renderers until textures are ported."""
-    return scene.materials.albedo[torch.clamp_min(mat_id, 0).long()]
+def fetch_albedo(scene: Scene, mat_id, uv, bounce: bool = False):
+    """Flat albedo or bilinear texture fetch (Renderer.cu:609-621).
+
+    ``bounce=True`` reads the prefiltered bounce mip level, the sampling
+    policy (scene/types.py::TextureAtlas) every render path follows.  A
+    scene without kernel levels (``Scene.tex`` None: no material maps an
+    albedo) reads the flat albedo alone, which is what the fetch would
+    select on every lane."""
+    m = torch.clamp_min(mat_id, 0).long()
+    flat = scene.materials.albedo[m]
+    if scene.tex is None:
+        return flat
+    tex_id = scene.materials.albedo_map[m]
+    textured = sample_bilinear(scene.textures, tex_id, uv[..., 0], uv[..., 1], bounce=bounce)
+    return torch.where((tex_id >= 0)[..., None], textured, flat)
 
 
-def _scatter(scene: Scene, pay, view, key, sampler: str):
+def _scatter(scene: Scene, pay, view, key, sampler: str, bounce: bool = False):
     """Draw one scatter direction at a hit; returns (key, L, pdf, albedo,
     roughness, metallic).  Uniform, cosine and GGX take two uniforms, the
-    BRDF mixture three (u_sel first)."""
+    BRDF mixture three (u_sel first); ``bounce`` selects the texture mip
+    per the TextureAtlas policy."""
     normal = pay["normal"]
     m = torch.clamp_min(pay["mat"], 0).long()
     rough = scene.materials.roughness[m]
     metal = scene.materials.metallic[m]
-    albedo = fetch_albedo(scene, pay["mat"])
+    albedo = fetch_albedo(scene, pay["mat"], pay["uv"], bounce=bounce)
 
     if sampler == "uniform":
         key, (u1, u2) = rng.uniforms(key, 2)
@@ -93,7 +108,7 @@ def sampler_pdf(scene: Scene, pay, view, l, sampler: str):
     if sampler == "cosine":
         return cosine_hemisphere_pdf(cos_t)
     if sampler == "brdf":
-        return brdf_hemisphere_pdf(normal, view, l, fetch_albedo(scene, pay["mat"]),
+        return brdf_hemisphere_pdf(normal, view, l, fetch_albedo(scene, pay["mat"], pay["uv"]),
                                    scene.materials.metallic[m], scene.materials.roughness[m])
     raise ValueError(f"unknown sampler {sampler!r}")
 
@@ -153,7 +168,7 @@ def radiance_hemisphere(scene: Scene, trace_fn, origins, directions, pixel_ids,
             active = active & ~is_emissive
 
             view = -ray_d
-            key, l, pdf, albedo, rough, metal = _scatter(scene, pay, view, key, eff_sampler)
+            key, l, pdf, albedo, rough, metal = _scatter(scene, pay, view, key, eff_sampler, bounce=True)
             brdf = cook_torrance_brdf(pay["normal"], view, l, albedo, metal, rough)
             cos_t = torch.clamp_min(dot3(l, pay["normal"]), 0.0)
             ok = pdf > 0.0
@@ -201,7 +216,7 @@ def radiance_light_source(scene: Scene, trace_fn, origins, directions, pixel_ids
     prim, prim_miss, prim_emission, prim_emissive = _primary(scene, trace_fn, origins, directions)
     path_lanes = ~(prim_miss | prim_emissive)
 
-    albedo = fetch_albedo(scene, prim["mat"])
+    albedo = fetch_albedo(scene, prim["mat"], prim["uv"])
     m = torch.clamp_min(prim["mat"], 0).long()
     rough = scene.materials.roughness[m]
     metal = scene.materials.metallic[m]
@@ -274,7 +289,7 @@ def radiance_nee_mis(scene: Scene, trace_fn, origins, directions, pixel_ids,
             mclamp = torch.clamp_min(pay["mat"], 0).long()
             rough = mats.roughness[mclamp]
             metal = mats.metallic[mclamp]
-            albedo = fetch_albedo(scene, pay["mat"])
+            albedo = fetch_albedo(scene, pay["mat"], pay["uv"], bounce=_b > 0)
 
             # ---- direct light sample -------------------------------------
             key, (u_pick, u1, u2) = rng.uniforms(key, 3)

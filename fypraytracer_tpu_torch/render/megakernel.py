@@ -10,7 +10,11 @@ the primary hit and run every lanes-th frame's paths, every ray walking
 the scene's wide BVH (``Scene.wide``) alone, and add their sums.
 ``megakernel_threaded`` launches the NEE kernel with the threaded walk
 instead, one thread a pixel (K2's design before the wide BVH), kept to be
-timed beside it.
+timed beside it; it is built untextured, and a textured scene raises.
+Every sampler is also built textured: a scene whose materials map an
+albedo launches that instantiation with the scene's kernel levels
+(``Scene.tex``: mip 0 box-filtered to at most 256², and the bounce level),
+which the scene builders make with the scene.
 
 ``megakernel_plain`` is its plain PyTorch version: the sum of ``n_frames``
 frames of the matching wavefront integrator (``renderer.frame_hdr``) with
@@ -39,8 +43,9 @@ from fypraytracer_tpu_torch.accel.wide import build_wide
 from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.traverse import stack_depth, trace_rays, wide_records
-from fypraytracer_tpu_torch.render.renderer import check_supported, frame_hdr
+from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_kernel_atlas
+from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, stack_depth, trace_rays, wide_records
+from fypraytracer_tpu_torch.render.renderer import frame_hdr
 from fypraytracer_tpu_torch.scene.types import Scene
 
 # megakernel.py:2566; the int is csrc/megakernel.cu's Sampler
@@ -112,8 +117,10 @@ def megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
                      settings: RenderSettings) -> torch.Tensor:
     """(H*W, 3) HDR summed over frames ``frame0 .. frame0+n_frames-1``:
     the wavefront frame of ``settings.technique`` with the plain BVH walk,
-    in PyTorch."""
+    in PyTorch, reading the kernel's texture levels (``with_kernel_atlas``;
+    where every texture is at most 256 a side they are the wavefront's)."""
     _sampler(settings)
+    scene = with_kernel_atlas(scene)
 
     def trace(o, d):
         return trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
@@ -128,8 +135,9 @@ def megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
 _ARGTYPES = (
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
-    + [ctypes.c_void_p] * 4          # geometry
-    + [ctypes.c_void_p] * 4          # materials
+    + [ctypes.c_void_p] * 5          # geometry
+    + [ctypes.c_void_p] * 5          # materials
+    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5         # texture
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2            # bvh
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]                # wide bvh
     + [ctypes.c_void_p] * 13 + [ctypes.c_int]               # light tree
@@ -141,7 +149,8 @@ def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
     """(H*W, 3) HDR summed over ``n_frames`` frames of ``settings.technique``
     starting at ``frame0``, through the CUDA kernel ``csrc/megakernel.cu``
     with ``lanes`` threads a pixel (1, 2 or 4; by default ``k2_lanes``)
-    (plain version for CPU tensors)."""
+    (plain version for CPU tensors).  A textured scene launches the
+    textured instantiation with the levels of ``Scene.tex``."""
     sampler = _sampler(settings)
     if scene.geometry.positions.device.type == "cpu":
         return megakernel_plain(scene, camera, frame0, n_frames, settings)
@@ -149,7 +158,8 @@ def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
         lanes = k2_lanes(n_frames)
     if lanes not in (1, 2, 4):
         raise ValueError(f"megakernel: lanes must be 1, 2 or 4, got {lanes}")
-    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, "megakernel")
+    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, "megakernel",
+                  scene.tex)
     megakernel.launches += 1
     return out
 
@@ -160,12 +170,16 @@ megakernel.launches = 0
 def megakernel_threaded(scene: Scene, camera: Camera, frame0: int, n_frames: int,
                         settings: RenderSettings) -> torch.Tensor:
     """``megakernel`` under NEE through the threaded walk, one thread a pixel
-    (plain version for CPU tensors)."""
+    (plain version for CPU tensors).  Built untextured: a textured scene
+    raises."""
     if _sampler(settings) != "nee":
         raise NotImplementedError("the threaded walk is built for NEE only")
     if scene.geometry.positions.device.type == "cpu":
         return megakernel_plain(scene, camera, frame0, n_frames, settings)
-    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID["nee"], THREADED, "megakernel_threaded")
+    if scene.tex is not None:
+        raise NotImplementedError("the threaded walk is built untextured; megakernel renders textured scenes")
+    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID["nee"], THREADED, "megakernel_threaded",
+                  None)
     megakernel_threaded.launches += 1
     return out
 
@@ -173,10 +187,10 @@ def megakernel_threaded(scene: Scene, camera: Camera, frame0: int, n_frames: int
 megakernel_threaded.launches = 0
 
 
-def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name):
+def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name, tex):
     """Check the inputs, allocate the output and launch ``fyp_megakernel``
     with ``lanes`` threads a pixel (``THREADED``: the threaded walk) on the
-    current stream."""
+    current stream; textured with the tables ``tex`` unless it is None."""
     g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
     wide = wide_records(scene)
     dev = g.positions.device
@@ -185,9 +199,10 @@ def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name):
     emission = m.emission().contiguous()
     kernels.check_inputs(
         name,
-        floats=(cam, g.positions, g.normals, m.albedo, m.roughness, m.metallic, emission,
-                b.lo, b.hi, wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi),
-        ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx, wide.overflow,
+        floats=(cam, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, emission,
+                b.lo, b.hi, wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi)
+        + (() if tex is None else (tex.prim, tex.bounce)),
+        ints=(g.tri_v, g.tri_mat, m.albedo_map, b.miss, b.first, b.prim_idx, wide.overflow,
               lt.left, lt.right, lt.tri, lt.parent, lt.leaf_of_tri))
     # brute force traces exactly 1 path a frame whatever the sample count
     # (megakernel.py:2603, Renderer.cu:565-701)
@@ -197,8 +212,8 @@ def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name):
     P = kernels.ptr
     rc = fn(sampler, lanes, P(cam), camera.width, camera.height, int(frame0) & 0xFFFFFFFF, n_frames,
             settings.bounces, samples, *(float(c) for c in settings.sky_color),
-            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
-            P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
+            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
+            P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
             P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size,
             P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
             P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
@@ -217,7 +232,6 @@ class MegakernelRenderer:
     """
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
-        check_supported(scene, settings)
         _sampler(settings)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
@@ -226,6 +240,8 @@ class MegakernelRenderer:
         self.frame_index = 1
         self.accum = torch.zeros((camera.height * camera.width, 3), dtype=torch.float32,
                                  device=self.device)
+        self.overflow = OverflowWatch(self.scene)
+        check_scene_tex(self.scene)
 
     def reset(self):
         self.frame_index = 1
@@ -234,8 +250,10 @@ class MegakernelRenderer:
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Add ``n_frames`` frames to the accumulator; return the running
         average HDR image (H, W, 3)."""
+        self.overflow.poll()
         self.accum += megakernel(self.scene, self.camera, self.frame_index, n_frames,
                                  self.settings)
+        self.overflow.queue()
         self.frame_index += n_frames
         h, w = self.camera.height, self.camera.width
         return (self.accum / float(self.frame_index - 1)).reshape(h, w, 3)

@@ -38,9 +38,9 @@ from fypraytracer_tpu_torch.core import rng
 from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
 from fypraytracer_tpu_torch.core.mathutils import INV_PI, cosine_sample_hemisphere, dot3
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.traverse import trace_rays
+from fypraytracer_tpu_torch.ops.texture import scene_is_textured
+from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, trace_rays
 from fypraytracer_tpu_torch.render.integrators import ORIGIN_EPS
-from fypraytracer_tpu_torch.render.renderer import check_supported
 from fypraytracer_tpu_torch.render.restir_common import camera_matrices, hit_surface
 from fypraytracer_tpu_torch.scene.types import Scene, with_materials
 
@@ -96,7 +96,10 @@ def diff_plain(scene: Scene, camera: Camera, albedo, target, frame: int, bounces
     _check_bounces(bounces)
     geo = scene.geometry
     dev = geo.positions.device
-    mats = dataclasses.replace(scene.materials, albedo=albedo.detach().to(torch.float32))
+    # the flat albedo of every material, as K8 reads it (the JAX kernel has
+    # no textured path)
+    mats = dataclasses.replace(scene.materials, albedo=albedo.detach().to(torch.float32),
+                               albedo_map=torch.full_like(torch.as_tensor(scene.materials.albedo_map), -1))
     sc = with_materials(scene, mats)
     sky = torch.as_tensor(sky, dtype=torch.float32, device=dev)
     B = camera.width * camera.height
@@ -242,7 +245,11 @@ class DiffRenderer:
     def __init__(self, scene: Scene, camera: Camera, bounces: int = 2,
                  sky_color=(0.05, 0.06, 0.08), device="cuda"):
         _check_bounces(bounces)
-        check_supported(scene, None)
+        if scene_is_textured(scene):
+            raise NotImplementedError(
+                "DiffRenderer does not train textured scenes: its kernel differentiates the flat albedo, "
+                "as the JAX kernel does (megakernel_diff.py has no textured path); make_train_step trains "
+                "through the textured wavefront")
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.camera = camera
@@ -251,16 +258,20 @@ class DiffRenderer:
         self.tri_mat = self.scene.geometry.tri_mat.long()
         self.n_mats = self.scene.materials.albedo.shape[0]
         self._cam = camera_matrices(camera, self.device) if self.device.type == "cuda" else None
+        self.overflow = OverflowWatch(self.scene)
 
     def loss_and_grad(self, albedo, target_hdr, frame: int):
         """``(loss, dL/d albedo (M, 3))`` of one frame: one kernel launch and
         the segment sum of the per-triangle gradient to materials."""
+        self.overflow.poll()
         albedo = torch.as_tensor(albedo, dtype=torch.float32, device=self.device)
         target = torch.as_tensor(target_hdr, dtype=torch.float32, device=self.device)
         loss, d_tri = diff_megakernel(self.scene, self.camera, albedo.contiguous(), target.contiguous(),
                                       frame, self.bounces, self.sky_color, cam=self._cam)
         d_mat = torch.zeros((self.n_mats, 3), dtype=torch.float32, device=self.device)
-        return loss, d_mat.index_add_(0, self.tri_mat, d_tri)
+        d_mat.index_add_(0, self.tri_mat, d_tri)
+        self.overflow.queue()
+        return loss, d_mat
 
     def step(self, albedo, target_hdr, frame: int, lr: float = 0.2):
         """One SGD step: ``(albedo - lr · grad, loss)``."""

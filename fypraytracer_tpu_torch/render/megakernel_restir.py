@@ -27,6 +27,11 @@ and ``ST_*`` constants (the same numbers as in ``csrc/restir_di.cu``).
 Tiles, reprojection, neighbour offsets and the launch helpers are
 ``render/restir_common.py``'s, shared with ReSTIR GI.
 
+A scene whose materials map an albedo launches K3's textured
+instantiation, which fetches the primary hit's albedo from the kernel's
+primary level (``Scene.tex``); K4 shades with the albedo K3
+staged.
+
 ``restir_di_k3_plain``/``restir_di_k4_plain`` are the kernels' plain
 PyTorch versions on whole images (the tile mean as ``(G, C)``
 reductions, neighbour reads as index arithmetic with the same clamp);
@@ -49,8 +54,8 @@ from fypraytracer_tpu_torch.core import rng
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.core.mathutils import cook_torrance_brdf, cross3, dot3, normalize
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.traverse import trace_rays
-from fypraytracer_tpu_torch.render.renderer import check_supported
+from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_kernel_atlas
+from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, trace_rays
 from fypraytracer_tpu_torch.render.restir_common import (
     bvh_args,
     camera_matrices,
@@ -148,7 +153,9 @@ def _p_hat(em: EmissiveTable, e, pos, n, view, alb, rough, metal):
 def restir_di_k3_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                        settings: RenderSettings, state: torch.Tensor, ppv) -> torch.Tensor:
     """K3 in PyTorch: the (S_ROWS, B) stage of frame ``frame`` from the
-    previous frame's ``state``, reprojecting through ``ppv``."""
+    previous frame's ``state``, reprojecting through ``ppv``; a textured
+    albedo is read from the kernel's primary level (``with_kernel_atlas``)."""
+    scene = with_kernel_atlas(scene)
     dev = state.device
     B = camera.width * camera.height
     o, d = camera_rays(camera, dev)
@@ -263,12 +270,13 @@ def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
 
 # ---- kernels -------------------------------------------------------------------
 
-_GEO = [ctypes.c_void_p] * 4
 _BVH = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
 _EM = [ctypes.c_void_p] * 8 + [ctypes.c_int]
 _K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                  ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
-                + _GEO + _GEO + _BVH + _EM + [ctypes.c_void_p] * 3)
+                + [ctypes.c_void_p] * 10                                        # geometry, materials
+                + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5    # texture
+                + _BVH + _EM + [ctypes.c_void_p] * 3)
 _K4_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int]
                 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2 + _BVH + _EM
@@ -281,22 +289,23 @@ def _em_args(em: EmissiveTable):
             P(em.centroid), P(em.tri), em.n)
 
 
-def _check(name, scene, em, tensors):
+def _check(name, scene, em, tensors, ints=()):
     g, m, b = scene.geometry, scene.materials, scene.bvh
     kernels.check_inputs(
         name,
         floats=(*tensors, g.positions, g.normals, m.albedo, m.roughness, m.metallic, b.lo, b.hi,
                 em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid),
-        ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx, em.tri))
+        ints=(*ints, g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx, em.tri))
 
 
 def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                  settings: RenderSettings, state: torch.Tensor, ppv, *,
                  cam: torch.Tensor | None = None) -> torch.Tensor:
     """The (S_ROWS, B) stage of frame ``frame`` through the CUDA kernel K3
-    (plain version for CPU tensors).  ``ppv`` may be an array or a tensor on
-    the card, ``cam`` the camera's ``camera_matrices`` on the card (made
-    from ``camera`` when None)."""
+    (plain version for CPU tensors), its textured instantiation for a
+    textured scene.  ``ppv`` may be an array or a tensor on the card, ``cam``
+    the camera's ``camera_matrices`` on the card (made from ``camera`` when
+    None)."""
     if state.device.type == "cpu":
         return restir_di_k3_plain(scene, em, camera, frame, settings, state, ppv)
     dev = state.device
@@ -305,24 +314,27 @@ def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
     pv = torch.as_tensor(ppv, dtype=torch.float32, device=dev)
     emission = scene.materials.emission().contiguous()
     stage = torch.empty((S_ROWS, B), dtype=torch.float32, device=dev)
-    _check("restir_di_k3", scene, em, (cam, pv, emission, state, stage))
+    tex = scene.tex
+    _check("restir_di_k3", scene, em, (cam, pv, emission, state, stage, scene.geometry.uvs)
+           + (() if tex is None else (tex.prim, tex.bounce)), ints=(scene.materials.albedo_map,))
     if state.shape != (ST_ROWS, B):
         raise ValueError(f"restir_di_k3: state must be ({ST_ROWS}, {B}), got {tuple(state.shape)}")
     _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage,
-               kernels.stream_ptr(dev))
+               kernels.stream_ptr(dev), tex)
     return stage
 
 
-def _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage, stream):
-    """Launch ``fyp_restir_di_k3`` on ``stream`` (inputs already checked)."""
+def _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage, stream, tex):
+    """Launch ``fyp_restir_di_k3`` on ``stream``, textured with the tables
+    ``tex`` unless it is None (inputs already checked)."""
     g, m = scene.geometry, scene.materials
     P = kernels.ptr
     fn = kernels.load("restir_di", "fyp_restir_di_k3", _K3_ARGTYPES)
     rc = fn(P(cam), P(pv), camera.width, camera.height, int(frame) & 0xFFFFFFFF,
             pick_ray_lanes(camera.width * camera.height), settings.light_candidates,
             float(settings.temporal_history_limit), int(settings.temporal_reuse),
-            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
-            P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
+            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
+            P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
             *bvh_args(scene.bvh), *_em_args(em), P(state), P(stage), stream)
     restir_di_k3.launches += 1
     kernels.check(rc, "restir_di_k3")
@@ -413,12 +425,13 @@ class MegakernelReSTIRDI:
     """
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
-        check_supported(scene, settings)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.camera = camera
         self.settings = settings
         self.emitters = prepare_emissive_table(self.scene)
+        self.overflow = OverflowWatch(self.scene)
+        check_scene_tex(self.scene)
         B = camera.width * camera.height
         pick_ray_lanes(B)
         self.frame_index = 1
@@ -433,9 +446,11 @@ class MegakernelReSTIRDI:
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Add ``n_frames`` frames to the accumulator; return the running
         average HDR image (H, W, 3)."""
+        self.overflow.poll()
         self.accum += restir_di_megakernel(
             self.scene, self.emitters, self.camera, self.state, self.frame_index, n_frames,
             self.settings, self.camera.prev_proj_view, self.camera.proj_view)
+        self.overflow.queue()
         self.frame_index += n_frames
         self.camera.commit_frame()
         h, w = self.camera.height, self.camera.width

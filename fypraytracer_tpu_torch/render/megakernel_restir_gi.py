@@ -35,6 +35,11 @@ JAX rows without its padding; ``from_tiled``/``to_tiled`` carry the JAX
 other blocks write this frame's, so its frame loop ping-pongs two pairs of
 buffers.
 
+A scene whose materials map an albedo launches K5's and K6's textured
+instantiations: the primary hit reads the kernel's primary level, the
+path's hits after a scatter the bounce level (``Scene.tex``);
+K7 shades with the albedo K6 staged.
+
 ``restir_gi_mono_plain``, ``restir_gi_k1_plain`` and ``restir_gi_k2_plain``
 are the kernels' plain PyTorch versions on whole images;
 ``restir_gi_megakernel_plain`` is the frame loop over them.  The wrappers
@@ -56,9 +61,9 @@ from fypraytracer_tpu_torch.core import rng
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.core.mathutils import brdf_sample_hemisphere, cook_torrance_brdf, dot3
 from fypraytracer_tpu_torch.ops import kernels
-from fypraytracer_tpu_torch.ops.traverse import segment_visible, trace_rays
+from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_kernel_atlas
+from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, segment_visible, trace_rays
 from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
-from fypraytracer_tpu_torch.render.renderer import check_supported
 from fypraytracer_tpu_torch.render.restir_common import (
     bvh_args,
     camera_matrices,
@@ -166,7 +171,10 @@ def _k1_part(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,
     """The first half of a GI frame on whole images (K6; K5 before its
     spatial reuse): the (GS_ROWS, B) stage and each pixel's key after its
     draws.  Pixels that do not shade keep an empty reservoir and no sky
-    term, and trace nothing beyond the primary ray."""
+    term, and trace nothing beyond the primary ray.  A textured albedo is
+    read from the kernel's levels (``with_kernel_atlas``): the primary
+    level at the primary hit, the bounce level after a scatter."""
+    scene = with_kernel_atlas(scene)
     dev = state.device
     B = camera.width * camera.height
     o, d = camera_rays(camera, dev)
@@ -183,7 +191,7 @@ def _k1_part(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,
     f0 = cook_torrance_brdf(n, view, d0, s0["alb"], s0["metal"], s0["rough"])
     cos0 = torch.clamp_min(dot3(d0, n, keepdims=False), 0.0)
     o1 = pos + n * _EPS
-    s1 = hit_surface(scene, o1, d0, _trace_where(scene, o1, d0, shade))
+    s1 = hit_surface(scene, o1, d0, _trace_where(scene, o1, d0, shade), bounce=True)
     hit1 = s1["hit"]
     reconnect = hit1 & (pdf0 > 0.0)
     fterm = cos0 / torch.clamp_min(pdf0, 1e-12)
@@ -204,7 +212,7 @@ def _k1_part(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,
         thr = thr * f * scale[:, None]
         active = active & (pdf > 0.0)
         no = cur["pos"] + cur["n"] * _EPS
-        nxt = hit_surface(scene, no, l, _trace_where(scene, no, l, active))
+        nxt = hit_surface(scene, no, l, _trace_where(scene, no, l, active), bounce=True)
         rad = rad + torch.where((active & ~nxt["hit"])[:, None], thr * sky, 0.0)
         active = active & nxt["hit"]
         em_hit = dot3(nxt["em"], nxt["em"], keepdims=False) > 0.0
@@ -364,16 +372,18 @@ _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctyp
               ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
               ctypes.c_float, ctypes.c_int]
              + [ctypes.c_float] * 3
-             + [ctypes.c_void_p] * 8                            # geometry, materials
+             + [ctypes.c_void_p] * 10                           # geometry, materials
+             + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5    # texture
              + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2       # bvh
              + [ctypes.c_void_p] * 6)                           # buffers, stream
 
 
-def _check(name, scene, camera, tensors, shapes):
+def _check(name, scene, camera, tensors, shapes, tex):
     g, m, b = scene.geometry, scene.materials, scene.bvh
     kernels.check_inputs(
-        name, floats=(*tensors, g.positions, g.normals, m.albedo, m.roughness, m.metallic, b.lo, b.hi),
-        ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx))
+        name, floats=(*tensors, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, b.lo, b.hi)
+        + (() if tex is None else (tex.prim, tex.bounce)),
+        ints=(g.tri_v, g.tri_mat, m.albedo_map, b.miss, b.first, b.prim_idx))
     B = camera.width * camera.height
     for t, rows in zip(tensors, shapes):
         want = (B, 3) if rows == 3 else (rows, B)
@@ -382,11 +392,13 @@ def _check(name, scene, camera, tensors, shapes):
 
 
 def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, stage_in,
-            state_out, stage_out, accum, stream):
+            state_out, stage_out, accum, stream, tex):
     """Launch one kernel of ``fyp_restir_gi`` on ``stream`` (inputs already
     checked); buffers a kernel does not use may be None.  ``cam``: the
     camera's ``camera_matrices`` on the card, or None to make them here;
-    ``ppv``: an array or a tensor on the card, None for K7."""
+    ``ppv``: an array or a tensor on the card, None for K7.  K5 and K6 run
+    their textured instantiation with the tables ``tex`` unless it is None;
+    K7 reads the staged albedo and takes None."""
     g, m = scene.geometry, scene.materials
     dev = g.positions.device
     P = kernels.ptr
@@ -404,9 +416,9 @@ def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, 
             settings.spatial_neighbors if settings.spatial_reuse else 0,
             float(settings.spatial_radius), float(settings.temporal_history_limit),
             int(settings.temporal_reuse), *(float(c) for c in settings.sky_color),
-            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat),
-            P(m.albedo), P(m.roughness), P(m.metallic), P(emission),
-            *bvh_args(scene.bvh), opt(state_in), opt(stage_in), opt(state_out), opt(stage_out),
+            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
+            P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map),
+            *tex_args(tex), *bvh_args(scene.bvh), opt(state_in), opt(stage_in), opt(state_out), opt(stage_out),
             opt(accum), stream)
     wrapper.launches += 1
     kernels.check(rc, wrapper.__name__)
@@ -420,17 +432,19 @@ def restir_gi_mono(scene: Scene, camera: Camera, frame: int, settings: RenderSet
     tensors): reads ``state_prev``/``stage_prev``, adds the HDR to ``accum``,
     writes ``state``/``stage``, which must be other buffers.  ``ppv`` may be
     an array or a tensor on the card, ``cam`` the camera's
-    ``camera_matrices`` on the card (made from ``camera`` when None)."""
+    ``camera_matrices`` on the card (made from ``camera`` when None).  A
+    textured scene runs K5's textured instantiation with ``Scene.tex``."""
     if accum.device.type == "cpu":
         return restir_gi_mono_plain(scene, camera, frame, settings, state_prev, stage_prev, ppv,
                                     accum, state, stage, final_vis)
+    tex = scene.tex
     _check("restir_gi_mono", scene, camera, (state_prev, stage_prev, accum, state, stage),
-           (GT_ROWS, GS_ROWS, 3, GT_ROWS, GS_ROWS))
+           (GT_ROWS, GS_ROWS, 3, GT_ROWS, GS_ROWS), tex)
     if state.data_ptr() == state_prev.data_ptr() or stage.data_ptr() == stage_prev.data_ptr():
         raise ValueError("restir_gi_mono: the frame's state and stage need buffers of their own "
                          "(other blocks still read the previous ones)")
     _launch(_K5_FINAL_VIS if final_vis else _K5, restir_gi_mono, scene, camera, frame, settings, cam,
-            ppv, state_prev, stage_prev, state, stage, accum, kernels.stream_ptr(accum.device))
+            ppv, state_prev, stage_prev, state, stage, accum, kernels.stream_ptr(accum.device), tex)
 
 
 def restir_gi_k1(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,
@@ -444,9 +458,10 @@ def restir_gi_k1(scene: Scene, camera: Camera, frame: int, settings: RenderSetti
     if stage is None:
         stage = torch.empty((GS_ROWS, camera.width * camera.height), dtype=torch.float32,
                             device=state.device)
-    _check("restir_gi_k1", scene, camera, (state, stage), (GT_ROWS, GS_ROWS))
+    tex = scene.tex
+    _check("restir_gi_k1", scene, camera, (state, stage), (GT_ROWS, GS_ROWS), tex)
     _launch(_K6, restir_gi_k1, scene, camera, frame, settings, cam, ppv, state, None, None, stage, None,
-            kernels.stream_ptr(state.device))
+            kernels.stream_ptr(state.device), tex)
     return stage
 
 
@@ -458,9 +473,9 @@ def restir_gi_k2(scene: Scene, camera: Camera, frame: int, settings: RenderSetti
     writes ``state`` in place.  ``cam`` as for ``restir_gi_mono``."""
     if stage.device.type == "cpu":
         return restir_gi_k2_plain(scene, camera, frame, settings, stage, state, accum)
-    _check("restir_gi_k2", scene, camera, (stage, state, accum), (GS_ROWS, GT_ROWS, 3))
+    _check("restir_gi_k2", scene, camera, (stage, state, accum), (GS_ROWS, GT_ROWS, 3), None)
     _launch(_K7, restir_gi_k2, scene, camera, frame, settings, cam, None, None, stage, state, None,
-            accum, kernels.stream_ptr(stage.device))
+            accum, kernels.stream_ptr(stage.device), None)
 
 
 restir_gi_mono.launches = 0
@@ -538,7 +553,6 @@ class MegakernelReSTIRGI:
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda",
                  mono: bool = True, final_vis: bool = False):
-        check_supported(scene, settings)
         if final_vis and not mono:
             raise ValueError("final_vis is a mode of the mono kernel; mono=False traces per neighbour")
         self.device = torch.device(device)
@@ -553,6 +567,8 @@ class MegakernelReSTIRGI:
         self.state = torch.zeros((GT_ROWS, B), dtype=torch.float32, device=self.device)
         self.stage = torch.zeros((GS_ROWS, B), dtype=torch.float32, device=self.device)
         self.accum = torch.zeros((B, 3), dtype=torch.float32, device=self.device)
+        self.overflow = OverflowWatch(self.scene)
+        check_scene_tex(self.scene)
 
     def reset(self):
         self.frame_index = 1
@@ -563,11 +579,13 @@ class MegakernelReSTIRGI:
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Add ``n_frames`` frames to the accumulator; return the running
         average HDR image (H, W, 3)."""
+        self.overflow.poll()
         hdr, self.state, self.stage = restir_gi_megakernel(
             self.scene, self.camera, self.state, self.stage, self.frame_index, n_frames,
             self.settings, self.camera.prev_proj_view, self.camera.proj_view, self.mono,
             self.final_vis)
         self.accum += hdr
+        self.overflow.queue()
         self.frame_index += n_frames
         self.camera.commit_frame()
         h, w = self.camera.height, self.camera.width

@@ -7,7 +7,9 @@ matrices, and the accumulation buffer stays on the device, updated in
 place.  A frame of techniques 0-6 is one integrator over all pixels
 (``frame_hdr``); ReSTIR DI and GI are stateful: their reservoirs and
 G-buffer stay on the device between frames (``render_step_stateful``).  On a CUDA device
-every trace is the kernel ``csrc/trace.cu`` (``ops.traverse.pick_tracer``).
+every trace is the kernel ``csrc/trace.cu`` (``ops.traverse.pick_tracer``), and
+each call reads the walks' stack-overflow flag without waiting
+(``ops.traverse.OverflowWatch``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
 from fypraytracer_tpu_torch.core.color import finalize_pixels, pack_abgr
-from fypraytracer_tpu_torch.ops.traverse import pick_tracer
+from fypraytracer_tpu_torch.ops.texture import check_scene_tex
+from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, pick_tracer
 from fypraytracer_tpu_torch.render import restir_di, restir_gi
 from fypraytracer_tpu_torch.render.integrators import (
     radiance_hemisphere,
@@ -34,13 +37,6 @@ _SAMPLER_OF = {
     SamplingTechnique.GGX: "ggx",
     SamplingTechnique.BRDF: "brdf",
 }
-
-
-def check_supported(scene: Scene, settings: RenderSettings) -> None:
-    """Refuse what the port does not render yet: textured materials."""
-    albedo_map = torch.as_tensor(scene.materials.albedo_map)
-    if bool((albedo_map >= 0).any()):
-        raise NotImplementedError("textured materials (albedo_map >= 0) are not ported yet")
 
 
 def frame_hdr(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,
@@ -93,7 +89,6 @@ class Renderer:
     """
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
-        check_supported(scene, settings)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.camera = camera
@@ -102,6 +97,8 @@ class Renderer:
         self.accum = torch.zeros((camera.height, camera.width, 3), dtype=torch.float32,
                                  device=self.device)
         self.aux_state = self._init_aux_state()
+        self.overflow = OverflowWatch(self.scene)
+        check_scene_tex(self.scene)
 
     def _is_stateful(self) -> bool:
         return self.settings.technique in (SamplingTechnique.RESTIR_DI, SamplingTechnique.RESTIR_GI)
@@ -137,6 +134,7 @@ class Renderer:
 
     def render_hdr(self) -> torch.Tensor:
         """Render one frame; returns the running-average HDR image."""
+        self.overflow.poll()
         hdr = self._frame(self.frame_index, self.camera.prev_proj_view)
         if self.settings.accumulate:
             self.accum += hdr
@@ -147,20 +145,26 @@ class Renderer:
             avg = self.accum.clone()
             self.frame_index = 1
         self.camera.commit_frame()
+        self.overflow.queue()
         return avg
 
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Accumulate ``n_frames`` frames and return the running-average
         HDR image (the offline-rendering path)."""
         assert self.settings.accumulate, "render_many requires accumulation"
+        self.overflow.poll()
         ppv = self.camera.prev_proj_view      # every frame of the call, as the JAX renderer
         for i in range(n_frames):
             self.accum += self._frame(self.frame_index + i, ppv)
         self.frame_index += n_frames
         self.camera.commit_frame()
+        self.overflow.queue()
         return self.accum / float(self.frame_index - 1)
 
     def render_frame(self) -> np.ndarray:
-        """Render + tonemap + pack: host uint32 ABGR (H, W)."""
+        """Render + tonemap + pack: host uint32 ABGR (H, W).  The image is
+        read on the host, so the overflow flag is read there too."""
         rgb = finalize_pixels(self.render_hdr(), 1.0)
-        return pack_abgr(rgb).cpu().numpy().astype(np.uint32)
+        img = pack_abgr(rgb).cpu().numpy().astype(np.uint32)
+        self.overflow.check()
+        return img

@@ -19,6 +19,7 @@ from fypraytracer_tpu_torch.core import rng
 from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
 from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.hit import hit_payload
+from fypraytracer_tpu_torch.render.integrators import fetch_albedo
 from fypraytracer_tpu_torch.scene.types import Scene
 
 
@@ -81,11 +82,12 @@ def tile_history_index(camera: Camera, ppv, pos, shade):
     return (sc[:, None] + torch.arange(C, device=dev)[None, :]).reshape(B), prev_pix
 
 
-def hit_surface(scene: Scene, origins, directions, tri):
+def hit_surface(scene: Scene, origins, directions, tri, bounce: bool = False):
     """The frame kernels' surface record (``csrc/shading.cuh::surface``) of
     rays hitting triangles ``tri`` (-1: miss): ``hit``, ``t`` (-1 on a miss),
     ``pos``, ``n``, ``alb``, ``rough``, ``metal`` and ``em`` (emission), zero
-    where a ray missed, as the kernels' zeroed record."""
+    where a ray missed, as the kernels' zeroed record.  A textured albedo is
+    fetched from the primary level, or the bounce level where ``bounce``."""
     pay = hit_payload(scene.geometry, origins, directions, tri)
     hit = tri >= 0
     mat = torch.clamp_min(pay["mat"], 0).long()
@@ -95,7 +97,7 @@ def hit_surface(scene: Scene, origins, directions, tri):
         return torch.where(hit if x.dim() == 1 else hit[:, None], x, 0.0)
 
     return dict(hit=hit, t=pay["t"], pos=on_hit(pay["position"]), n=on_hit(pay["normal"]),
-                alb=on_hit(mats.albedo[mat]), rough=on_hit(mats.roughness[mat]),
+                alb=on_hit(fetch_albedo(scene, pay["mat"], pay["uv"], bounce=bounce)), rough=on_hit(mats.roughness[mat]),
                 metal=on_hit(mats.metallic[mat]), em=on_hit(mats.emission()[mat]))
 
 

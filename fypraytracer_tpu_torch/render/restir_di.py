@@ -122,7 +122,7 @@ def _prim_setup(scene: Scene, directions, prim):
     prim_emissive = dot3(prim_emission, prim_emission, keepdims=False) > 0.0
     m = torch.clamp_min(prim["mat"], 0).long()
     return dict(miss=prim_miss, emission=prim_emission, emissive=prim_emissive,
-                shade=~(prim_miss | prim_emissive), albedo=fetch_albedo(scene, prim["mat"]),
+                shade=~(prim_miss | prim_emissive), albedo=fetch_albedo(scene, prim["mat"], prim["uv"]),
                 rough=scene.materials.roughness[m], metal=scene.materials.metallic[m],
                 view=-directions)
 
@@ -176,7 +176,7 @@ def restir_di_part1(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
         res = {k: torch.where(valid, tmp[k], res[k]) for k in res}
 
     return dict(res, t=prim["t"], mat=prim["mat"], position=prim["position"],
-                normal=prim["normal"])
+                normal=prim["normal"], uv=prim["uv"])
 
 
 def restir_di_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, frame, settings,
@@ -184,7 +184,7 @@ def restir_di_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
     """Stage 2: spatial reuse and the final shade (PerPixel_ReSTIR_DI_Part2,
     Renderer.cu:1875-2041).  ``g`` holds stage 1's full-image arrays."""
     num_emissive = max(scene.emissive_tris.shape[0], 1)
-    prim = dict(t=g["t"], mat=g["mat"], position=g["position"], normal=g["normal"])
+    prim = dict(t=g["t"], mat=g["mat"], position=g["position"], normal=g["normal"], uv=g["uv"])
     ctx = _prim_setup(scene, directions, prim)
     res = {k: g[k] for k in _RES_KEYS}
 

@@ -108,7 +108,7 @@ def _trace_sample_path(scene: Scene, trace_fn, prim, view, key, settings):
     sky = torch.as_tensor(settings.sky_color, dtype=view.dtype, device=view.device)
     mats = scene.materials
     m0 = torch.clamp_min(prim["mat"], 0).long()
-    albedo0 = fetch_albedo(scene, prim["mat"])
+    albedo0 = fetch_albedo(scene, prim["mat"], prim["uv"])
 
     key, (u_sel, u1, u2) = rng.uniforms(key, 3)
     dir0, pdf0 = brdf_sample_hemisphere(prim["normal"], view, albedo0, mats.metallic[m0],
@@ -141,7 +141,7 @@ def _trace_sample_path(scene: Scene, trace_fn, prim, view, key, settings):
     for _ in range(max(settings.bounces - 1, 0)):
         view_b = -ray_d
         mb = torch.clamp_min(pay["mat"], 0).long()
-        albedo_b = fetch_albedo(scene, pay["mat"])
+        albedo_b = fetch_albedo(scene, pay["mat"], pay["uv"], bounce=True)
         key, (s1, s2, s3) = rng.uniforms(key, 3)
         l, pdf = brdf_sample_hemisphere(pay["normal"], view_b, albedo_b, mats.metallic[mb],
                                         mats.roughness[mb], s1, s2, s3)
@@ -176,7 +176,7 @@ def _shade(scene: Scene, prim, view, res, shade_lanes):
     dist = torch.sqrt(torch.clamp_min(dot3(to_s, to_s, keepdims=False), 1e-20))
     d = to_s / dist[:, None]
     m0 = torch.clamp_min(prim["mat"], 0).long()
-    f = cook_torrance_brdf(prim["normal"], view, d, fetch_albedo(scene, prim["mat"]),
+    f = cook_torrance_brdf(prim["normal"], view, d, fetch_albedo(scene, prim["mat"], prim["uv"]),
                            scene.materials.metallic[m0], scene.materials.roughness[m0])
     cos_t = torch.clamp_min(dot3(d, prim["normal"], keepdims=False), 0.0)
     lane = shade_lanes & (res["w"] > 0.0)

@@ -196,9 +196,11 @@ class SceneBuilder:
 
         atlas = pack_atlas(self.textures)
 
+        from fypraytracer_tpu_torch.ops.texture import make_kernel_tex
+
         return Scene(geometry=geometry, materials=materials, bvh=flat_bvh,
                      light_tree=lt, emissive_tris=emissive_tris, textures=atlas,
-                     wide=build_wide(flat_bvh, geometry))
+                     wide=build_wide(flat_bvh, geometry), tex=make_kernel_tex(materials, atlas))
 
 
 def empty_light_tree(num_tris: int) -> LightTreeArrays:

@@ -121,6 +121,40 @@ def cornell_box(width: int = 256, height: int = 256, light_power: float = 5.0,
     return b, cam
 
 
+def texture_quads(builder, big: int = 0, seed: int = 0) -> None:
+    """Add textured quads to a Cornell-box builder (any builder with
+    ``SceneBuilder``'s authoring calls, so the JAX package's too): the 64²
+    checker on a 1×1 floor quad of tests/test_textured_megakernel.py:16-26,
+    and with ``big`` > 0 a ``big``² texture of seeded noise
+    (``numpy.random.default_rng(seed)``) on a 1.6×1.6 quad before the back
+    wall, its UVs spanning [-1.5, 2.5] so that they wrap and go negative.
+    A ``big`` above 256 is larger than the kernels' primary level
+    (ops/texture.py::KERNEL_TEX_PAGE), which box-filters it."""
+    h = w = 64
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    checker = ((xx // 8 + yy // 8) % 2).astype(np.float32)
+    tid = builder.add_texture(np.stack([checker, 0.5 + 0.3 * checker, 1.0 - checker], axis=-1))
+    tmat = builder.add_material(albedo=(0.2, 0.2, 0.2), roughness=0.8, albedo_map=tid)
+    builder.add_mesh(*quad(1.0, 1.0), material=tmat, position=(0.0, 0.01, 0.3))
+    if big > 0:
+        noise = np.random.default_rng(seed).uniform(0.1, 0.9, (big, big, 3)).astype(np.float32)
+        nid = builder.add_texture(noise)
+        nmat = builder.add_material(albedo=(0.5, 0.5, 0.5), roughness=0.9, albedo_map=nid)
+        pos, tri_v, nrm, uvs = quad(1.6, 1.6)
+        builder.add_mesh(pos, tri_v, nrm, uvs * 4.0 - 1.5, material=nmat, position=(0.0, 1.0, -0.98),
+                         rotation=(90, 0, 0))
+
+
+def textured_cornell_box(width: int = 256, height: int = 256, big: int = 0, seed: int = 0,
+                         sphere_res: tuple = (12, 24)):
+    """``cornell_box`` with ``texture_quads``: the scene of the textured
+    tests and of chip_smoke.py's textured phase.  Returns ``(SceneBuilder,
+    Camera)``."""
+    builder, cam = cornell_box(width, height, sphere_res=sphere_res)
+    texture_quads(builder, big, seed)
+    return builder, cam
+
+
 def stress(width: int = 256, height: int = 256, grid: int = 7,
            sphere_res: tuple = (32, 32)):
     """Large-scene stress benchmark: a 2-layer grid² lattice of UV spheres

@@ -145,12 +145,30 @@ class LightTreeArrays:
 
 @dataclasses.dataclass(frozen=True)
 class TextureAtlas:
-    """Texture pages (K, H, W, 3); textures arrive in a later slice, the
-    main path carries the empty 8×8 atlas."""
+    """All textures packed into one array for single-source gathers
+    (``scene/build.py::pack_atlas``; an untextured scene carries an empty
+    8×8 page).
+
+    ``pages``: (K, H, W, 3) f32 RGB in [0, 1], mip 0 at full detail;
+    ``size``: (K, 2) i32 original (w, h); ``bounce_pages``: (K, hb, wb, 3)
+    f32, a box-filtered minified level.  Sampling policy
+    (``ops/texture.py``): primary fetches read ``pages``, fetches at hits
+    after a scatter read ``bounce_pages``."""
 
     pages: Array
     size: Array
     bounce_pages: Array = None
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelTex:
+    """The megakernels' texture levels as ``csrc/shading.cuh::Tex`` reads
+    them (``ops/texture.py::make_kernel_tex`` builds them from the atlas):
+    mip 0 box-filtered to at most ``KERNEL_TEX_PAGE`` a side and the bounce
+    level, (K, h, w) float4 texels (RGB and a zero)."""
+
+    prim: Array     # (K, hp, wp, 4) f32
+    bounce: Array   # (K, hb, wb, 4) f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +182,9 @@ class Scene:
     emissive_tris: Array  # (E,) i32
     textures: TextureAtlas
     wide: WideBVH | None = None   # the records of the CUDA walk (accel/wide.py)
+    # the kernels' texture levels, None when no material maps an albedo
+    # (ops/texture.py::make_kernel_tex); built with the scene, as ``wide`` is
+    tex: KernelTex | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -182,7 +203,8 @@ class Scene:
             light_tree=_to(self.light_tree, device, meta=("max_depth",)),
             emissive_tris=_leaf_to(self.emissive_tris, device),
             textures=_to(self.textures, device),
-            wide=None if self.wide is None else _to(self.wide, device, meta=("depth", "stack_need")))
+            wide=None if self.wide is None else _to(self.wide, device, meta=("depth", "stack_need")),
+            tex=None if self.tex is None else _to(self.tex, device))
 
 
 def scene_from_arrays(obj, device="cpu") -> Scene:
@@ -196,16 +218,19 @@ def scene_from_arrays(obj, device="cpu") -> Scene:
         return cls(**kw)
 
     from fypraytracer_tpu_torch.accel.wide import build_wide
+    from fypraytracer_tpu_torch.ops.texture import make_kernel_tex
 
     bvh, geometry = leaf(FlatBVH, obj.bvh, meta=("leaf_size",)), leaf(Geometry, obj.geometry)
+    materials, textures = leaf(MaterialTable, obj.materials), leaf(TextureAtlas, obj.textures)
     host = Scene(
         geometry=geometry,
-        materials=leaf(MaterialTable, obj.materials),
+        materials=materials,
         bvh=bvh,
         light_tree=leaf(LightTreeArrays, obj.light_tree, meta=("max_depth",)),
         emissive_tris=np.asarray(obj.emissive_tris),
-        textures=leaf(TextureAtlas, obj.textures),
-        wide=build_wide(bvh, geometry))
+        textures=textures,
+        wide=build_wide(bvh, geometry),
+        tex=make_kernel_tex(materials, textures))
     return host.to(device)
 
 
@@ -231,5 +256,7 @@ def materials_from_arrays(obj, device="cuda", requires_grad=()) -> MaterialTable
 
 def with_materials(scene: Scene, materials: MaterialTable) -> Scene:
     """``scene`` with its material table replaced (the tensors are shared,
-    not copied, so a gradient reaches ``materials``)."""
+    not copied, so a gradient reaches ``materials``).  ``materials`` maps
+    the albedos as the scene's own table does: the scene keeps its texture
+    levels (``Scene.tex``)."""
     return dataclasses.replace(scene, materials=materials)

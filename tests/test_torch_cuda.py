@@ -196,6 +196,22 @@ def test_megakernel_nee_wide_equals_threaded(cuda):
         tmk.megakernel(scene, cam, 1, 1, SETTINGS, lanes=3)
 
 
+def test_megakernel_nee_four_lanes_at_1080p(cuda):
+    """K2 NEE with four threads a pixel at Cornell 1920x1088, 4 frames: the
+    launch that faulted with an illegal address when the kernel was built
+    with ``__launch_bounds__(128, 7)`` or ``(128, 6)`` (ROADMAP queue 3).
+    It runs clean, adds the frames as one thread a pixel does (to float
+    rounding), and leaves the overflow flag clear."""
+    builder, cam = tproc.cornell_box(1920, 1088)
+    scene = builder.compile().to(cuda)
+    four = tmk.megakernel(scene, cam, 1, 4, SETTINGS, lanes=4)
+    one = tmk.megakernel(scene, cam, 1, 4, SETTINGS, lanes=1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(four).all())
+    assert (four - one).abs().max().item() <= 1e-5 * max(one.abs().max().item(), 1.0)
+    ttrav.check_overflow(scene)
+
+
 @pytest.mark.parametrize("bounces, samples", [(2, 1), (1, 1), (2, 2)])
 def test_megakernel_matches_its_plain_version(cuda, bounces, samples):
     # bounces=1 is light sampling without MIS; samples=2 takes the kernel's
@@ -445,3 +461,96 @@ def test_diff_megakernel_build_fault_raises(cuda, fault, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         tmd.diff_megakernel(scene, cam, alb, tgt, 3, 2, (0.05, 0.06, 0.08))
     assert tmd.diff_megakernel.launches == before
+
+
+# ---- textures ---------------------------------------------------------------------
+
+def _textured(cuda):
+    """The textured Cornell box (the 64² checker and a seeded 512² page, which
+    the kernels' primary level box-filters to 256²), Morton order, on the
+    card, with the DI camera."""
+    from torch_textured_scene import port_textured
+
+    scene = tmk.morton_permuted_scene(port_textured(W, H, 512)[0])[0].to(cuda)
+    return scene, Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+
+
+@pytest.mark.parametrize("tech", ["NEE_MIS", "COSINE", "LIGHT_SOURCE"])
+def test_textured_megakernel_matches_its_plain_version(cuda, tech):
+    """K2's textured instantiation against ``megakernel_plain`` (the kernel's
+    levels): one launch, 4 frames."""
+    scene, cam = _textured(cuda)
+    assert scene.tex is not None and scene.tex.prim.device.type == "cuda"
+    settings = RenderSettings(technique=SamplingTechnique[tech], bounces=2, samples=1, sky_color=(0.1, 0.15, 0.2))
+    before = tmk.megakernel.launches
+    got = tmk.megakernel(scene, cam, 1, 4, settings)
+    ref = tmk.megakernel_plain(scene, cam, 1, 4, settings)
+    torch.cuda.synchronize()
+    assert tmk.megakernel.launches == before + 1
+    _gates(got.cpu().numpy().reshape(H, W, 3), ref.cpu().numpy().reshape(H, W, 3))
+    with pytest.raises(NotImplementedError, match="untextured"):
+        tmk.megakernel_threaded(scene, cam, 1, 4, SETTINGS)
+
+
+def test_textured_k3_matches_its_plain_version(cuda):
+    """K3's textured instantiation launched alone, after two frames of
+    history, against ``restir_di_k3_plain``: the stage, albedo rows
+    included."""
+    scene, cam = _textured(cuda)
+    em = tmr.prepare_emissive_table(scene)
+    state = torch.zeros((tmr.ST_ROWS, W * H), device=cuda)
+    tmr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
+    before = tmr.restir_di_k3.launches
+    stage = tmr.restir_di_k3(scene, em, cam, 3, DI, state, cam.proj_view)
+    ref = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, cam.proj_view)
+    torch.cuda.synchronize()
+    assert tmr.restir_di_k3.launches == before + 1
+    assert _elements_off(stage, ref) < 0.01
+    alb = slice(tmr.S_ALB, tmr.S_ALB + 3)
+    assert _elements_off(stage[alb], ref[alb]) == 0.0
+
+
+def test_textured_gi_kernels_match_plain(cuda):
+    """K6 and K5 (both visibility modes), textured, each against its plain
+    version on the same inputs after two frames of history."""
+    scene, cam = _textured(cuda)
+    B = W * H
+    z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
+    _, state, stage = tmg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, GI, cam.proj_view, cam.proj_view)
+    ppv = cam.proj_view
+    counts = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches)
+    got = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
+    ref = tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)
+    assert _elements_off(got, ref) < 0.01
+    for final_vis in (False, True):
+        outs = []
+        for fn in (tmg.restir_gi_mono, tmg.restir_gi_mono_plain):
+            acc, st, sg = torch.zeros((B, 3), device=cuda), torch.empty_like(state), torch.empty_like(stage)
+            fn(scene, cam, 3, GI, state, stage, ppv, acc, st, sg, final_vis=final_vis)
+            outs.append((acc, st, sg))
+        torch.cuda.synchronize()
+        _gates(outs[0][0].cpu().numpy(), outs[1][0].cpu().numpy())
+        assert _elements_off(outs[0][1], outs[1][1]) < 0.01 and _elements_off(outs[0][2], outs[1][2]) < 0.01
+    assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches) == (counts[0] + 2, counts[1] + 1)
+
+
+# ---- the stack-overflow flag ----------------------------------------------------------
+
+@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer])
+def test_entry_points_raise_on_stack_overflow(cuda, cls):
+    """A wide BVH handed a ``stack_need`` below its tree's true need: the
+    walks drop entries and set the flag, and the entry point's next call
+    raises (it reads the flag without waiting; ``overflow.check()`` waits)."""
+    import dataclasses
+
+    builder, cam = tproc.cornell_box(W, H)
+    scene = skewed_scene(builder.compile(), 8)
+    assert scene.wide.stack_need == 149
+    scene = dataclasses.replace(scene, wide=dataclasses.replace(scene.wide, stack_need=4))
+    r = cls(scene, cam, SETTINGS, device=cuda)
+    r.render_many(1)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="overflow"):
+        r.render_many(1)
+    with pytest.raises(RuntimeError, match="overflow"):
+        r.overflow.check()

@@ -31,6 +31,7 @@ from fypraytracer_tpu_torch.render import integrators as tint
 from fypraytracer_tpu_torch.render import megakernel as tmk
 from fypraytracer_tpu_torch.render import megakernel_restir as tmr
 from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, morton_permuted_scene
+from fypraytracer_tpu_torch.render.megakernel_diff import DiffRenderer
 from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
 from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
 from fypraytracer_tpu_torch.render.renderer import Renderer
@@ -152,16 +153,33 @@ def test_reset_resize_render_frame():
     assert r.render_hdr().shape == (16, 24, 3)
 
 
-@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer, MegakernelReSTIRDI, MegakernelReSTIRGI])
-def test_unported_input_raises(cls):
-    """Textured materials are not ported: every renderer class refuses
-    them."""
+def _textured_box_scene():
+    """Cornell without spheres and a box whose material has an albedo map."""
     builder, cam = tproc.cornell_box(W, H, with_spheres=False)
-    tex = builder.add_texture(np.full((4, 4, 3), 0.5, np.float32))
+    tex = builder.add_texture(np.random.default_rng(3).uniform(0.2, 0.8, (4, 4, 3)).astype(np.float32))
     mat = builder.add_material(albedo_map=tex)
     builder.add_mesh(*tproc.box((0.3, 0.3, 0.3)), material=mat, position=(0.0, 0.2, 0.0))
+    return builder.compile(), cam
+
+
+@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer, MegakernelReSTIRDI, MegakernelReSTIRGI])
+def test_textured_scene_renders(cls):
+    """Every renderer class renders a textured scene on the CPU to a finite
+    image of its size (their parity with JAX is in test_torch_texture.py and
+    test_torch_textured_render.py)."""
+    scene, cam = _textured_box_scene()
+    tech = {MegakernelReSTIRDI: SamplingTechnique.RESTIR_DI, MegakernelReSTIRGI: SamplingTechnique.RESTIR_GI}
+    settings = _settings().replace(technique=tech.get(cls, SamplingTechnique.NEE_MIS))
+    img = cls(scene, cam, settings, device="cpu").render_many(1)
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+
+
+def test_diff_renderer_refuses_textured_scene():
+    """``DiffRenderer``'s kernel differentiates the flat albedo, as the JAX
+    kernel does: it refuses a textured scene, and says why."""
+    scene, cam = _textured_box_scene()
     with pytest.raises(NotImplementedError, match="textured"):
-        cls(builder.compile(), cam, _settings(), device="cpu")
+        DiffRenderer(scene, cam, device="cpu")
 
 
 
@@ -236,13 +254,12 @@ def test_sampler_pdf_matches_jax(jax_scene, sampler):
     normal, view, l = unit(512), unit(512), unit(512)
     mat = r.integers(0, int(js.materials.roughness.shape[0]), 512).astype(np.int32)
     ref = jint.sampler_pdf(js, dict(normal=normal, mat=mat, uv=np.zeros((512, 2))), view, l, sampler)
-    got = tint.sampler_pdf(scene, dict(normal=torch.as_tensor(normal), mat=torch.as_tensor(mat)),
-                           torch.as_tensor(view), torch.as_tensor(l), sampler)
+    pay = dict(normal=torch.as_tensor(normal), mat=torch.as_tensor(mat), uv=torch.zeros((512, 2), dtype=torch.float64))
+    got = tint.sampler_pdf(scene, pay, torch.as_tensor(view), torch.as_tensor(l), sampler)
     assert got.dtype == torch.float64 and got.shape == (512,)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10, atol=1e-12)
     with pytest.raises(ValueError):
-        tint.sampler_pdf(scene, dict(normal=torch.as_tensor(normal), mat=torch.as_tensor(mat)),
-                         torch.as_tensor(view), torch.as_tensor(l), "ggx")
+        tint.sampler_pdf(scene, pay, torch.as_tensor(view), torch.as_tensor(l), "ggx")
 
 
 # ---- ReSTIR DI ------------------------------------------------------------------
