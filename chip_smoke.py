@@ -21,6 +21,10 @@ albedos), in phases:
      thread, quad, threaded) on 65,536 camera rays, 65,536 random rays and
      the 512² and 1920x1088 cameras' rays, with the node and leaf visits a
      ray of both plain walks;
+  3b. the wide segment test that K5 walks (``trace_segments``) against its
+     plain twin ``segment_visible_wide`` and the threaded ``segment_visible``,
+     bit for bit, on 65,536 segments ending at, within, past and short of
+     their rays' closest hits, on Cornell and the stress scene, timed;
   4. K2 ``megakernel`` against its plain version under the parity gates of
      tests/test_render_parity.py:111-114: every technique 0-6 at the main
      path's shape (Cornell 256², 8 frames, 2 bounces, 1 spp) and NEE on the
@@ -37,16 +41,25 @@ albedos), in phases:
      differ from the first kernel's (more than one thread a pixel adds
      the frames in another order); the walks' stack-overflow flag must
      stay clear;
-  5. K3 ``restir_di_k3`` and K4 ``restir_di_k4`` each against its plain
-     version on the same inputs, and the frame loop of both against
+  5. K3 ``restir_di_k3`` (the wide walk; each tile one block, or split over
+     a cluster of blocks of 128 where the tiles are too few to fill the
+     card) and K4 ``restir_di_k4`` each against its plain version on the
+     same inputs, and the frame loop of both against
      ``restir_di_megakernel_plain``: 128², 8 frames on the stress scene, and
-     64², 4 + 4 frames on Cornell with a camera move in between;
-  5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``), K6
-     ``restir_gi_k1`` and K7 ``restir_gi_k2`` each against its plain version
-     on the same inputs (Cornell 256², one frame after two of history); the
-     K5 frame loop against ``restir_gi_megakernel_plain`` at Cornell 256², 8
-     frames, and stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at
-     Cornell 64², 4 + 4 frames with a camera move;
+     64², 4 + 4 frames on Cornell with a camera move in between; then K3's
+     device time a launch at Cornell 256², stress 128² and Cornell
+     1920x1088 as the wrapper picks its launch, and both launches in turns
+     (split, one block, one block, split), each beside its resident blocks
+     and clusters (the CUDA runtime's occupancy; the registers and spills
+     are phase 2's);
+  5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``; the
+     wide walks, tiles launched as K3's), K6 ``restir_gi_k1`` and K7
+     ``restir_gi_k2`` each against its plain version on the same inputs
+     (Cornell 256², one frame after two of history); the K5 frame loop
+     against ``restir_gi_megakernel_plain`` at Cornell 256², 8 frames, and
+     stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at Cornell
+     64², 4 + 4 frames with a camera move; then K5 (both modes) timed at the
+     shapes of phase 5 with its occupancy;
   5c. K8 ``diff_megakernel`` (the fused loss and albedo gradient) against its
      plain version ``diff_plain`` on the same inputs (Cornell 256², 2 bounces,
      frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
@@ -126,14 +139,18 @@ pixels that shade, since only they read it) and its outputs; a textured
 instantiation adds its texel reads, 4 texels of 12 bytes a fetch times the
 fetches its plain version counts (at most the texture tables once).
 
+``--ab`` times K3 and K5, and the entry points, of other checkouts against
+this one in turns (e.g. the commit before a change).
+
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --quick    # phases 1-6: build, check, main paths
-    python3 chip_smoke.py --ab DIR   # untextured entry points, DIR's package
-                                     # against this one's, in turns (ab_turn)
+    python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K3 and
+                                     # K5 a launch: each DIR's package against
+                                     # this one's, in turns (ab_turn)
 """
 
 from __future__ import annotations
@@ -208,16 +225,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def scene_bytes(scene, surfaces=True, lights=False) -> int:
-    """Bytes of the scene tables a kernel reads: the triangles and the BVH;
-    with ``surfaces`` the normals, material ids and materials; with
-    ``lights`` the light tree."""
+def scene_bytes(scene, surfaces=True, lights=False, wide=False, positions=False) -> int:
+    """Bytes of the scene tables a kernel reads: the BVH and the triangles it
+    walks, which for the threaded BVH are the positions and vertex ids and
+    for the wide BVH (``wide``) its node and triangle records alone; the
+    positions beside the wide records only where ``positions`` (K2's light
+    samples); with ``surfaces`` the vertex ids, normals, material ids and
+    materials; with ``lights`` the light tree."""
     import dataclasses
 
     g, m, b = scene.geometry, scene.materials, scene.bvh
-    ts = [g.positions, g.tri_v, b.lo, b.hi, b.miss, b.first, b.prim_idx]
+    if wide:
+        ts = [scene.wide.nodes, scene.wide.tris] + ([g.positions] if positions else [])
+    else:
+        ts = [g.positions, g.tri_v, b.lo, b.hi, b.miss, b.first, b.prim_idx]
     if surfaces:
-        ts += [g.normals, g.tri_mat, m.albedo, m.roughness, m.metallic, m.emission_color, m.emission_power]
+        ts += ([g.tri_v] if wide else []) + [g.normals, g.tri_mat, m.albedo, m.roughness, m.metallic,
+                                             m.emission_color, m.emission_power]
     if lights:
         lt = scene.light_tree
         ts += [t for t in (getattr(lt, f.name) for f in dataclasses.fields(lt)) if hasattr(t, "numel")]
@@ -266,7 +290,7 @@ def settings_for(technique: str, **kw):
 
 def port_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from fypraytracer_tpu_torch.ops.traverse import trace_closest, trace_closest_threaded
+    from fypraytracer_tpu_torch.ops.traverse import trace_closest, trace_closest_threaded, trace_segments
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
     from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
     from fypraytracer_tpu_torch.render.megakernel import megakernel, megakernel_threaded
@@ -275,7 +299,8 @@ def port_wrappers() -> dict:
     return dict(trace_closest=trace_closest, megakernel=megakernel, restir_di_k3=mr.restir_di_k3,
                 restir_di_k4=mr.restir_di_k4, restir_gi_mono=mg.restir_gi_mono,
                 restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2, diff_megakernel=diff_megakernel,
-                trace_closest_threaded=trace_closest_threaded, megakernel_threaded=megakernel_threaded)
+                trace_closest_threaded=trace_closest_threaded, megakernel_threaded=megakernel_threaded,
+                trace_segments=trace_segments)
 
 
 def reset_launches() -> None:
@@ -409,25 +434,28 @@ def ptxas_report(log: str) -> dict:
             continue                                     # a device function's frame, not a kernel
         base = next((k for k in ("frames_threaded_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono",
                                  "gi_stage1", "gi_stage2", "diff_kernel", "trace_lane_kernel", "trace_closest_kernel",
-                                 "trace_threaded_kernel") if k in mangled), mangled)
+                                 "trace_threaded_kernel", "segment_kernel") if k in mangled), mangled)
         args = re.findall(r"L([ib])(\d+)E", mangled[mangled.find(base) + len(base):])
+        last_bool = max((i for i, (kind, _) in enumerate(args) if kind == "b"), default=-1)
         tags = []
         for i, (kind, v) in enumerate(args):
             if base.startswith("frames") and kind == "i":
                 tags.append(_SAMPLER_NAMES.get(v, v))
+            elif kind == "i":                                # K3's and K5's block: a split tile's, or a tile's
+                tags.append("split" if v == "128" else f"block{v}")
             elif kind == "b" and v == "1":                   # the last bool is textured, gi_mono's first final_vis
-                tags.append("textured" if i == len(args) - 1 else "final_vis")
+                tags.append("textured" if i == last_bool else "final_vis")
         named[base + (f"[{','.join(tags)}]" if tags else "")] = row
     return named
 
 
-def in_turns(variants: dict, order, calls: int) -> dict:
+def in_turns(variants: dict, order, calls: int, launches=None) -> dict:
     """The kernel's own device time per launch (``kernel_ms``) of each
     variant, measured in the given order (old, new, new, old) within one
     run; returns {variant: [ms, ...]} in that order."""
     times: dict = {k: [] for k in variants}
     for k in order:
-        times[k].append(kernel_ms(variants[k], calls))
+        times[k].append(kernel_ms(variants[k], calls, launches))
     return times
 
 
@@ -497,7 +525,7 @@ def phase_k1(summary: dict) -> None:
                                     other_batches={k: dict(ids_equal=v["ids_equal"], max_abs_dt=v["max_abs_dt"],
                                                            lanes=v["lanes"]) for k, v in checks.items()
                                                    if k != "camera 256x256"},
-                                    **bound(walks, scene_bytes(scene, surfaces=False) + io))
+                                    **bound(walks, scene_bytes(scene, surfaces=False, wide=True) + io))
     emit("k1_timing", rays=int(o_cam.shape[0]), lanes=main["lanes"], ms_per_call=ms, wrapper_ms_per_call=wrapper_ms,
          plain_ms_per_call=plain_ms)
 
@@ -532,6 +560,74 @@ def phase_k1(summary: dict) -> None:
         if any(differ.values()):
             raise AssertionError(f"K1's wide walks and threaded walk differ on {name}: {differ}")
     check_overflow(scene)
+
+
+def phase_segment() -> None:
+    """The wide segment test that K5 walks (``trace_segments``,
+    ``csrc/trace.cu::fyp_segment_visible``) against its plain twin
+    ``segment_visible_wide`` and the threaded ``segment_visible``, bit for
+    bit: 65,536 rays from seeded points in the box, each segment ending at,
+    within or past its ray's closest hit, or half way to it, on Cornell
+    and on the stress scene; its device time beside the plain walks'."""
+    import numpy as np
+    import torch
+
+    from fypraytracer_tpu_torch.ops.traverse import (check_overflow, segment_visible, segment_visible_wide,
+                                                     trace_rays, trace_segments)
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    builder, _ = cornell_box(256, 256)
+    scenes = {"cornell": builder.compile().to("cuda"), "stress": stress_scene(128, 128)[0]}
+    rng = np.random.default_rng(99)
+    n = 65536
+    o = torch.as_tensor(rng.uniform([-0.99, 0.01, -0.99], [0.99, 1.99, 0.99], (n, 3)).astype(np.float32),
+                        device="cuda")
+    d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32), device="cuda"),
+                                      dim=1).contiguous()
+    scale = torch.as_tensor(rng.choice([1.0, 1.0005, 0.9995, 1.002, 0.998, 0.5], n).astype(np.float32),
+                            device="cuda")
+    for name, scene in scenes.items():
+        t = trace_rays(scene.bvh, scene.geometry, o, d)["t"]
+        dist = (torch.where(t > 0, t, 1.0) * scale).contiguous()
+        got = trace_segments(scene, o, d, dist)
+        wide = segment_visible_wide(scene.wide, o, d, dist)
+        threaded = segment_visible(scene.bvh, scene.geometry, o, d, dist)
+        row = dict(scene=name, segments=n, visible_frac=got.float().mean().item(),
+                   differ_vs_plain_wide=int((got != wide).sum()), differ_vs_plain_threaded=int((got != threaded).sum()),
+                   ms=kernel_ms(lambda: trace_segments(scene, o, d, dist)),
+                   plain_wide_ms=statistics.median(gpu_ms(lambda: segment_visible_wide(scene.wide, o, d, dist), 3)),
+                   plain_threaded_ms=statistics.median(gpu_ms(
+                       lambda: segment_visible(scene.bvh, scene.geometry, o, d, dist), 3)))
+        row["ok"] = row["differ_vs_plain_wide"] == 0 and row["differ_vs_plain_threaded"] == 0
+        emit("segment_vs_plain", **row)
+        if not row["ok"]:
+            raise AssertionError(f"the wide segment test disagrees with its plain versions on {name}")
+        check_overflow(scene)
+
+
+def tile_occupancy(kernel: str, C: int, depth: int, clustered: bool, textured: bool = False,
+                   final_vis: bool = False) -> dict:
+    """The blocks of K3 (``kernel`` "k3") or K5 ("k5") that one
+    multiprocessor holds at once and the clusters the card holds at once,
+    by the CUDA runtime, for tiles of ``C`` pixels split over a cluster or
+    not and stacks of ``depth`` entries, with the launch's block and
+    cluster sizes."""
+    import ctypes
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.render.restir_common import tile_launch
+
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    if kernel == "k3":
+        fn = kernels.load("restir_di", "fyp_restir_di_k3_occupancy", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+        rc = fn(int(textured), C, int(clustered), depth, ctypes.byref(blocks), ctypes.byref(clusters))
+    else:
+        fn = kernels.load("restir_gi", "fyp_restir_gi_occupancy", [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+        rc = fn(int(final_vis), int(textured), C, int(clustered), depth, ctypes.byref(blocks), ctypes.byref(clusters))
+    kernels.check(rc, f"{kernel} occupancy")
+    lay = tile_launch(C, clustered)
+    return dict(threads_per_block=lay["threads"], blocks_per_cluster=lay["cluster"], blocks_per_sm=blocks.value,
+                clusters_on_card=clusters.value)
 
 
 def k2_blocks_per_sm(scene, settings, lanes, textured=False) -> int:
@@ -640,7 +736,8 @@ def phase_k2(summary: dict) -> None:
         prim = {"nodes": 0, "tris": 0}
         trace_rays(scene.bvh, scene.geometry, o, d, counts=prim)
         walks = {k: walks[k] - (frames - 1) * int(prim[k]) for k in walks}
-        io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE")) + 2 * 16 * 4 + size * size * 12
+        io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE"), wide=True,
+                         positions=tech in ("NEE_MIS", "LIGHT_SOURCE")) + 2 * 16 * 4 + size * size * 12
         return dict(max_abs_err=row["max_abs"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                     lanes=k2_lanes(frames), median_abs_err=row["median_abs"],
                     frac_px_over_1e3=row["frac_px_over_1e3"], parity_shape=f"{scene_name} {size}x{size}x{frames}f",
@@ -714,7 +811,7 @@ def phase_restir(summary: dict) -> None:
     # K3 reads the camera, the previous proj @ view and 6 of the 9 state rows
     # (ST_NRM, ST_RM, ST_RIDX, ST_RW) and writes the stage; K4 reads the
     # camera and every stage row, writes the state and adds to the image
-    k3_io = scene_bytes(scene) + em_bytes + 3 * 16 * 4 + 6 * B * 4 + nbytes(out["stage"])
+    k3_io = scene_bytes(scene, wide=True) + em_bytes + 3 * 16 * 4 + 6 * B * 4 + nbytes(out["stage"])
     k4_io = scene_bytes(scene, surfaces=False) + em_bytes + 2 * 16 * 4 + nbytes(out["stage"]) \
         + nbytes(state) + 2 * B * 12
     summary["restir_di_k3"] = dict(max_abs_err=k3_row["max_abs_err"], ms=k3_ms, wrapper_ms=k3_wrapper_ms,
@@ -755,6 +852,91 @@ def phase_restir(summary: dict) -> None:
              moved=len(moves) > 1, **row)
         if not row["ok"]:
             raise AssertionError(f"K3+K4 disagree with restir_di_megakernel_plain on {name}")
+    summary["restir_di_k3"].update(by_shape("k3", st))
+
+
+# the shapes at which K3 and K5 are timed: few tiles, a deep tree, many tiles
+SHAPES = (("cornell", 256, 256), ("stress", 128, 128), ("cornell", 1920, 1088))
+# frames of 32 to 128 tiles of 512, on both scenes, at which only the two
+# launches are timed in turns: where restir_common.tile_clustered's threshold
+# should sit
+BETWEEN = (("cornell", 128, 128), ("cornell", 160, 160), ("cornell", 192, 192), ("cornell", 224, 224),
+           ("stress", 160, 160), ("stress", 192, 192), ("stress", 224, 224), ("stress", 256, 256))
+
+
+def by_shape(kernel: str, st, textured: bool = False) -> dict:
+    """K3 (``kernel`` "k3") or K5 in both visibility modes ("k5") a launch
+    at each of ``SHAPES`` (frame 3, after two frames of the kernels' own
+    loop): the device time of the launch the wrapper picks
+    (``ms_by_shape``) and, where the tree has ``tile_clustered``, of both
+    launches in turns at ``SHAPES`` and ``BETWEEN`` (split over clusters,
+    one block a tile, one block, split: ``designs_by_shape``; each forced by
+    standing in for ``tile_clustered``) with each one's occupancy by the
+    runtime and the pick; one line a shape.  It uses nothing else that the
+    port's ReSTIR modules lacked before, so that ``--ab`` can time an older
+    checkout too."""
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow, stack_depth
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render import restir_common as rc
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box, stress
+
+    designs = hasattr(rc, "tile_clustered")
+    out: dict = {"ms_by_shape": {}, "designs_by_shape": {}, "occupancy_by_shape": {}, "picked_by_shape": {}}
+    for name, w, h in SHAPES + (BETWEEN if designs else ()):
+        timed = (name, w, h) in SHAPES
+        if name == "stress":
+            # one tree at every size: only the camera's size changes
+            scene, cam = stress_scene(128, 128)
+            cam = stress(w, h)[1] if (w, h) != (128, 128) else cam
+        else:
+            builder, cam = cornell_box(w, h)
+            scene = morton_permuted_scene(builder.compile())[0].to("cuda")
+        shape = f"{name} {w}x{h}"
+        B, C, depth = w * h, rc.pick_ray_lanes(w * h), stack_depth(scene.wide)
+        ppv = torch.as_tensor(cam.proj_view, device="cuda")
+        cam_t = rc.camera_matrices(cam, "cuda")
+        if kernel == "k3":
+            em = mr.prepare_emissive_table(scene)
+            state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+            mr.restir_di_megakernel(scene, em, cam, state, 1, 2, st, ppv, ppv)
+            runs = {shape: lambda: mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)}
+            count = lambda: mr.restir_di_k3.launches                                  # noqa: E731
+        else:
+            z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+            _, state, stage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, st, ppv, ppv)
+            outs = (torch.zeros((B, 3), device="cuda"), torch.empty_like(state), torch.empty_like(stage))
+            runs = {f"{shape}{' final_vis' if fv else ''}":
+                    functools.partial(lambda fv: mg.restir_gi_mono(scene, cam, 3, st, state, stage, ppv, *outs,
+                                                                   final_vis=fv, cam=cam_t), fv)
+                    for fv in (False, True)}
+            count = lambda: mg.restir_gi_mono.launches                                # noqa: E731
+        for key, run in runs.items():
+            if timed:
+                out["ms_by_shape"][key] = kernel_ms(run, launches=count)
+            if designs:
+                def forced(split, run=run):
+                    with mock.patch.object(rc, "tile_clustered", lambda *_: split):
+                        run()
+
+                turns = in_turns({d: functools.partial(forced, d == "split") for d in ("split", "one_block")},
+                                 ("split", "one_block", "one_block", "split"), 20, launches=count)
+                out["designs_by_shape"][key] = {d: statistics.median(v) for d, v in turns.items()}
+                out["picked_by_shape"][key] = "split" if rc.pick_tile_launch(scene, B, cam_t.device)["clustered"] \
+                    else "one_block"
+                out["occupancy_by_shape"][key] = {
+                    d: tile_occupancy(kernel, C, depth, d == "split", textured, key.endswith("final_vis"))
+                    for d in ("split", "one_block")}
+        torch.cuda.synchronize()
+        check_overflow(scene)
+        emit("tile_kernel_by_shape", kernel=kernel, shape=shape, tiles=B // C, tile_pixels=C, stack_depth=depth,
+             **{k: {key: v for key, v in d.items() if key.startswith(shape)} for k, d in out.items()})
+    return out
 
 
 def phase_restir_gi(summary: dict) -> None:
@@ -814,7 +996,7 @@ def phase_restir_gi(summary: dict) -> None:
     # the triangles and BVH only; K5 and K7 add to the image (read it too)
     n_shade = int((ref_stage[mg.GS_SHADE] > 0.5).sum())
     state_rows = 15 * n_shade * 4
-    k5_in = scene_bytes(scene) + 3 * 16 * 4 + state_rows + 19 * B * 4 + B * 12
+    k5_in = scene_bytes(scene, wide=True) + 3 * 16 * 4 + state_rows + 19 * B * 4 + B * 12
     cases = [("restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t), mg.restir_gi_k1_plain,
               scene_bytes(scene) + 3 * 16 * 4 + state_rows),
              ("restir_gi_k2", k2, functools.partial(mg.restir_gi_k2, cam=cam_t), mg.restir_gi_k2_plain,
@@ -838,8 +1020,8 @@ def phase_restir_gi(summary: dict) -> None:
                              parity_shape="cornell 256x256, frame 3 after 2 of history",
                              **bound(walks, in_bytes + nbytes(*out["ref"])))
         emit("gi_kernel_vs_plain", kernel=name, size="256x256", ms_per_launch=ms, wrapper_ms=wrapper_ms,
-             plain_ms=plain_ms,
-             frac_px_over_1e3=frac, max_abs_err=err, shading_pixels=n_shade, ok=frac < 0.01)
+             plain_ms=plain_ms, frac_px_over_1e3=frac, max_abs_err=err, bitwise=err == 0.0,
+             shading_pixels=n_shade, ok=frac < 0.01)
         if not frac < 0.01:
             raise AssertionError(f"{name} disagrees with its plain version")
 
@@ -873,6 +1055,10 @@ def phase_restir_gi(summary: dict) -> None:
              mode=mode, **row)
         if not row["ok"]:
             raise AssertionError(f"the GI frame loop {mode} disagrees with its plain version on {name} {size}")
+    shapes = by_shape("k5", st)
+    for fv, row in ((False, "restir_gi_mono"), (True, "restir_gi_mono[final_vis]")):
+        summary[row].update({k: {s_: v for s_, v in d.items() if s_.endswith(" final_vis") == fv}
+                             for k, d in shapes.items()})
 
 
 DIFF_SIZE = 256
@@ -1080,7 +1266,8 @@ def phase_textured(summary: dict) -> None:
         trace_rays(scene.bvh, scene.geometry, o, d, counts=pw)
         walks = {k: walks[k] - (frames - 1) * int(pw[k]) for k in walks}
         n_fetch = fetches["fetches"] - (frames - 1) * prim_tex
-        io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE")) + nbytes(scene.geometry.uvs, amap) \
+        io = scene_bytes(scene, lights=tech in ("NEE_MIS", "LIGHT_SOURCE"), wide=True,
+                         positions=tech in ("NEE_MIS", "LIGHT_SOURCE")) + nbytes(scene.geometry.uvs, amap) \
             + 2 * 16 * 4 + B * 12 + tex_bytes(tex, n_fetch)
         summary[name] = dict(max_abs_err=row["max_abs"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                              median_abs_err=row["median_abs"], frac_px_over_1e3=row["frac_px_over_1e3"],
@@ -1116,7 +1303,7 @@ def phase_textured(summary: dict) -> None:
     if not off < 0.01:
         raise AssertionError("textured K3 disagrees with its plain version")
     em_bytes = nbytes(em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid, em.tri)
-    io = scene_bytes(scene) + nbytes(scene.geometry.uvs, amap) + em_bytes + 3 * 16 * 4 + 6 * B * 4 \
+    io = scene_bytes(scene, wide=True) + nbytes(scene.geometry.uvs, amap) + em_bytes + 3 * 16 * 4 + 6 * B * 4 \
         + nbytes(out["stage"]) + tex_bytes(tex, fetches["fetches"])
     # the untextured K3 at the same shape (Cornell 256², frame 3 after 2 of
     # history), beside it
@@ -1163,13 +1350,15 @@ def phase_textured(summary: dict) -> None:
 
     n_shade = int((gstage[mg.GS_SHADE] > 0.5).sum())
     k1_in = scene_bytes(scene) + nbytes(scene.geometry.uvs, amap) + 3 * 16 * 4 + 15 * n_shade * 4
+    # K5 reads the wide BVH's records instead of the threaded BVH
+    k5_in = k1_in - scene_bytes(scene) + scene_bytes(scene, wide=True) + 19 * B * 4 + B * 12
     # (row, the untextured kernel's row at the same shape, ...)
     cases = [("restir_gi_k1[textured]", "restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t),
               mg.restir_gi_k1_plain, k1_in),
              ("restir_gi_mono[textured]", "restir_gi_mono", mono(False),
-              functools.partial(mg.restir_gi_mono, cam=cam_t), mg.restir_gi_mono_plain, k1_in + 19 * B * 4 + B * 12),
+              functools.partial(mg.restir_gi_mono, cam=cam_t), mg.restir_gi_mono_plain, k5_in),
              ("restir_gi_mono[final_vis,textured]", "restir_gi_mono[final_vis]", mono(True),
-              functools.partial(mg.restir_gi_mono, cam=cam_t), mg.restir_gi_mono_plain, k1_in + 19 * B * 4 + B * 12)]
+              functools.partial(mg.restir_gi_mono, cam=cam_t), mg.restir_gi_mono_plain, k5_in)]
     for name, flat_name, run, kernel, plain, in_bytes in cases:
         run(kernel)                                              # warm-up
         out = {}
@@ -1184,7 +1373,7 @@ def phase_textured(summary: dict) -> None:
                              parity_shape=f"textured cornell {size}x{size}, frame 3 after 2 of history",
                              **bound(walks, in_bytes + nbytes(*out["ref"]) + tex_bytes(tex, fetches["fetches"])))
         emit("textured_gi_kernel_vs_plain", kernel=name, size=f"{size}x{size}", ms_per_launch=ms,
-             wrapper_ms=wrapper_ms, plain_ms=plain_ms, frac_px_over_1e3=frac, max_abs_err=err,
+             wrapper_ms=wrapper_ms, plain_ms=plain_ms, frac_px_over_1e3=frac, max_abs_err=err, bitwise=err == 0.0,
              fetches=fetches["fetches"], ok=frac < 0.01)
         if not frac < 0.01:
             raise AssertionError(f"{name} disagrees with its plain version")
@@ -1422,7 +1611,8 @@ def phase_train(summary: dict) -> None:
 
 # the __global__ names of csrc/*.cu, to count the port's kernels in a trace
 PORT_KERNELS = ("trace_closest_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1",
-                "gi_stage2", "diff_kernel", "trace_threaded_kernel", "frames_threaded_kernel", "trace_lane_kernel")
+                "gi_stage2", "diff_kernel", "trace_threaded_kernel", "frames_threaded_kernel", "trace_lane_kernel",
+                "segment_kernel")
 
 
 def device_busy(fn, launches) -> dict:
@@ -1464,17 +1654,18 @@ def device_busy(fn, launches) -> dict:
                 port_ms=sum(e.self_device_time_total for e in port) / 1000.0)
 
 
-def kernel_ms(fn, calls: int = 20) -> float:
+def kernel_ms(fn, calls: int = 20, launches=None) -> float:
     """The kernel's own time on the card per launch: torch.profiler's self
     device time of the port's kernel launches during ``calls`` calls of
     ``fn`` (after the profiler's warm-up step), over their number.  Raises
-    unless the trace holds every launch the wrappers counted, and at least
-    ``calls``."""
+    unless the trace holds every launch the wrappers counted (``launches()``,
+    by default every wrapper's count), and at least ``calls``."""
+    launches = launches or (lambda: sum(launch_counts().values()))
     # the profiler has been seen to drop launches from a trace (12 of 20, and
     # once all 5 of 5 long ones): the mean over the traced launches still
     # reads the kernel's time, and a trace with fewer than half is taken again
     for attempt in range(3):
-        prof = device_busy(lambda: [fn() for _ in range(calls)], lambda: sum(launch_counts().values()))
+        prof = device_busy(lambda: [fn() for _ in range(calls)], launches)
         if prof["traced"] != prof["launched"]:
             print(f"kernel_ms: the trace holds {prof['traced']} of the {prof['launched']} launches the wrappers "
                   f"counted (attempt {attempt + 1})", flush=True)
@@ -1695,16 +1886,21 @@ def ab_turn(tree: str) -> None:
     points of the package in ``tree`` (its kernels built there) at Cornell
     256² and 1920x1088: ``Renderer`` NEE (``render_many(8)``),
     ``MegakernelRenderer`` NEE, ``MegakernelReSTIRDI`` and
-    ``MegakernelReSTIRGI`` (mono; ``render_many(64)``); and
-    ``make_train_step`` under NEE and cosine at 256² (2 steps a rep).  Each
-    5 reps after a warm-up; prints one ``AB`` line with, per path and rep,
-    the ms a frame (a step) by CUDA events and the host's ms a frame to
-    enqueue the call (wall clock up to its return, before the
+    ``MegakernelReSTIRGI`` (mono; ``render_many(64)``), DI and GI also on
+    the stress scene at 128²; ``make_train_step`` under NEE and cosine at
+    256² (2 steps a rep); each 5 reps after a warm-up.  Before them, K3 and
+    K5 (both visibility modes) a launch at ``SHAPES`` (``by_shape``), with
+    the registers and spills of that tree's K3 and K5 from its nvcc report,
+    and their occupancy where the tree reports it.  Each step is named on
+    stderr as it starts.  Prints one ``AB`` line with,
+    per path and rep, the ms a frame (a step) by CUDA events and the host's
+    ms a frame to enqueue the call (wall clock up to its return, before the
     synchronize): where the two are close the path waits on the host."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     import fypraytracer_tpu_torch
+    from fypraytracer_tpu_torch.ops import kernels
     from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
     from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
@@ -1728,52 +1924,100 @@ def ab_turn(tree: str) -> None:
             host.append((t1 - t0) * 1000.0 / n)
         return dict(ms=dev, host_ms=host)
 
+    def progress(what):
+        print(f"ab_turn {os.path.basename(tree)}: {what}", file=sys.stderr, flush=True)
+
+    progress("K3 and K5 by shape")
+    tile = {"k3": by_shape("k3", settings_for("RESTIR_DI")), "k5": by_shape("k5", settings_for("RESTIR_GI"))}
     out = {}
-    for cls, tech, frames in ((Renderer, "NEE_MIS", 8), (MegakernelRenderer, "NEE_MIS", 64),
-                              (MegakernelReSTIRDI, "RESTIR_DI", 64), (MegakernelReSTIRGI, "RESTIR_GI", 64)):
-        for w, h in ((256, 256), (1920, 1088)):
-            builder, cam = cornell_box(w, h)
-            r = cls(builder.compile(), cam, settings_for(tech), device="cuda")
+    cornell_sizes = (("cornell", 256, 256), ("cornell", 1920, 1088))
+    for cls, tech, frames, shapes in ((Renderer, "NEE_MIS", 8, cornell_sizes),
+                                      (MegakernelRenderer, "NEE_MIS", 64, cornell_sizes),
+                                      (MegakernelReSTIRDI, "RESTIR_DI", 64, SHAPES),
+                                      (MegakernelReSTIRGI, "RESTIR_GI", 64, SHAPES)):
+        for name, w, h in shapes:
+            if name == "stress":
+                scene, cam = stress_scene(w, h)
+            else:
+                builder, cam = cornell_box(w, h)
+                scene = builder.compile()
+            key = f"{cls.__name__} {tech} {'' if name == 'cornell' else 'stress '}{w}x{h}"
+            progress(key)
+            r = cls(scene, cam, settings_for(tech), device="cuda")
             r.render_many(2)                       # warm-up
             torch.cuda.synchronize()
-            out[f"{cls.__name__} {tech} {w}x{h}"] = reps(r.render_many, frames)
+            out[key] = reps(r.render_many, frames)
             del r
             torch.cuda.empty_cache()
     scene, cam, _, _ = diff_inputs()
     for technique, tech in (("nee", "NEE_MIS"), ("cosine", "COSINE")):
+        progress(f"make_train_step {tech}")
         run = train_steps(scene, cam, technique, settings_for(tech))
         run(1)                                     # warm-up
         torch.cuda.synchronize()
         out[f"make_train_step {tech} 256x256"] = reps(run, 2)
-    print("AB " + json.dumps(out), flush=True)
+    ptxas = {}
+    for lib in ("restir_di", "restir_gi"):
+        ptxas.update({k: v for k, v in ptxas_report(kernels.build_info[lib]["log"]).items()
+                      if k.startswith(("k3_candidates", "gi_mono"))})
+    print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas)), flush=True)
 
 
-def ab(parent: str) -> None:
-    """``--ab PARENT``: this checkout's package against the one in
-    ``PARENT`` (another checkout, e.g. ``git archive`` of the parent commit
-    unpacked into a git-ignored directory), ``ab_turn`` in turns: parent,
-    change, change, parent.  Prints one line a path: both sides' medians
-    and ranges over their 10 reps, change / parent, and each turn's median
-    device and host ms in the order of the turns."""
-    runs: dict = {"parent": [], "change": []}
+def ab(others: list) -> None:
+    """``--ab DIR [DIR ...]``: this checkout's package against the ones in
+    each DIR (another checkout, e.g. ``git archive`` of the parent commit
+    unpacked into a git-ignored directory; a side is named by its
+    directory's name, this one "change"), ``ab_turn`` in turns: the others,
+    this one, this one again, the others in reverse (parent, change,
+    change, parent for one).  Prints one line a path: each side's median
+    and range over its reps, change / each side, and each turn's median
+    device and host ms in the order of the turns; one line a shape of K3
+    and K5 with each side's device ms a launch, and one line with each
+    side's registers, spills and occupancy."""
+    trees = [os.path.abspath(t) for t in others] + [REPO]
+    labels = [os.path.basename(t.rstrip(os.sep)) for t in trees[:-1]] + ["change"]
+    order = list(zip(labels, trees))
+    runs: dict = {label: [] for label in labels}
     turns = []
-    for side in ("parent", "change", "change", "parent"):
-        tree = os.path.abspath(parent) if side == "parent" else REPO
+    failed = set()
+    for label, tree in order + order[::-1]:
+        if label in failed:
+            continue
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-turn", tree], capture_output=True,
                            text=True, cwd=tree, timeout=900)
         line = [ln for ln in r.stdout.splitlines() if ln.startswith("AB ")]
         if r.returncode != 0 or not line:
-            raise RuntimeError(f"the {side} turn failed ({r.returncode}): {(r.stdout + r.stderr)[-3000:]}")
-        runs[side].append(json.loads(line[0][3:]))
-        turns.append((side, runs[side][-1]))
-    for key in runs["parent"][0]:
-        p, c = ([x for t in runs[side] for x in t[key]["ms"]] for side in ("parent", "change"))
-        emit("ab", path=key, parent_median=statistics.median(p), change_median=statistics.median(c),
-             parent_range=[min(p), max(p)], change_range=[min(c), max(c)],
-             change_over_parent=statistics.median(c) / statistics.median(p),
-             turn_ms=[[side, statistics.median(t[key]["ms"])] for side, t in turns],
-             turn_host_ms=[[side, statistics.median(t[key]["host_ms"])] for side, t in turns],
-             parent_reps=p, change_reps=c)
+            # a side whose turn fails is reported and left out; the change's must not fail
+            emit("ab_turn_failed", side=label, returncode=r.returncode,
+                 steps=[ln for ln in r.stderr.splitlines() if ln.startswith("ab_turn ")][-3:],
+                 tail=(r.stdout + r.stderr)[-1500:])
+            if label == "change":
+                raise RuntimeError(f"the change's turn failed ({r.returncode})")
+            failed.add(label)
+            continue
+        runs[label].append(json.loads(line[0][3:]))
+        turns.append((label, runs[label][-1]))
+    labels = [label for label in labels if label not in failed]
+    turns = [(label, t) for label, t in turns if label not in failed]
+    for key in runs["change"][0]["paths"]:
+        reps = {label: [x for t in runs[label] for x in t["paths"][key]["ms"]] for label in labels}
+        med = {label: statistics.median(v) for label, v in reps.items()}
+        emit("ab", path=key, median=med, range={label: [min(v), max(v)] for label, v in reps.items()},
+             change_over={label: med["change"] / med[label] for label in labels if label != "change"},
+             turn_ms=[[label, statistics.median(t["paths"][key]["ms"])] for label, t in turns],
+             turn_host_ms=[[label, statistics.median(t["paths"][key]["host_ms"])] for label, t in turns],
+             reps=reps)
+    for kernel in ("k3", "k5"):
+        for shape in runs["change"][0]["tile_kernels"][kernel]["ms_by_shape"]:
+            ms = {label: [t["tile_kernels"][kernel]["ms_by_shape"][shape] for t in runs[label]] for label in labels}
+            med = {label: statistics.median(v) for label, v in ms.items()}
+            emit("ab_kernel", kernel=kernel, shape=shape, median_ms=med, turn_ms=ms,
+                 change_over={label: med["change"] / med[label] for label in labels if label != "change"})
+    emit("ab_kernel_build", ptxas={label: runs[label][0]["ptxas"] for label in labels},
+         occupancy={label: {k: runs[label][0]["tile_kernels"][k]["occupancy_by_shape"] for k in ("k3", "k5")}
+                    for label in labels},
+         designs={label: {k: [t["tile_kernels"][k]["designs_by_shape"] for t in runs[label]] for k in ("k3", "k5")}
+                  for label in labels})
 
 
 def main() -> int:
@@ -1786,11 +2030,12 @@ def main() -> int:
     try:
         phase_env()
         if args[:1] == ["--ab"]:
-            ab(args[1])
+            ab(args[1:])
             return 0
         sys.path.insert(0, REPO)
         phase_build()
         phase_k1(summary)
+        phase_segment()
         phase_k2(summary)
         phase_k2_walks(summary)
         phase_restir(summary)

@@ -13,8 +13,10 @@
 // padding rows); reservoir indices and counts are stored as floats, as there.
 //
 // The semantics are the megakernel's, not the wavefront's (render/restir_di.py):
-//   * pixels are linear; a tile is C consecutive pixels (one block of C threads,
-//     C = render/restir_common.py::pick_ray_lanes(B));
+//   * pixels are linear; a tile is C consecutive pixels (tile.cuh,
+//     C = render/restir_common.py::pick_ray_lanes(B)): K3 runs it as one
+//     block of C threads or split over a cluster of blocks of 128, K4 as one
+//     block of C threads;
 //   * candidates are uniform over the emissive list with p-hat at the emitter's
 //     centroid (:219-240, :313-325), dist^-1 by rsqrtf;
 //   * temporal reuse: each shading pixel reprojects its hit point through ppv;
@@ -39,16 +41,24 @@
 //     for self, one per neighbour, then two for the point on the emitter.
 //
 // What bounds it on an H100: two BVH walks per pixel per frame (primary in K3,
-// shadow in K4) and the candidate p-hat evaluations (M + 1 in K3, N + 1 in K4,
-// each a Cook-Torrance evaluation); the stage and state rows are read and
-// written once per frame, coalesced (22 + 9 rows of 4 B per pixel), plus N
-// neighbour reads of 8 rows that stay in L2.  The emissive table is a few
-// floats per emitter.  One thread per pixel, state in global memory, reads
-// through __ldg; making it fast is later work.
+// shadow in K4), chains of dependent loads, and the candidate p-hat
+// evaluations (M + 1 in K3, N + 1 in K4, each a Cook-Torrance evaluation); the
+// stage and state rows are read and written once per frame, coalesced (22 + 9
+// rows of 4 B per pixel), plus N neighbour reads of 8 rows that stay in L2.
+// The emissive table is a few floats per emitter.  One thread per pixel, state
+// in global memory, reads through __ldg.  K3 walks the 4-wide BVH
+// (wide.cuh::WideTracer, its stack in dynamic shared memory) and runs each
+// tile as one block or, where the tiles are too few to fill the card, split
+// over a cluster of blocks of 128 (tile.cuh); K4 walks the threaded BVH
+// (traverse.cuh).
 //
 // C interface (loaded with ctypes by render/megakernel_restir.py): each entry
-// launches one kernel on the given stream and returns cudaGetLastError().
+// launches one kernel on the given stream and returns the launch's error (K3)
+// or cudaGetLastError() (K4); fyp_restir_di_k3_occupancy reports K3's resident
+// blocks and clusters.
 #include "shading.cuh"
+#include "tile.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -145,6 +155,7 @@ struct K3Params {
   const float* cam;  // (2, 4, 4)
   const float* ppv;  // (4, 4) previous proj @ view, row-major
   int width, height;
+  int C;             // pixels a tile
   uint32_t frame;
   int candidates;
   float history_limit;
@@ -152,25 +163,27 @@ struct K3Params {
   Geo geo;
   Mats mats;
   Tex tex;             // the textured instantiation's levels
-  Bvh bvh;
+  WideBvh wide;
   Emitters em;
   const float* state;  // (ST rows, B), read
   float* stage;        // (S rows, B), written
 };
 
-// K3: one block per tile of C = blockDim.x pixels; textured when T
-template <bool T>
-__global__ void __launch_bounds__(512) k3_candidates(K3Params P) {
-  const int C = blockDim.x;
-  const int lane = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int pix = tile * C + lane;
+// K3: each tile of C pixels a cluster of blocks of kThreads threads
+// (kTileBlock: split, kTileMax: one block), the primary ray through the wide
+// BVH; textured when T
+template <bool T, int kThreads>
+__global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int C = P.C;
+  const int tile = pix / C;
+  const int lane = pix - tile * C;
   const int B = P.width * P.height;
-  Tris tris{P.geo.positions, P.geo.tri_v};
+  const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
 
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  const Hit h0 = trace_closest(P.bvh, tris, orig, dir, kBig);
+  const Hit h0 = tr.closest(orig, dir);
   const bool hit = h0.tri >= 0;
   Surf s{};
   float3 em0 = make_float3(0.0f, 0.0f, 0.0f);
@@ -213,18 +226,8 @@ __global__ void __launch_bounds__(512) k3_candidates(K3Params P) {
 
     // the tile's one offset: rint of the mean reprojection offset of its
     // shading pixels, summed exactly as integers
-    __shared__ int tile_sum, tile_cnt;
-    if (lane == 0) {
-      tile_sum = 0;
-      tile_cnt = 0;
-    }
-    __syncthreads();
-    if (shade) {
-      atomicAdd(&tile_sum, prev_pix - pix);
-      atomicAdd(&tile_cnt, 1);
-    }
-    __syncthreads();
-    const int off = static_cast<int>(rintf(static_cast<float>(tile_sum) / fmaxf(static_cast<float>(tile_cnt), 1.0f)));
+    const int2 sum = ClusterTile::sum(shade, prev_pix - pix);
+    const int off = static_cast<int>(rintf(static_cast<float>(sum.x) / fmaxf(static_cast<float>(sum.y), 1.0f)));
     const int sc = min(max(tile * C + off, 0), B - C);
     const int q = sc + lane;
 
@@ -391,23 +394,33 @@ Emitters emitters(const void* p0, const void* e1, const void* e2, const void* ar
   return Emitters{F(p0), F(e1), F(e2), F(area), F(normal), F(emission), F(centroid), static_cast<const int*>(tri), n};
 }
 
+using K3Kernel = void (*)(K3Params);
+
+// K3's instantiation for texturing and a tile split over a cluster
+K3Kernel k3_kernel(bool textured, bool clustered) {
+  if (clustered) return textured ? k3_candidates<true, kTileBlock> : k3_candidates<false, kTileBlock>;
+  return textured ? k3_candidates<true, kTileMax> : k3_candidates<false, kTileMax>;
+}
+
 }  // namespace
 
 extern "C" int fyp_restir_di_k3(
-    const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int candidates,
+    const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int clustered,
+    int candidates,
     float history_limit, int temporal,
     const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
     const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
     int textured, const void* tex_prim, const void* tex_bounce, int tex_k, int tex_hp, int tex_wp, int tex_hb,
     int tex_wb,
-    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
-    const void* bvh_prim_idx, int n_nodes, int leaf_size,
+    const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* em_p0, const void* em_e1, const void* em_e2, const void* em_area, const void* em_normal,
     const void* em_emission, const void* em_centroid, const void* em_tri, int n_emissive,
     const void* state, void* stage, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
-  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || n_emissive <= 0 || (textured && tex_k < 1))
+  size_t smem = 0;
+  if (!tile_fits(lanes, clustered != 0, wide_stack_depth, &smem) || n_pix % lanes != 0 || n_emissive <= 0 ||
+      (textured && tex_k < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
@@ -416,6 +429,7 @@ extern "C" int fyp_restir_di_k3(
   P.ppv = F(ppv);
   P.width = width;
   P.height = height;
+  P.C = lanes;
   P.frame = frame;
   P.candidates = candidates;
   P.history_limit = history_limit;
@@ -424,17 +438,30 @@ extern "C" int fyp_restir_di_k3(
   P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission), I(albedo_map)};
   P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
               tex_hb, tex_wb};
-  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
+                   static_cast<int*>(wide_overflow), wide_stack_depth};
   P.em = emitters(em_p0, em_e1, em_e2, em_area, em_normal, em_emission, em_centroid, em_tri, n_emissive);
   P.state = F(state);
   P.stage = static_cast<float*>(stage);
+  const K3Kernel k = k3_kernel(textured != 0, clustered != 0);
+  cudaError_t e = allow_stack_smem(k, smem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (textured) {
-    k3_candidates<true><<<n_pix / lanes, lanes, 0, st>>>(P);
-  } else {
-    k3_candidates<false><<<n_pix / lanes, lanes, 0, st>>>(P);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (e == cudaSuccess) e = launch_tiles(k, n_pix, lanes, tile_threads(lanes, clustered != 0), smem, st, P);
+  return static_cast<int>(e);
+}
+
+// The blocks of K3 (textured, split or not) one multiprocessor holds at once,
+// and the clusters the card holds at once, for tiles of lanes pixels and
+// stacks of wide_stack_depth entries, by the CUDA runtime.
+extern "C" int fyp_restir_di_k3_occupancy(int textured, int lanes, int clustered, int wide_stack_depth,
+                                          int* blocks_per_sm, int* clusters) {
+  size_t smem = 0;
+  if (!tile_fits(lanes, clustered != 0, wide_stack_depth, &smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const K3Kernel k = k3_kernel(textured != 0, clustered != 0);
+  cudaError_t e = allow_stack_smem(k, smem);
+  const int threads = tile_threads(lanes, clustered != 0);
+  if (e == cudaSuccess) e = tile_occupancy(k, lanes, threads, smem, blocks_per_sm, clusters);
+  return static_cast<int>(e);
 }
 
 extern "C" int fyp_restir_di_k4(

@@ -20,16 +20,16 @@
 // Buffers are SoA, (rows, B) float32, B = width * height, rows named by the
 // GS_* (stage) and GT_* (state) constants below, the JAX rows without padding
 // (megakernel_restir_gi.py:67-96).  The semantics are the JAX megakernels' (see
-// render/megakernel_restir_gi.py): a tile is C consecutive pixels, one block of
-// C threads; the tile reads the previous state at one offset, rint(mean(
+// render/megakernel_restir_gi.py): a tile is C consecutive pixels (tile.cuh;
+// Params::C); the tile reads the previous state at one offset, rint(mean(
 // prev_pix - pix)) over its shading pixels (summed as integers), and a pixel
 // keeps history only where that read is its own reprojected pixel; the N
 // spatial offsets are shared by the frame, drawn in every thread from
 // path_key(0xD1CE, frame, 0, 8002); a neighbour counts where it is in the
 // image, the tile's read is unclamped, its depth is within +-10%, its raw
-// normal's dot is >= 0.906, it shades and M > 0; visibility is
-// segment_visible from the neighbour's sample point (+ n * 1e-12) to this
-// pixel's visible point.
+// normal's dot is >= 0.906, it shades and M > 0; visibility is the segment
+// test from the neighbour's sample point (+ n * 1e-12) to this pixel's
+// visible point.
 //
 // Textures (megakernel_restir_gi.py:193-199, 966-972): K5 and K6 are built with
 // and without the albedo fetch (shading.cuh::tex_surface); the primary hit
@@ -45,12 +45,19 @@
 // (the neighbour counts and its p-hat > 0): both exact.
 //
 // What bounds it on an H100: the BVH walks, 1 + bounces closest-hit walks and
-// N segment walks a pixel (1 with final_vis), with the divergence of a warp's
-// 32 paths; the stage and state rows (33 + 16 floats a pixel) are read and
-// written once a frame, coalesced, plus N neighbour reads of 17 rows that stay
-// in L2 at these sizes.  One thread per pixel, reservoirs in registers
+// N segment walks a pixel (1 with final_vis), each a chain of dependent loads,
+// with the divergence of a warp's 32 paths; the stage and state rows (33 + 16
+// floats a pixel) are read and written once a frame, coalesced, plus N
+// neighbour reads of 17 rows that stay in L2 at these sizes.  One thread per
+// pixel, reservoirs in registers, buffers read through __ldg.  K5 walks the
+// 4-wide BVH (wide.cuh::WideTracer: trace_closest_wide1 and
+// segment_visible_wide1, each walk's stack in dynamic shared memory) and runs
+// each tile as one block of C threads or, where the tiles are too few to
+// fill the card, split over a cluster of blocks of 128 (tile.cuh); K6 and K7
+// walk the threaded BVH
+// (traverse.cuh::ThreadedTracer), one block of C threads a tile
 // (__launch_bounds__(512) caps a thread at 128 registers; ptxas reports the
-// spills), buffers read through __ldg; making it fast is later work.
+// spills).
 //
 // Floating point: built with -fmad=false (ops/kernels.py), so no product is
 // fused into a sum and every expression rounds as the plain PyTorch version's
@@ -59,8 +66,11 @@
 //
 // C interface (loaded with ctypes by render/megakernel_restir_gi.py):
 // fyp_restir_gi launches one kernel, chosen by `kernel`, on the given stream
-// and returns cudaGetLastError().
+// and returns the launch's error, or cudaGetLastError(); fyp_restir_gi_occupancy
+// reports K5's resident blocks and clusters.
 #include "shading.cuh"
+#include "tile.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -103,6 +113,7 @@ struct Params {
   const float* cam;  // (2, 4, 4)
   const float* ppv;  // (4, 4) previous proj @ view, row-major
   int width, height;
+  int C;             // pixels a tile
   uint32_t frame;
   int bounces;
   int neighbors;     // 0 without spatial reuse
@@ -113,7 +124,8 @@ struct Params {
   Geo geo;
   Mats mats;
   Tex tex;                // the textured instantiations' levels
-  Bvh bvh;
+  Bvh bvh;               // K6, K7
+  WideBvh wide;           // K5
   const float* state_in;  // K5: previous state; K6: state
   const float* stage_in;  // K5: previous stage; K7: this frame's stage
   float* state_out;       // K5, K7
@@ -173,21 +185,20 @@ __device__ __forceinline__ float rad_norm(float3 r) { return sqrtf(fmaxf(dot(r, 
 
 // Primary hit, the BRDF path sample and temporal reuse of pixel pix, written to
 // the stage; textured when T (the primary hit reads the primary level, the
-// path's later hits the bounce level, megakernel_restir_gi.py:202-282).  Every
-// thread of the block must call it (the tile's reprojection offset is a block
-// reduction).
-template <bool T>
-__device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t& key) {
-  const int C = blockDim.x;
-  const int lane = threadIdx.x;
-  const int tile = blockIdx.x;
+// path's later hits the bounce level, megakernel_restir_gi.py:202-282); rays
+// walked by tr.  Every thread of the tile must call it (the tile's
+// reprojection offset is a reduction over the Tile, tile.cuh).
+template <bool T, class Tracer, class Tile>
+__device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathRes& res, uint32_t& key) {
+  const int C = P.C;
+  const int tile = pix / C;
+  const int lane = pix - tile * C;
   const int B = P.width * P.height;
-  const Tris tris{P.geo.positions, P.geo.tri_v};
 
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
   const float3 view = -dir;
-  const Hit h0 = trace_closest(P.bvh, tris, orig, dir, kBig);
+  const Hit h0 = tr.closest(orig, dir);
   o.hit = h0.tri >= 0;
   Surf s0{};
   o.em = zero3();
@@ -216,7 +227,7 @@ __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t&
     const float3 f0 = cook_torrance(o.n, view, d0, o.alb, o.metal, o.rough);
     const float cos0 = fmaxf(dot(d0, o.n), 0.0f);
     const float3 o1 = o.pos + o.n * kOriginEps;
-    const Hit h1 = trace_closest(P.bvh, tris, o1, d0, kBig);
+    const Hit h1 = tr.closest(o1, d0);
     const bool hit1 = h1.tri >= 0;
     Surf s1{};
     float3 em1 = zero3();
@@ -252,7 +263,7 @@ __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t&
         continue;
       }
       const float3 no = cur.pos + cur.n * kOriginEps;
-      const Hit h = trace_closest(P.bvh, tris, no, l, kBig);
+      const Hit h = tr.closest(no, l);
       if (h.tri < 0) {
         rad = rad + thr * P.sky;
         active = false;
@@ -297,18 +308,8 @@ __device__ void stage1(const Params& P, int pix, Own& o, PathRes& res, uint32_t&
                           P.height - 1);
       prev_pix = ppx + ppy * P.width;
     }
-    __shared__ int tile_sum, tile_cnt;
-    if (lane == 0) {
-      tile_sum = 0;
-      tile_cnt = 0;
-    }
-    __syncthreads();
-    if (o.shade) {
-      atomicAdd(&tile_sum, prev_pix - pix);
-      atomicAdd(&tile_cnt, 1);
-    }
-    __syncthreads();
-    const int off = static_cast<int>(rintf(static_cast<float>(tile_sum) / fmaxf(static_cast<float>(tile_cnt), 1.0f)));
+    const int2 sum = Tile::sum(o.shade, prev_pix - pix);
+    const int off = static_cast<int>(rintf(static_cast<float>(sum.x) / fmaxf(static_cast<float>(sum.y), 1.0f)));
     const int q = min(max(tile * C + off, 0), B - C) + lane;
     if (o.shade) {
       const float* st = P.state_in;
@@ -349,15 +350,15 @@ __device__ void write_stage(float* sg, int B, int pix, const Own& o, const PathR
 // ---- the second half (K7; K5 after its stage) ---------------------------------
 
 // Spatial reuse of res over the frame's neighbours read from nb (a stage
-// buffer), with per-neighbour visibility when vis (megakernel_restir_gi.py:
-// 1185-1373 and 447-661).
-__device__ void spatial(const Params& P, const float* nb, int pix, const Own& o, PathRes& res, uint32_t& key,
-                        bool vis) {
-  const int C = blockDim.x;
-  const int lane = threadIdx.x;
-  const int tile = blockIdx.x;
+// buffer), with per-neighbour visibility walked by tr when vis
+// (megakernel_restir_gi.py: 1185-1373 and 447-661).
+template <class Tracer>
+__device__ void spatial(const Params& P, const Tracer& tr, const float* nb, int pix, const Own& o, PathRes& res,
+                        uint32_t& key, bool vis) {
+  const int C = P.C;
+  const int tile = pix / C;
+  const int lane = pix - tile * C;
   const int B = P.width * P.height;
-  const Tris tris{P.geo.positions, P.geo.tri_v};
   const int px = pix % P.width, py = pix / P.width;
   float z = o.shade ? res.m : 0.0f;
   uint32_t okey = fold(fold(fold(pcg(0xD1CEu), P.frame), 0u), 8002u);
@@ -391,7 +392,7 @@ __device__ void spatial(const Params& P, const float* nb, int pix, const Own& o,
     const float jac = (cos_q > 0.0f ? cos_r / fmaxf(cos_q, 1e-12f) : 0.0f) * (dist_q * dist_q) /
                       fmaxf(dist_r * dist_r, 1e-20f);
     float p_n = jac > 0.0f ? rad_norm(radn) / fmaxf(jac, 1e-12f) : 0.0f;
-    if (vis && p_n > 0.0f && !segment_visible(P.bvh, tris, spn + snn * kOriginEps, dr / dist_r, dist_r)) p_n = 0.0f;
+    if (vis && p_n > 0.0f && !tr.visible(spn + snn * kOriginEps, dr / dist_r, dist_r)) p_n = 0.0f;
     const float nb_m = row1(nb, GS_M, B, q);
     z = z + nb_m;
     res_update(res, spn, snn, radn, p_n * row1(nb, GS_W, B, q) * nb_m, nb_m, p_n, u_acc);
@@ -400,8 +401,10 @@ __device__ void spatial(const Params& P, const float* nb, int pix, const Own& o,
 }
 
 // The shade (restir_gi._shade), the frame's HDR added to accum and the state
-// written; final_vis traces one visibility ray for the winner.
-__device__ void shade_out(const Params& P, int pix, const Own& o, const PathRes& res, float3 view, bool final_vis) {
+// written; final_vis traces one visibility ray for the winner, walked by tr.
+template <class Tracer>
+__device__ void shade_out(const Params& P, const Tracer& tr, int pix, const Own& o, const PathRes& res, float3 view,
+                          bool final_vis) {
   const int B = P.width * P.height;
   float3 hdr;
   if (!o.hit) {
@@ -413,10 +416,7 @@ __device__ void shade_out(const Params& P, int pix, const Own& o, const PathRes&
     const float dist = sqrtf(fmaxf(dot(ts, ts), 1e-20f));
     const float3 sd = ts / dist;
     bool lane_ok = res.w > 0.0f;
-    if (lane_ok && final_vis) {
-      const Tris tris{P.geo.positions, P.geo.tri_v};
-      lane_ok = segment_visible(P.bvh, tris, res.sp + res.sn * kOriginEps, -sd, dist);
-    }
+    if (lane_ok && final_vis) lane_ok = tr.visible(res.sp + res.sn * kOriginEps, -sd, dist);
     float3 gi = zero3();
     if (lane_ok) {
       const float3 f = cook_torrance(o.n, view, sd, o.alb, o.metal, o.rough);
@@ -440,40 +440,46 @@ __device__ void shade_out(const Params& P, int pix, const Own& o, const PathRes&
   put3(st, GT_NRM, B, pix, o.n);
 }
 
-// ---- the kernels: one block per tile of C = blockDim.x pixels ------------------------
+// ---- the kernels ---------------------------------------------------------------------
 
-// K5: the whole frame; spatial reuse reads the previous frame's stage.
-template <bool kFinalVis, bool T>
-__global__ void __launch_bounds__(512) gi_mono(Params P) {
+// K5: the whole frame, each tile a cluster of blocks of kThreads threads
+// (kTileBlock: split, kTileMax: one block), the walks through the wide BVH;
+// spatial reuse reads the previous frame's stage.
+template <bool kFinalVis, bool T, int kThreads>
+__global__ void __launch_bounds__(kThreads) gi_mono(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = P.width * P.height;
+  const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
   Own o;
   PathRes res;
   uint32_t key;
-  stage1<T>(P, pix, o, res, key);
+  stage1<T, WideTracer, ClusterTile>(P, tr, pix, o, res, key);
   write_stage(P.stage_out, B, pix, o, res);
   key = fold(key, 8002u);
-  if (P.neighbors > 0) spatial(P, P.stage_in, pix, o, res, key, !kFinalVis);
+  if (P.neighbors > 0) spatial(P, tr, P.stage_in, pix, o, res, key, !kFinalVis);
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  shade_out(P, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
+  shade_out(P, tr, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
 }
 
-// K6: the stage of this frame.
+// K6: the stage of this frame, one block of C threads a tile.
 template <bool T>
 __global__ void __launch_bounds__(512) gi_stage1(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const ThreadedTracer tr{P.bvh, Tris{P.geo.positions, P.geo.tri_v}};
   Own o;
   PathRes res;
   uint32_t key;
-  stage1<T>(P, pix, o, res, key);
+  stage1<T, ThreadedTracer, BlockTile>(P, tr, pix, o, res, key);
   write_stage(P.stage_out, P.width * P.height, pix, o, res);
 }
 
-// K7: same-frame spatial reuse from K6's stage, the shade, the state.
+// K7: same-frame spatial reuse from K6's stage, the shade, the state; one
+// block of C threads a tile.
 __global__ void __launch_bounds__(512) gi_stage2(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = P.width * P.height;
+  const ThreadedTracer tr{P.bvh, Tris{P.geo.positions, P.geo.tri_v}};
   const float* sg = P.stage_in;
   Own o;
   o.pos = row3(sg, GS_POS, B, pix);
@@ -489,16 +495,30 @@ __global__ void __launch_bounds__(512) gi_stage2(Params P) {
   PathRes res{row3(sg, GS_SP, B, pix), row3(sg, GS_SN, B, pix), row3(sg, GS_RAD, B, pix), row1(sg, GS_PHAT, B, pix),
               row1(sg, GS_W, B, pix), row1(sg, GS_M, B, pix), row1(sg, GS_WSUM, B, pix)};
   uint32_t key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 8002u);
-  if (P.neighbors > 0) spatial(P, sg, pix, o, res, key, true);
+  if (P.neighbors > 0) spatial(P, tr, sg, pix, o, res, key, true);
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  shade_out(P, pix, o, res, -dir, false);
+  shade_out(P, tr, pix, o, res, -dir, false);
+}
+
+using MonoKernel = void (*)(Params);
+
+template <int kThreads>
+MonoKernel mono_of(bool final_vis, bool textured) {
+  if (final_vis) return textured ? gi_mono<true, true, kThreads> : gi_mono<true, false, kThreads>;
+  return textured ? gi_mono<false, true, kThreads> : gi_mono<false, false, kThreads>;
+}
+
+// K5's instantiation for final_vis, texturing and a tile split over a cluster
+MonoKernel mono_kernel(bool final_vis, bool textured, bool clustered) {
+  return clustered ? mono_of<kTileBlock>(final_vis, textured) : mono_of<kTileMax>(final_vis, textured);
 }
 
 }  // namespace
 
 extern "C" int fyp_restir_gi(
-    int kernel, const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int bounces,
+    int kernel, const void* cam, const void* ppv, int width, int height, unsigned int frame, int lanes, int clustered,
+    int bounces,
     int neighbors, float radius, float history_limit, int temporal, float sky_r, float sky_g, float sky_b,
     const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
     const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
@@ -506,10 +526,15 @@ extern "C" int fyp_restir_gi(
     int tex_wb,
     const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first, const void* bvh_prim_idx,
     int n_nodes, int leaf_size,
+    const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* state_in, const void* stage_in, void* state_out, void* stage_out, void* accum, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
   if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || (textured && tex_k < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool mono = kernel == kMono || kernel == kMonoFinalVis;
+  size_t smem = 0;
+  if (mono && !tile_fits(lanes, clustered != 0, wide_stack_depth, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
@@ -518,6 +543,7 @@ extern "C" int fyp_restir_gi(
   P.ppv = F(ppv);
   P.width = width;
   P.height = height;
+  P.C = lanes;
   P.frame = frame;
   P.bounces = bounces;
   P.neighbors = neighbors;
@@ -530,6 +556,8 @@ extern "C" int fyp_restir_gi(
   P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
               tex_hb, tex_wb};
   P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
+                   static_cast<int*>(wide_overflow), wide_stack_depth};
   P.state_in = F(state_in);
   P.stage_in = F(stage_in);
   P.state_out = static_cast<float*>(state_out);
@@ -539,19 +567,13 @@ extern "C" int fyp_restir_gi(
   const int blocks = n_pix / lanes;
   switch (kernel) {
     case kMono:
-      if (textured) {
-        gi_mono<false, true><<<blocks, lanes, 0, s>>>(P);
-      } else {
-        gi_mono<false, false><<<blocks, lanes, 0, s>>>(P);
-      }
+    case kMonoFinalVis: {
+      const MonoKernel k = mono_kernel(kernel == kMonoFinalVis, textured != 0, clustered != 0);
+      cudaError_t e = allow_stack_smem(k, smem);
+      if (e == cudaSuccess) e = launch_tiles(k, n_pix, lanes, tile_threads(lanes, clustered != 0), smem, s, P);
+      if (e != cudaSuccess) return static_cast<int>(e);
       break;
-    case kMonoFinalVis:
-      if (textured) {
-        gi_mono<true, true><<<blocks, lanes, 0, s>>>(P);
-      } else {
-        gi_mono<true, false><<<blocks, lanes, 0, s>>>(P);
-      }
-      break;
+    }
     case kStage1:
       if (textured) {
         gi_stage1<true><<<blocks, lanes, 0, s>>>(P);
@@ -566,4 +588,18 @@ extern "C" int fyp_restir_gi(
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of K5 (final_vis, textured, split or not) one multiprocessor
+// holds at once, and the clusters the card holds at once, for tiles of lanes
+// pixels and stacks of wide_stack_depth entries, by the CUDA runtime.
+extern "C" int fyp_restir_gi_occupancy(int final_vis, int textured, int lanes, int clustered, int wide_stack_depth,
+                                       int* blocks_per_sm, int* clusters) {
+  size_t smem = 0;
+  if (!tile_fits(lanes, clustered != 0, wide_stack_depth, &smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const MonoKernel k = mono_kernel(final_vis != 0, textured != 0, clustered != 0);
+  cudaError_t e = allow_stack_smem(k, smem);
+  const int threads = tile_threads(lanes, clustered != 0);
+  if (e == cudaSuccess) e = tile_occupancy(k, lanes, threads, smem, blocks_per_sm, clusters);
+  return static_cast<int>(e);
 }

@@ -16,7 +16,12 @@
 //   fyp_trace_closest          the wide walks (K1), lanes 4 or 1;
 //   fyp_trace_closest_threaded the threaded walk of traverse.cuh, one thread
 //                              a ray, kept so that the walks can be timed in
-//                              turns while K3-K8 still walk the threaded BVH.
+//                              turns while K4 and K6-K8 still walk the
+//                              threaded BVH;
+//   fyp_segment_visible        wide.cuh::segment_visible_wide1 (the segment
+//                              test of K5's walks), one thread a segment, so
+//                              that it can be held against its plain version
+//                              (ops/traverse.py::trace_segments).
 #include "wide.cuh"
 
 namespace {
@@ -78,6 +83,16 @@ __global__ void __launch_bounds__(kBlock) trace_threaded_kernel(fyp::Bvh bvh, fy
   out_v[i] = h.v;
 }
 
+__global__ void __launch_bounds__(kBlock) segment_kernel(fyp::WideBvh w, const float* __restrict__ origins,
+                                                         const float* __restrict__ directions,
+                                                         const float* __restrict__ dist, int n,
+                                                         int* __restrict__ out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return;
+  out[i] = fyp::segment_visible_wide1(w, fyp::lane_stack(w.stack_depth), fyp::ldg3(origins, i),
+                                      fyp::ldg3(directions, i), __ldg(dist + i));
+}
+
 }  // namespace
 
 extern "C" int fyp_trace_closest(const void* nodes, const void* tris, void* overflow, const void* origins,
@@ -117,5 +132,21 @@ extern "C" int fyp_trace_closest_threaded(const void* bvh_lo, const void* bvh_hi
       bvh, tris, static_cast<const float*>(origins), static_cast<const float*>(directions),
       static_cast<const float*>(t_max), n_rays, static_cast<int*>(out_tri), static_cast<float*>(out_t),
       static_cast<float*>(out_u), static_cast<float*>(out_v));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fyp_segment_visible(const void* nodes, const void* tris, void* overflow, const void* origins,
+                                   const void* directions, const void* dist, int n, void* out, int stack_depth,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  if (stack_depth < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const fyp::WideBvh w{static_cast<const float4*>(nodes), static_cast<const float4*>(tris),
+                       static_cast<int*>(overflow), stack_depth};
+  const size_t smem = fyp::wide_stack_bytes(kBlock, stack_depth);
+  const cudaError_t e = fyp::allow_stack_smem(segment_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  segment_kernel<<<(n + kBlock - 1) / kBlock, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<const float*>(origins), static_cast<const float*>(directions), static_cast<const float*>(dist),
+      n, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
 // Closest-hit traversal of the threaded BVH, one thread per ray.
 //
 // Device code shared by trace.cu (the standalone trace kernel),
-// megakernel.cu, restir_di.cu and restir_gi.cu (which call trace_closest for
-// their primary, shadow and continuation rays, and segment_visible for the
-// visibility of a ReSTIR GI reconnection).  It replaces the TPU's dense ray x triangle tile
-// sweep (fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel) with the
+// megakernel.cu, megakernel_diff.cu, restir_di.cu and restir_gi.cu (K4, K6,
+// K7 and K8 call trace_closest for their primary, shadow and continuation
+// rays, and K7 segment_visible for the visibility of a ReSTIR GI
+// reconnection; K1, K2, K3 and K5 walk the wide BVH of wide.cuh instead).
+// It replaces the TPU's dense ray x triangle tile sweep
+// (fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel) with the
 // reference's own per-ray walk (Renderer.cu:460-561), in the stackless
 // form of fypraytracer_tpu/ops/traverse.py:75-113:
 //   * nodes are in preorder; an inner node whose box is hit falls through
@@ -216,5 +218,16 @@ __device__ inline bool segment_visible(const Bvh& bvh, const Tris& tris, float3 
   }
   return best < t_end;
 }
+
+// A kernel's walks through the threaded BVH (K6, K7): the closest hit and the
+// segment test, as wide.cuh::WideTracer offers them through the wide BVH.
+struct ThreadedTracer {
+  Bvh bvh;
+  Tris tris;
+  __device__ __forceinline__ Hit closest(float3 o, float3 d) const { return trace_closest(bvh, tris, o, d, kBig); }
+  __device__ __forceinline__ bool visible(float3 o, float3 d, float dist) const {
+    return segment_visible(bvh, tris, o, d, dist);
+  }
+};
 
 }  // namespace fyp

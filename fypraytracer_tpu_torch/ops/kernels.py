@@ -32,8 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # neither, so that its loss and gradient round as its plain version's
 EXTRA_FLAGS = {"restir_gi": ["-fmad=false"], "megakernel_diff": ["-fmad=false"]}
 
-# per library: the loaded library and its C entries with their argtypes set
-_libs: dict[str, tuple[ctypes.CDLL, dict]] = {}
+# per library: the loaded library, its C entries with their argtypes set, and
+# the extra flags it was built with (a build with other flags, e.g.
+# -DFYP_WALK_CHECKS for the walks' range checks in wide.cuh, is a library of
+# its own, loaded in its place while EXTRA_FLAGS names them)
+_libs: dict[str, tuple[ctypes.CDLL, dict, tuple]] = {}
 # per library: {"path", "seconds" (0.0 when it was already built), "log"}
 build_info: dict[str, dict] = {}
 
@@ -91,9 +94,10 @@ def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of library ``name`` with its argtypes set
     (every pointer and the stream must be ``c_void_p``); returns int.  The
     library is built and loaded, and the entry bound, once."""
-    if name not in _libs:
-        _libs[name] = (ctypes.CDLL(build(name)), {})
-    lib, fns = _libs[name]
+    flags = tuple(EXTRA_FLAGS.get(name, ()))
+    if name not in _libs or _libs[name][2] != flags:
+        _libs[name] = (ctypes.CDLL(build(name)), {}, flags)
+    lib, fns, _ = _libs[name]
     fn = fns.get(symbol)
     if fn is None:
         fn = getattr(lib, symbol)

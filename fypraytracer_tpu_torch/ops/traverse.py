@@ -27,7 +27,11 @@ with t/u/v from Möller–Trumbore, as the JAX tracers do.
 
 ``segment_visible`` is the plain version of the device function of the same
 name in ``csrc/traverse.cuh``: the visibility test of a segment that ReSTIR
-GI's reconnections use.  ``trace_rays(..., counts=...)`` also counts the
+GI's reconnections use.  ``segment_visible_wide`` is the same test walked in
+the order of ``csrc/wide.cuh::segment_visible_wide1`` (K5's), and
+``trace_segments`` launches that device function on a batch of segments
+(``csrc/trace.cu::fyp_segment_visible``), so that the card can hold it
+against its plain twin.  ``trace_rays(..., counts=...)`` also counts the
 walk's node visits and triangle tests, for the roofline bound that
 ``chip_smoke.py`` reports; no render path asks for counts.
 
@@ -140,7 +144,8 @@ def _keep_closest(r, ids, tt, uu, vv, hit, t, tri, u, v):
 _POP = -1     # the walk's "take the next stack entry"
 
 
-def trace_rays_wide(wide: WideBVH, origins, directions, t_max=None, counts: dict | None = None):
+def trace_rays_wide(wide: WideBVH, origins, directions, t_max=None, counts: dict | None = None,
+                    stop_below=None):
     """Closest hit of a ray batch (B, 3) through the 4-wide BVH's records —
     plain PyTorch, in the order of ``csrc/wide.cuh::trace_closest_wide``.
 
@@ -153,8 +158,10 @@ def trace_rays_wide(wide: WideBVH, origins, directions, t_max=None, counts: dict
     ``<= t_best``.  Returns what ``trace_rays`` returns, and the same hits:
     the closest, ties to the lowest id, whatever the order of the walk.
     ``counts`` (optional dict) gets ``"nodes"`` (inner node visits) and
-    ``"leaves"`` (leaf visits) added.  The CPU rehearsal of the kernel's
-    logic; ``trace_rays`` stays the plain version the kernels are held to.
+    ``"leaves"`` (leaf visits) added.  ``stop_below``: optional (B,); a ray
+    ends its walk at the leaf that gives it a hit below it (as
+    ``trace_rays``'s).  The CPU rehearsal of the kernel's logic;
+    ``trace_rays`` stays the plain version the kernels are held to.
     """
     origins, directions = origins.detach(), directions.detach()
     B = origins.shape[0]
@@ -212,6 +219,8 @@ def trace_rays_wide(wide: WideBVH, origins, directions, t_max=None, counts: dict
                                                     p0[slot], e1[slot], e2[slot])
             _keep_closest(r, tri_id[slot], tt, uu, vv, hit, t, tri, u, v)
             cur[r] = _POP
+            if stop_below is not None:
+                sp[r[t[r] < stop_below[r]]] = 0          # nothing left to pop: the walk ends
         # pop the nearest entry still in reach; a ray with an empty stack is done
         popping = ray[cur[ray] == _POP]
         while popping.numel():
@@ -227,6 +236,15 @@ def trace_rays_wide(wide: WideBVH, origins, directions, t_max=None, counts: dict
     return dict(tri=tri, t=torch.where(tri < 0, -1.0, t), u=u, v=v)
 
 
+def _segment_ends(dist):
+    """The bounds of the segment test: hits below ``lo`` block a segment,
+    and the walk's bound ``t_max`` lies just above dist + tol, so that a hit
+    at t <= dist + tol counts."""
+    tol = torch.clamp_min(dist * 1e-3, 1e-4)
+    hi = dist + tol
+    return dist - tol, torch.nextafter(hi, torch.full_like(hi, float("inf")))
+
+
 def segment_visible(bvh: FlatBVH, geometry: Geometry, origins, directions, dist):
     """(B,) bool: the segment of length ``dist`` from each origin along its
     unit direction reaches its end.  True when no hit has t < dist − tol and
@@ -237,10 +255,22 @@ def segment_visible(bvh: FlatBVH, geometry: Geometry, origins, directions, dist)
     ``csrc/traverse.cuh::segment_visible`` walks.  A boolean: the inputs
     are detached."""
     origins, directions, dist = origins.detach(), directions.detach(), dist.detach()
-    tol = torch.clamp_min(dist * 1e-3, 1e-4)
-    lo, hi = dist - tol, dist + tol
-    h = trace_rays(bvh, geometry, origins, directions,
-                   t_max=torch.nextafter(hi, torch.full_like(hi, float("inf"))), stop_below=lo)
+    lo, t_max = _segment_ends(dist)
+    h = trace_rays(bvh, geometry, origins, directions, t_max=t_max, stop_below=lo)
+    return (h["tri"] >= 0) & (h["t"] >= lo)
+
+
+def segment_visible_wide(wide: WideBVH, origins, directions, dist):
+    """``segment_visible`` through the 4-wide BVH's records, in the order of
+    ``csrc/wide.cuh::segment_visible_wide1``: the walk of
+    ``trace_rays_wide`` bounded by dist + tol, ending at the first leaf
+    that gives a hit below dist − tol.  The same boolean as
+    ``segment_visible`` for every segment: its bound never falls below
+    dist − tol, so a box it prunes holds no hit that blocks the segment or
+    ends it."""
+    origins, directions, dist = origins.detach(), directions.detach(), dist.detach()
+    lo, t_max = _segment_ends(dist)
+    h = trace_rays_wide(wide, origins, directions, t_max=t_max, stop_below=lo)
     return (h["tri"] >= 0) & (h["t"] >= lo)
 
 
@@ -425,6 +455,36 @@ def trace_closest_threaded(bvh: FlatBVH, geometry: Geometry, origins, directions
 
 
 trace_closest_threaded.launches = 0
+
+
+_SEGMENT_ARGTYPES = [_P] * 6 + [ctypes.c_int, _P, ctypes.c_int, _P]
+
+
+def trace_segments(scene, origins, directions, dist):
+    """(B,) bool: ``segment_visible_wide`` through the device function K5
+    walks (``csrc/wide.cuh::segment_visible_wide1``), launched one thread a
+    segment by ``csrc/trace.cu::fyp_segment_visible`` (the plain twin for
+    CPU tensors).  ``trace_segments.launches`` counts its launches."""
+    if origins.device.type == "cpu":
+        return segment_visible_wide(scene.wide, origins, directions, dist)
+    wide = wide_records(scene)
+    origins, directions, dist = _rays("trace_segments", origins, directions, dist)
+    if dist is None:
+        raise ValueError("trace_segments: dist is required")
+    kernels.check_inputs("trace_segments", floats=(origins, directions, dist, wide.nodes, wide.tris),
+                         ints=(wide.overflow,))
+    fn = kernels.load("trace", "fyp_segment_visible", _SEGMENT_ARGTYPES)
+    B = origins.shape[0]
+    out = torch.empty(B, dtype=torch.int32, device=origins.device)
+    P = kernels.ptr
+    rc = fn(P(wide.nodes), P(wide.tris), P(wide.overflow), P(origins), P(directions), P(dist), B, P(out),
+            stack_depth(wide), kernels.stream_ptr(origins.device))
+    trace_segments.launches += 1
+    kernels.check(rc, "trace_segments")
+    return out != 0
+
+
+trace_segments.launches = 0
 
 
 def pick_tracer(scene):

@@ -9,7 +9,11 @@ with no synchronisation between them:
   * K3 ``restir_di_k3`` replaces the TPU kernel ``k1`` (:243, launched at
     :678): primary hit, M candidates uniform over the emissive list with
     p̂ at the emitter's centroid, temporal reuse through the tile-shared
-    reprojection offset; it writes the stage buffer;
+    reprojection offset; it writes the stage buffer.  Its primary ray walks
+    the scene's wide BVH (``Scene.wide``, one thread a ray), and each tile
+    runs as one block, or split over a cluster of blocks of 128 threads
+    where the tiles are too few to fill the card
+    (``restir_common.tile_clustered``);
   * K4 ``restir_di_k4`` replaces ``k2`` (:417, launched at :718): spatial
     reuse over frame-shared neighbour offsets, a shadow ray to a random
     point on the chosen emitter, the shade by W; it adds the frame to the
@@ -62,8 +66,11 @@ from fypraytracer_tpu_torch.render.restir_common import (
     camera_rays,
     hit_surface,
     pick_ray_lanes,
+    pick_tile_launch,
     spatial_offsets,
     tile_history_index,
+    tile_walk_records,
+    wide_args,
 )
 from fypraytracer_tpu_torch.render.restir_di import _finalize_w, reservoir_update
 from fypraytracer_tpu_torch.scene.types import Scene
@@ -271,12 +278,13 @@ def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
 # ---- kernels -------------------------------------------------------------------
 
 _BVH = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+_WIDE = [ctypes.c_void_p] * 3 + [ctypes.c_int]
 _EM = [ctypes.c_void_p] * 8 + [ctypes.c_int]
 _K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
                 + [ctypes.c_void_p] * 10                                        # geometry, materials
                 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5    # texture
-                + _BVH + _EM + [ctypes.c_void_p] * 3)
+                + _WIDE + _EM + [ctypes.c_void_p] * 3)
 _K4_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int]
                 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2 + _BVH + _EM
@@ -289,13 +297,19 @@ def _em_args(em: EmissiveTable):
             P(em.centroid), P(em.tri), em.n)
 
 
-def _check(name, scene, em, tensors, ints=()):
+def _check(name, scene, em, tensors, ints=(), wide=None):
+    """Raise unless the kernel's inputs lie on one CUDA device, contiguous,
+    in their dtypes: ``tensors`` and the scene's tables, with the threaded
+    BVH (K4) or the wide one ``wide`` (K3)."""
     g, m, b = scene.geometry, scene.materials, scene.bvh
+    walk_f, walk_i = (b.lo, b.hi), (b.miss, b.first, b.prim_idx)
+    if wide is not None:
+        walk_f, walk_i = (wide.nodes, wide.tris), (wide.overflow,)
     kernels.check_inputs(
         name,
-        floats=(*tensors, g.positions, g.normals, m.albedo, m.roughness, m.metallic, b.lo, b.hi,
+        floats=(*tensors, g.positions, g.normals, m.albedo, m.roughness, m.metallic, *walk_f,
                 em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid),
-        ints=(*ints, g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx, em.tri))
+        ints=(*ints, g.tri_v, g.tri_mat, *walk_i, em.tri))
 
 
 def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
@@ -303,9 +317,10 @@ def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                  cam: torch.Tensor | None = None) -> torch.Tensor:
     """The (S_ROWS, B) stage of frame ``frame`` through the CUDA kernel K3
     (plain version for CPU tensors), its textured instantiation for a
-    textured scene.  ``ppv`` may be an array or a tensor on the card, ``cam``
-    the camera's ``camera_matrices`` on the card (made from ``camera`` when
-    None)."""
+    textured scene, each tile one block or split over a cluster as
+    ``restir_common.tile_clustered`` picks.  ``ppv`` may be an array or a
+    tensor on the card, ``cam`` the camera's ``camera_matrices`` on the card
+    (made from ``camera`` when None)."""
     if state.device.type == "cpu":
         return restir_di_k3_plain(scene, em, camera, frame, settings, state, ppv)
     dev = state.device
@@ -315,27 +330,30 @@ def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
     emission = scene.materials.emission().contiguous()
     stage = torch.empty((S_ROWS, B), dtype=torch.float32, device=dev)
     tex = scene.tex
+    lay = pick_tile_launch(scene, B, dev)
+    wide = tile_walk_records("restir_di_k3", scene, lay["threads"])
     _check("restir_di_k3", scene, em, (cam, pv, emission, state, stage, scene.geometry.uvs)
-           + (() if tex is None else (tex.prim, tex.bounce)), ints=(scene.materials.albedo_map,))
+           + (() if tex is None else (tex.prim, tex.bounce)), ints=(scene.materials.albedo_map,), wide=wide)
     if state.shape != (ST_ROWS, B):
         raise ValueError(f"restir_di_k3: state must be ({ST_ROWS}, {B}), got {tuple(state.shape)}")
     _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage,
-               kernels.stream_ptr(dev), tex)
+               kernels.stream_ptr(dev), tex, lay["clustered"])
     return stage
 
 
-def _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage, stream, tex):
+def _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage, stream, tex, clustered):
     """Launch ``fyp_restir_di_k3`` on ``stream``, textured with the tables
-    ``tex`` unless it is None (inputs already checked)."""
+    ``tex`` unless it is None, each tile split over a cluster where
+    ``clustered`` (inputs already checked; the walk reads ``scene.wide``)."""
     g, m = scene.geometry, scene.materials
     P = kernels.ptr
     fn = kernels.load("restir_di", "fyp_restir_di_k3", _K3_ARGTYPES)
     rc = fn(P(cam), P(pv), camera.width, camera.height, int(frame) & 0xFFFFFFFF,
-            pick_ray_lanes(camera.width * camera.height), settings.light_candidates,
+            pick_ray_lanes(camera.width * camera.height), int(clustered), settings.light_candidates,
             float(settings.temporal_history_limit), int(settings.temporal_reuse),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
-            *bvh_args(scene.bvh), *_em_args(em), P(state), P(stage), stream)
+            *wide_args(scene.wide), *_em_args(em), P(state), P(stage), stream)
     restir_di_k3.launches += 1
     kernels.check(rc, "restir_di_k3")
 

@@ -12,7 +12,11 @@ The torch counterpart of ``fypraytracer_tpu/render/megakernel_restir_gi.py``
     the shade and the state out.  Visibility of a neighbour's reconnection
     is traced per neighbour (the reference's rejection, Renderer.cu:
     2356-2366), or with ``final_vis`` once for the winner (the original RIS
-    form, ``--gi-fast``);
+    form, ``--gi-fast``).  Its walks go through the scene's wide BVH
+    (``Scene.wide``, one thread a ray, the segment test of
+    ``ops/traverse.py::segment_visible_wide``), and each tile runs as one
+    block, or split over a cluster of blocks of 128 threads where the tiles
+    are too few to fill the card (``restir_common.tile_clustered``);
   * K6 ``restir_gi_k1`` replaces ``make_restir_gi_megakernel::k1`` (:169,
     launched at :748): K5's first half, writing the stage;
   * K7 ``restir_gi_k2`` replaces ``k2a`` (:447 → :758) and ``k2b`` (:544 →
@@ -70,8 +74,11 @@ from fypraytracer_tpu_torch.render.restir_common import (
     camera_rays,
     hit_surface,
     pick_ray_lanes,
+    pick_tile_launch,
     spatial_offsets,
     tile_history_index,
+    tile_walk_records,
+    wide_args,
 )
 from fypraytracer_tpu_torch.scene.types import Scene
 
@@ -369,21 +376,29 @@ def restir_gi_mono_plain(scene: Scene, camera: Camera, frame: int, settings: Ren
 # csrc/restir_gi.cu's kernel selector
 _K5, _K5_FINAL_VIS, _K6, _K7 = 0, 1, 2, 3
 _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+              ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
               ctypes.c_float, ctypes.c_int]
              + [ctypes.c_float] * 3
              + [ctypes.c_void_p] * 10                           # geometry, materials
              + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5    # texture
              + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2       # bvh
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int]           # wide bvh
              + [ctypes.c_void_p] * 6)                           # buffers, stream
 
 
-def _check(name, scene, camera, tensors, shapes, tex):
+def _check(name, scene, camera, tensors, shapes, tex, wide=None):
+    """Raise unless the kernel's inputs lie on one CUDA device, contiguous,
+    in their dtypes and shapes: ``tensors`` (``shapes``: their rows, 3 for
+    a (B, 3) image) and the scene's tables, with the threaded BVH (K6, K7)
+    or the wide one ``wide`` (K5)."""
     g, m, b = scene.geometry, scene.materials, scene.bvh
+    walk_f, walk_i = (b.lo, b.hi), (b.miss, b.first, b.prim_idx)
+    if wide is not None:
+        walk_f, walk_i = (wide.nodes, wide.tris), (wide.overflow,)
     kernels.check_inputs(
-        name, floats=(*tensors, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, b.lo, b.hi)
+        name, floats=(*tensors, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, *walk_f)
         + (() if tex is None else (tex.prim, tex.bounce)),
-        ints=(g.tri_v, g.tri_mat, m.albedo_map, b.miss, b.first, b.prim_idx))
+        ints=(g.tri_v, g.tri_mat, m.albedo_map, *walk_i))
     B = camera.width * camera.height
     for t, rows in zip(tensors, shapes):
         want = (B, 3) if rows == 3 else (rows, B)
@@ -392,13 +407,15 @@ def _check(name, scene, camera, tensors, shapes, tex):
 
 
 def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, stage_in,
-            state_out, stage_out, accum, stream, tex):
+            state_out, stage_out, accum, stream, tex, wide=None, clustered=False):
     """Launch one kernel of ``fyp_restir_gi`` on ``stream`` (inputs already
     checked); buffers a kernel does not use may be None.  ``cam``: the
     camera's ``camera_matrices`` on the card, or None to make them here;
     ``ppv``: an array or a tensor on the card, None for K7.  K5 and K6 run
     their textured instantiation with the tables ``tex`` unless it is None;
-    K7 reads the staged albedo and takes None."""
+    K7 reads the staged albedo and takes None.  ``wide``: the wide BVH K5
+    walks (K6 and K7 walk the threaded one and take None); ``clustered``:
+    K5 splits each tile over a cluster."""
     g, m = scene.geometry, scene.materials
     dev = g.positions.device
     P = kernels.ptr
@@ -412,14 +429,14 @@ def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, 
     emission = m.emission().contiguous()
     fn = kernels.load("restir_gi", "fyp_restir_gi", _ARGTYPES)
     rc = fn(which, P(cam), opt(pv), camera.width, camera.height, int(frame) & 0xFFFFFFFF,
-            pick_ray_lanes(camera.width * camera.height), settings.bounces,
+            pick_ray_lanes(camera.width * camera.height), int(clustered), settings.bounces,
             settings.spatial_neighbors if settings.spatial_reuse else 0,
             float(settings.spatial_radius), float(settings.temporal_history_limit),
             int(settings.temporal_reuse), *(float(c) for c in settings.sky_color),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map),
-            *tex_args(tex), *bvh_args(scene.bvh), opt(state_in), opt(stage_in), opt(state_out), opt(stage_out),
-            opt(accum), stream)
+            *tex_args(tex), *bvh_args(scene.bvh), *wide_args(wide), opt(state_in), opt(stage_in), opt(state_out),
+            opt(stage_out), opt(accum), stream)
     wrapper.launches += 1
     kernels.check(rc, wrapper.__name__)
 
@@ -433,18 +450,23 @@ def restir_gi_mono(scene: Scene, camera: Camera, frame: int, settings: RenderSet
     writes ``state``/``stage``, which must be other buffers.  ``ppv`` may be
     an array or a tensor on the card, ``cam`` the camera's
     ``camera_matrices`` on the card (made from ``camera`` when None).  A
-    textured scene runs K5's textured instantiation with ``Scene.tex``."""
+    textured scene runs K5's textured instantiation with ``Scene.tex``.
+    Each tile runs as one block or split over a cluster as
+    ``restir_common.tile_clustered`` picks."""
     if accum.device.type == "cpu":
         return restir_gi_mono_plain(scene, camera, frame, settings, state_prev, stage_prev, ppv,
                                     accum, state, stage, final_vis)
     tex = scene.tex
+    lay = pick_tile_launch(scene, camera.width * camera.height, accum.device)
+    wide = tile_walk_records("restir_gi_mono", scene, lay["threads"])
     _check("restir_gi_mono", scene, camera, (state_prev, stage_prev, accum, state, stage),
-           (GT_ROWS, GS_ROWS, 3, GT_ROWS, GS_ROWS), tex)
+           (GT_ROWS, GS_ROWS, 3, GT_ROWS, GS_ROWS), tex, wide)
     if state.data_ptr() == state_prev.data_ptr() or stage.data_ptr() == stage_prev.data_ptr():
         raise ValueError("restir_gi_mono: the frame's state and stage need buffers of their own "
                          "(other blocks still read the previous ones)")
     _launch(_K5_FINAL_VIS if final_vis else _K5, restir_gi_mono, scene, camera, frame, settings, cam,
-            ppv, state_prev, stage_prev, state, stage, accum, kernels.stream_ptr(accum.device), tex)
+            ppv, state_prev, stage_prev, state, stage, accum, kernels.stream_ptr(accum.device), tex, wide,
+            lay["clustered"])
 
 
 def restir_gi_k1(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,

@@ -1,16 +1,24 @@
 """What the ReSTIR DI and GI megakernels share: tiles, reprojection,
 frame-shared neighbour offsets, the surface record and the launch helpers.
 
-A tile is ``pick_ray_lanes(B)`` consecutive pixels, one block of the frame
-kernels; ``tile_history_index`` is where a tile reads the previous frame's
-buffers, ``spatial_offsets`` the frame's neighbour offsets, and
-``hit_surface`` the surface record of ``csrc/shading.cuh::surface`` in
-PyTorch.  ``camera_matrices`` is the (2, 4, 4) camera tensor the kernels
-read: the frame loops make it, and the previous proj @ view, once a call, so
-that the frames launch without a blocking copy to the card between them.
+A tile is ``pick_ray_lanes(B)`` consecutive pixels: one block of C threads
+of K4, K6 and K7; of K3 and K5 one block too, or split over a cluster of
+blocks of ``TILE_BLOCK`` threads where the frame's tiles are too few to fill
+the card (``tile_clustered``, ``tile_launch``, ``csrc/tile.cuh``);
+``tile_history_index`` is where a tile reads the previous frame's buffers,
+``spatial_offsets`` the frame's neighbour offsets, and ``hit_surface`` the
+surface record of ``csrc/shading.cuh::surface`` in PyTorch.
+``tile_walk_records`` hands K3 and K5 the scene's wide BVH, refusing a tree
+whose stacks would not fit in one of their blocks.  ``camera_matrices`` is
+the (2, 4, 4) camera tensor the kernels read: the frame loops make it, and
+the previous proj @ view, once a call, so that the frames launch without a
+blocking copy to the card between them.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -19,6 +27,7 @@ from fypraytracer_tpu_torch.core import rng
 from fypraytracer_tpu_torch.core.camera import Camera, generate_rays
 from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.hit import hit_payload
+from fypraytracer_tpu_torch.ops.traverse import stack_depth, wide_records
 from fypraytracer_tpu_torch.render.integrators import fetch_albedo
 from fypraytracer_tpu_torch.scene.types import Scene
 
@@ -29,6 +38,75 @@ def pick_ray_lanes(num_pixels: int) -> int:
         if num_pixels % c == 0:
             return c
     raise ValueError(f"pixel count {num_pixels} not divisible by 128")
+
+
+# threads a block of K3 and K5 whose tiles are split over a cluster
+# (csrc/tile.cuh::kTileBlock)
+TILE_BLOCK = 128
+# shared memory a block may hold on sm_90, and what K3's and K5's blocks hold
+# beside their stacks (csrc/tile.cuh::kTileStaticSmem)
+BLOCK_SMEM = 232448
+TILE_STATIC_SMEM = 8
+
+
+def stack_fits(threads: int) -> int:
+    """The stack entries each thread of a K3 or K5 block of ``threads`` gets
+    in the block's shared memory."""
+    return (BLOCK_SMEM - TILE_STATIC_SMEM) // (8 * threads)
+
+
+def tile_clustered(num_pixels: int, multiprocessors: int, stack_need: int = 0) -> bool:
+    """Whether K3 and K5 split each tile of a frame over a cluster of blocks
+    of ``TILE_BLOCK`` threads, rather than run it as one block of C threads:
+    where the frame's tiles, one block each, would keep at most half of the
+    card's ``multiprocessors`` busy, or where a block of C threads cannot
+    hold the tree's stacks.  Timed on an H100 (132 multiprocessors; PERF.md
+    Findings), both launches in turns at 32, 50, 72, 98 and 128 tiles of
+    512: split is faster at 32 tiles on both scenes (K5 by 1.1-1.25x);
+    one block a tile is as fast or faster from 50 tiles on the Cornell box
+    but only from about 98 on the 200k-triangle stress scene (split
+    1.05-1.16x faster at 50 and 72).  Of the single thresholds, half
+    the multiprocessors (66 tiles) loses least over those frames; a
+    threshold that followed the tree would lose nothing there, and two
+    scenes are too few to fit one."""
+    C = pick_ray_lanes(num_pixels)
+    return 2 * (num_pixels // C) <= multiprocessors or stack_need > stack_fits(C)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_launch(num_pixels: int, clustered: bool) -> dict:
+    """How K3 and K5 launch a frame (``csrc/tile.cuh::tile_config``): tiles
+    of ``C`` pixels, blocks of ``threads`` (``TILE_BLOCK`` split, C not),
+    ``cluster`` blocks to a tile, ``grid`` blocks.  Block b's thread i is
+    pixel b·threads + i, tile (b // cluster) and lane
+    (b % cluster)·threads + i."""
+    C = pick_ray_lanes(num_pixels)
+    threads = TILE_BLOCK if clustered else C
+    return dict(C=C, threads=threads, cluster=C // threads, grid=num_pixels // threads, clustered=clustered)
+
+
+def pick_tile_launch(scene: Scene, num_pixels: int, device) -> dict:
+    """``tile_launch`` of a frame on ``device``, split or not as
+    ``tile_clustered`` picks for the card and the scene's tree."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    need = 0 if scene.wide is None else scene.wide.stack_need
+    return tile_launch(num_pixels, tile_clustered(num_pixels, _multiprocessors(index), need))
+
+
+def tile_walk_records(name: str, scene: Scene, threads: int):
+    """The scene's wide BVH for K3 or K5 (``wide_records``), refused with
+    the reason where the stacks of one of their blocks of ``threads``
+    (``stack_need`` entries of 8 bytes a thread) would not fit in its
+    shared memory."""
+    fits = stack_fits(threads)
+    if scene.wide is not None and scene.wide.stack_need > fits:
+        raise ValueError(f"{name}: the wide BVH needs a stack of {scene.wide.stack_need} entries a thread, and "
+                         f"a block of {threads} threads holds {fits} in its {BLOCK_SMEM} bytes of shared memory")
+    return wide_records(scene)
 
 
 def spatial_offsets(frame: int, n: int, radius: float, stream: int) -> list[tuple[int, int]]:
@@ -117,3 +195,11 @@ def bvh_args(b):
     """The BVH's arguments of a kernel's C interface."""
     P = kernels.ptr
     return P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size
+
+
+def wide_args(wide):
+    """The wide BVH's arguments of a kernel's C interface (nulls for None)."""
+    if wide is None:
+        return ctypes.c_void_p(None), ctypes.c_void_p(None), ctypes.c_void_p(None), 1
+    P = kernels.ptr
+    return P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide)

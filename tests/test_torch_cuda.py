@@ -8,7 +8,12 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 
 Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit,
 and its walks of the wide BVH equal to the threaded walk bit for bit; K2
-NEE with one thread a pixel the same against its threaded walk;
+NEE with one thread a pixel the same against its threaded walk; the wide
+segment test (``trace_segments``) equal to its plain twin bit for bit; K5
+(a tile a cluster of blocks, the walks through the wide BVH) equal to its
+plain version bit for bit on the Cornell box at power-of-two squares, under
+the gates elsewhere, and its stage equal to K6's bit for bit, at tiles of
+512, 256 and 128 pixels;
 K2, K3+K4, K5-K7 (ReSTIR GI) and the renderers under
 tests/test_render_parity.py:111-114
 (median |Δ| < 1e-5, fewer than 1% of pixels off by more than 1e-3, mean
@@ -17,18 +22,25 @@ relative, the gradients within 1e-4 of their largest entry.  Isolated pixels may
 shading code, which can flip a RIS or lobe decision.
 """
 
+import copy
+import ctypes
+import functools
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
 from fypraytracer_tpu_torch.core.camera import generate_rays
+from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops import traverse as ttrav
 from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.render import megakernel as tmk
 from fypraytracer_tpu_torch.render import megakernel_diff as tmd
 from fypraytracer_tpu_torch.render import megakernel_restir as tmr
 from fypraytracer_tpu_torch.render import megakernel_restir_gi as tmg
+from fypraytracer_tpu_torch.render import restir_common as trc
 from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
 from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
 from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
@@ -57,6 +69,17 @@ def _gates(got, ref):
     assert float(np.median(diff)) < 1e-5
     assert (diff.max(axis=-1) > 1e-3).mean() < 0.01
     assert abs(got.mean() - ref.mean()) / ref.mean() < 0.01
+
+
+def _launched(fn, clustered):
+    """K3's or K5's wrapper ``fn`` with each tile split over a cluster
+    (``clustered``) or one block, whichever ``restir_common.tile_clustered``
+    would pick."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with mock.patch.object(trc, "tile_clustered", lambda *_: clustered):
+            return fn(*args, **kw)
+    return run
 
 
 def _scene():
@@ -255,40 +278,104 @@ def test_megakernel_sampler_matches_its_plain_version(cuda, tech):
 DI = RenderSettings(technique=SamplingTechnique.RESTIR_DI, sky_color=(0.05, 0.06, 0.08))
 
 
-def _di_setup(cuda):
-    scene, _ = _scene()
-    scene = tmk.morton_permuted_scene(scene)[0].to(cuda)
-    return scene, tmr.prepare_emissive_table(scene), Camera(position=(0.0, 1.0, 2.6),
-                                                          forward=(0, 0, -1), width=W, height=H)
+@functools.lru_cache(maxsize=None)
+def _stress_host():
+    """The 200,712-triangle stress scene in Morton order on the host (its
+    NumPy build takes seconds: made once), and its camera at W x H."""
+    builder, cam = tproc.stress(W, H)
+    return tmk.morton_permuted_scene(builder.compile())[0], cam
 
 
-def test_restir_di_kernels_match_plain_on_same_inputs(cuda):
+def _di_setup(cuda, w=W, h=H, scene_name="cornell"):
+    """A scene in Morton order on the card, its emissive table and the ReSTIR
+    camera at ``w`` x ``h``: tiles of 512 pixels at 32², 256 at 16², 128 at
+    40x16 (``restir_common.pick_ray_lanes``)."""
+    if scene_name == "stress":
+        host, cam = _stress_host()
+        cam = copy.deepcopy(cam)                  # the tests move it
+        assert (cam.width, cam.height) == (w, h)
+    else:
+        builder, _ = tproc.cornell_box(w, h, sphere_res=(6, 10))
+        host = tmk.morton_permuted_scene(builder.compile())[0]
+        cam = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=w, height=h)
+    scene = host.to(cuda)
+    return scene, tmr.prepare_emissive_table(scene), cam
+
+
+# (scene, width, height): tiles of 512, 256 and 128 pixels, and the stress
+# scene's deep tree
+TILES = [("cornell", 32, 32), ("cornell", 16, 16), ("cornell", 40, 16), ("stress", 32, 32)]
+TILE_IDS = ["C512", "C256", "C128", "stress C512"]
+
+
+def _k5_matches(got, ref, k6_stage, bitwise):
+    """K5's (image, state, stage) against its plain version's: bit for bit
+    where ``bitwise``, else under the gates; and K5's stage bit for bit
+    K6's on the same inputs (the same first half of a frame, walked through
+    the wide BVH, against the threaded walk).  Bit for bit against the
+    plain version holds on the Cornell box at power-of-two squares;
+    elsewhere the kernels' and the plain version's primary hits differ in
+    the last bits at a few pixels, K6's and K7's too (ROADMAP queue 3)."""
+    for got_t, ref_t, name in zip(got, ref, ("image", "state", "stage")):
+        if bitwise:
+            off = (got_t != ref_t).any(-1 if name == "image" else 0).nonzero().flatten()
+            assert off.numel() == 0, f"{name} differs at pixels {off[:16].tolist()}"
+        elif name == "image":
+            _gates(got_t.cpu().numpy(), ref_t.cpu().numpy())
+        else:
+            assert _elements_off(got_t, ref_t) < 0.01, name
+    assert torch.equal(got[2], k6_stage)
+
+
+def _moved(cam, move=True):
+    """The camera moved 0.05 to the side where ``move``; returns the proj @
+    view it left: the frame after a move reprojects each tile at an offset
+    of its own."""
+    ppv = cam.proj_view
+    if move:
+        cam.move_to(cam.position + np.float32([0.05, 0.0, 0.0]))
+    return ppv
+
+
+MOVES = pytest.mark.parametrize("move", [False, True], ids=["static", "move"])
+
+
+@MOVES
+@pytest.mark.parametrize("scene_name, w, h", TILES, ids=TILE_IDS)
+def test_restir_di_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, move):
     """K3 and K4 each against its plain version, fed the same state and stage
-    after two frames of history."""
-    scene, em, cam = _di_setup(cuda)
-    state = torch.zeros((tmr.ST_ROWS, W * H), device=cuda)
+    after two frames of history, the camera static or moved before the
+    third; K3 with its tiles split over clusters and one block each, the
+    same bits."""
+    scene, em, cam = _di_setup(cuda, w, h, scene_name)
+    state = torch.zeros((tmr.ST_ROWS, w * h), device=cuda)
     tmr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
+    ppv = _moved(cam, move)
     k3, k4 = tmr.restir_di_k3.launches, tmr.restir_di_k4.launches
-    stage = tmr.restir_di_k3(scene, em, cam, 3, DI, state, cam.proj_view)
-    ref_stage = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, cam.proj_view)
-    out, ref_out = (torch.zeros((W * H, 3), device=cuda) for _ in range(2))
+    stage = _launched(tmr.restir_di_k3, True)(scene, em, cam, 3, DI, state, ppv)
+    assert torch.equal(stage, _launched(tmr.restir_di_k3, False)(scene, em, cam, 3, DI, state, ppv))
+    ref_stage = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, ppv)
+    out, ref_out = (torch.zeros((w * h, 3), device=cuda) for _ in range(2))
     st_k, st_p = state.clone(), state.clone()
     tmr.restir_di_k4(scene, em, cam, 3, DI, ref_stage, st_k, out)
     tmr.restir_di_k4_plain(scene, em, cam, 3, DI, ref_stage, st_p, ref_out)
     torch.cuda.synchronize()
-    assert (tmr.restir_di_k3.launches, tmr.restir_di_k4.launches) == (k3 + 1, k4 + 1)
+    assert (tmr.restir_di_k3.launches, tmr.restir_di_k4.launches) == (k3 + 2, k4 + 1)
     off = (stage - ref_stage).abs() > 1e-3 * torch.clamp_min(ref_stage.abs(), 1.0)
     assert off.any(0).float().mean().item() < 0.01
     _gates(out.cpu().numpy(), ref_out.cpu().numpy())
+    ttrav.check_overflow(scene)
 
 
+@pytest.mark.parametrize("size", [(32, 32), (16, 16), (40, 16)], ids=["C512", "C256", "C128"])
 @pytest.mark.parametrize("move", [False, True], ids=["static", "move"])
-def test_restir_di_kernels_match_plain_over_frames(cuda, move):
-    scene, em, cam = _di_setup(cuda)
-    states = [torch.zeros((tmr.ST_ROWS, W * H), device=cuda) for _ in range(2)]
+def test_restir_di_kernels_match_plain_over_frames(cuda, move, size):
+    w, h = size
+    scene, em, cam = _di_setup(cuda, w, h)
+    states = [torch.zeros((tmr.ST_ROWS, w * h), device=cuda) for _ in range(2)]
     outs = []
     for fn, state in zip((tmr.restir_di_megakernel, tmr.restir_di_megakernel_plain), states):
-        c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+        c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=w, height=h)
         out = fn(scene, em, c, state, 1, 3, DI, c.proj_view, c.proj_view)
         if move:
             ppv = c.proj_view
@@ -322,19 +409,24 @@ def _elements_off(got, ref):
     return ((got - ref).abs() > 1e-3 * torch.clamp_min(ref.abs(), 1.0)).any(0).float().mean().item()
 
 
-def test_restir_gi_kernels_match_plain_on_same_inputs(cuda):
+@MOVES
+@pytest.mark.parametrize("scene_name, w, h", TILES, ids=TILE_IDS)
+def test_restir_gi_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, move):
     """K5 (both visibility modes), K6 and K7 each against its plain version,
-    fed the same state and stage after two frames of history."""
-    scene, _, cam = _di_setup(cuda)
-    B = W * H
+    fed the same state and stage after two frames of history, the camera
+    static or moved before the third; K5 with its tiles split over
+    clusters and one block each, the same bits, held as ``_k5_matches``
+    holds it."""
+    scene, _, cam = _di_setup(cuda, w, h, scene_name)
+    B = w * h
     z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
     _, state, stage = tmg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, GI, cam.proj_view, cam.proj_view)
-    ppv = cam.proj_view
+    ppv = _moved(cam, move)
     counts = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
 
-    got = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
+    k6 = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
     ref = tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)
-    assert _elements_off(got, ref) < 0.01
+    assert _elements_off(k6, ref) < 0.01
 
     outs = []
     for fn in (tmg.restir_gi_k2, tmg.restir_gi_k2_plain):
@@ -346,30 +438,40 @@ def test_restir_gi_kernels_match_plain_on_same_inputs(cuda):
 
     for final_vis in (False, True):
         outs = []
-        for fn in (tmg.restir_gi_mono, tmg.restir_gi_mono_plain):
+        for fn in (_launched(tmg.restir_gi_mono, True),
+                   _launched(tmg.restir_gi_mono, False), tmg.restir_gi_mono_plain):
             acc, st, sg = torch.zeros((B, 3), device=cuda), torch.empty_like(state), torch.empty_like(stage)
             fn(scene, cam, 3, GI, state, stage, ppv, acc, st, sg, final_vis=final_vis)
             outs.append((acc, st, sg))
         torch.cuda.synchronize()
-        _gates(outs[0][0].cpu().numpy(), outs[1][0].cpu().numpy())
-        assert _elements_off(outs[0][1], outs[1][1]) < 0.01 and _elements_off(outs[0][2], outs[1][2]) < 0.01
+        # a tile split over a cluster and a tile one block: the same bits
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+        outs = outs[1:]
+        _k5_matches(outs[0], outs[1], k6, scene_name == "cornell" and w == h)
     assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches) == \
-        (counts[0] + 2, counts[1] + 1, counts[2] + 1)
+        (counts[0] + 4, counts[1] + 1, counts[2] + 1)
+    ttrav.check_overflow(scene)
     with pytest.raises(ValueError, match="buffers of their own"):
         tmg.restir_gi_mono(scene, cam, 3, GI, state, stage, ppv, acc, state, stage)
 
 
-@pytest.mark.parametrize("mode", [dict(mono=True), dict(mono=True, final_vis=True), dict(mono=False)],
-                         ids=["mono", "final_vis", "split"])
-def test_restir_gi_kernels_match_plain_over_frames(cuda, mode):
+@pytest.mark.parametrize("mode, size", [(dict(mono=True), (32, 32)), (dict(mono=True, final_vis=True), (32, 32)),
+                                        (dict(mono=False), (32, 32)),
+                                        (dict(mono=True), (16, 16)), (dict(mono=True, final_vis=True), (16, 16)),
+                                        (dict(mono=True), (40, 16)), (dict(mono=True, final_vis=True), (40, 16))],
+                         ids=["mono", "final_vis", "split", "mono-C256", "final_vis-C256", "mono-C128",
+                              "final_vis-C128"])
+def test_restir_gi_kernels_match_plain_over_frames(cuda, mode, size):
     """The ping-pong frame loop against ``restir_gi_megakernel_plain``, 3 + 3
     frames with a camera move in between; launches: K5 once a frame, or K6
-    and K7 once each."""
-    scene, _, _ = _di_setup(cuda)
-    B = W * H
+    and K7 once each.  K5 also at tiles of 256 and 128 pixels (K6 and K7
+    run a tile as one block, as before)."""
+    w, h = size
+    scene, _, _ = _di_setup(cuda, w, h)
+    B = w * h
     outs = []
     for fn in (tmg.restir_gi_megakernel, tmg.restir_gi_megakernel_plain):
-        c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+        c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=w, height=h)
         z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
         before = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
         out, st, sg = fn(scene, c, *z, 1, 3, GI, c.proj_view, c.proj_view, **mode)
@@ -382,14 +484,76 @@ def test_restir_gi_kernels_match_plain_over_frames(cuda, mode):
     assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 0)       # the plain loop launches nothing
     _gates(outs[0], outs[1])
     assert float(st[tmg.GT_M].max()) > 2.0
-    c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+    c = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=w, height=h)
     mk = MegakernelReSTIRGI(scene, c, GI, device=cuda, **mode)
     before = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
     img = mk.render_many(6)
     torch.cuda.synchronize()
     after = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
     assert tuple(a - b for a, b in zip(after, before)) == want
-    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+    assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
+    mk.overflow.check()
+
+
+@pytest.mark.parametrize("w, h, frames", [(256, 256, 448), (512, 512, 136), (1920, 1088, 16)],
+                         ids=["256", "512", "1080p"])
+def test_restir_gi_runs_clean_over_many_frames(cuda, w, h, frames):
+    """``MegakernelReSTIRGI`` (K5, per-neighbour visibility) over many frames,
+    eight a call: K5 with its walks as ``__noinline__`` calls faulted with
+    an illegal address within these frames (at frame 441, 129 and 9), and
+    the kept kernel, whose walks are inlined, must run them clean, finite
+    and without a stack overflow (ROADMAP queue 3)."""
+    builder, cam = tproc.cornell_box(w, h)
+    settings = RenderSettings(technique=SamplingTechnique.RESTIR_GI, bounces=2, samples=1,
+                              sky_color=(0.05, 0.06, 0.08))     # the defaults: 5 neighbours, radius 30
+    r = MegakernelReSTIRGI(builder.compile(), cam, settings, device=cuda)
+    for _ in range(frames // 8):
+        img = r.render_many(8)
+    torch.cuda.synchronize()
+    assert r.frame_index == 1 + frames and bool(torch.isfinite(img).all())
+    r.overflow.check()
+
+
+@pytest.mark.parametrize("cls, mode, scene_name, w, h, frames", [
+    (MegakernelReSTIRGI, {}, "cornell", 256, 256, 448),
+    (MegakernelReSTIRGI, {}, "cornell", 512, 512, 136),
+    (MegakernelReSTIRGI, {}, "cornell", 1920, 1088, 16),
+    (MegakernelReSTIRGI, dict(final_vis=True), "cornell", 1920, 1088, 16),
+    (MegakernelReSTIRGI, {}, "stress", 128, 128, 16),
+    (MegakernelReSTIRDI, {}, "cornell", 1920, 1088, 16),
+    (MegakernelReSTIRDI, {}, "stress", 128, 128, 16),
+], ids=["gi-256", "gi-512", "gi-1080p", "gi-final_vis-1080p", "gi-stress", "di-1080p", "di-stress"])
+def test_wide_walks_stay_in_range(cuda, monkeypatch, cls, mode, scene_name, w, h, frames):
+    """K5 (both visibility modes) and K3 built with the walks' range checks
+    (``csrc/wide.cuh``, ``FYP_WALK_CHECKS``), over the frames at which K5
+    with ``__noinline__`` walk calls faulted (ROADMAP queue 3) and on the
+    stress scene, whose 32 tiles are split over clusters: every node index,
+    child ref, leaf slot, triangle id and stack pointer lies in the tree,
+    every ray and segment length is finite, and no walk runs away.  First a
+    control: limits of one node, which the root's children break, must be
+    counted."""
+    lib = "restir_gi" if cls is MegakernelReSTIRGI else "restir_di"
+    monkeypatch.setitem(kernels.EXTRA_FLAGS, lib, [*kernels.EXTRA_FLAGS.get(lib, ()), "-DFYP_WALK_CHECKS"])
+    builder, cam = (tproc.stress if scene_name == "stress" else tproc.cornell_box)(w, h)
+    technique = SamplingTechnique.RESTIR_GI if cls is MegakernelReSTIRGI else SamplingTechnique.RESTIR_DI
+    settings = RenderSettings(technique=technique, bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08))
+    r = cls(builder.compile(), cam, settings, device=cuda, **mode)
+    nodes, slots, tris = r.scene.wide.nodes.shape[0], r.scene.wide.tris.shape[0], r.scene.geometry.tri_v.shape[0]
+    rec = torch.zeros(16, dtype=torch.int32, device=cuda)
+    limits = kernels.load(lib, "fyp_walk_checks", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    kernels.check(limits(1, slots, tris, kernels.ptr(rec)), "fyp_walk_checks")
+    r.render_many(1)
+    torch.cuda.synchronize()
+    assert rec[0].item() == 1 and rec[1].item() == 3 and rec[8 + 3].item() > 0
+    rec.zero_()
+    r.reset()
+    kernels.check(limits(nodes, slots, tris, kernels.ptr(rec)), "fyp_walk_checks")
+    for _ in range(frames // 8):
+        img = r.render_many(8)
+    torch.cuda.synchronize()
+    assert rec.tolist() == [0] * 16
+    assert bool(torch.isfinite(img).all())
+    r.overflow.check()
 
 
 def _diff_inputs(cuda, size):
@@ -465,14 +629,18 @@ def test_diff_megakernel_build_fault_raises(cuda, fault, monkeypatch, tmp_path):
 
 # ---- textures ---------------------------------------------------------------------
 
-def _textured(cuda):
+def _textured(cuda, w=W, h=H):
     """The textured Cornell box (the 64² checker and a seeded 512² page, which
     the kernels' primary level box-filters to 256²), Morton order, on the
     card, with the DI camera."""
     from torch_textured_scene import port_textured
 
-    scene = tmk.morton_permuted_scene(port_textured(W, H, 512)[0])[0].to(cuda)
-    return scene, Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+    scene = tmk.morton_permuted_scene(port_textured(w, h, 512)[0])[0].to(cuda)
+    return scene, Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=w, height=h)
+
+
+TEX_SIZES = [(32, 32), (16, 16), (40, 16)]
+TEX_IDS = ["C512", "C256", "C128"]
 
 
 @pytest.mark.parametrize("tech", ["NEE_MIS", "COSINE", "LIGHT_SOURCE"])
@@ -492,65 +660,136 @@ def test_textured_megakernel_matches_its_plain_version(cuda, tech):
         tmk.megakernel_threaded(scene, cam, 1, 4, SETTINGS)
 
 
-def test_textured_k3_matches_its_plain_version(cuda):
+@MOVES
+@pytest.mark.parametrize("size", TEX_SIZES, ids=TEX_IDS)
+def test_textured_k3_matches_its_plain_version(cuda, size, move):
     """K3's textured instantiation launched alone, after two frames of
-    history, against ``restir_di_k3_plain``: the stage, albedo rows
-    included."""
-    scene, cam = _textured(cuda)
+    history, the camera static or moved, against ``restir_di_k3_plain``:
+    the stage; its albedo rows exactly at power-of-two squares (elsewhere a
+    primary hit may differ in its last bits from the plain version's, and
+    its texel with it: ROADMAP queue 3); split and one block a tile, the
+    same bits."""
+    scene, cam = _textured(cuda, *size)
     em = tmr.prepare_emissive_table(scene)
-    state = torch.zeros((tmr.ST_ROWS, W * H), device=cuda)
+    state = torch.zeros((tmr.ST_ROWS, size[0] * size[1]), device=cuda)
     tmr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
+    ppv = _moved(cam, move)
     before = tmr.restir_di_k3.launches
-    stage = tmr.restir_di_k3(scene, em, cam, 3, DI, state, cam.proj_view)
-    ref = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, cam.proj_view)
+    stage = _launched(tmr.restir_di_k3, True)(scene, em, cam, 3, DI, state, ppv)
+    assert torch.equal(stage, _launched(tmr.restir_di_k3, False)(scene, em, cam, 3, DI, state, ppv))
+    ref = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, ppv)
     torch.cuda.synchronize()
-    assert tmr.restir_di_k3.launches == before + 1
+    assert tmr.restir_di_k3.launches == before + 2
     assert _elements_off(stage, ref) < 0.01
-    alb = slice(tmr.S_ALB, tmr.S_ALB + 3)
-    assert _elements_off(stage[alb], ref[alb]) == 0.0
+    if size[0] == size[1]:
+        alb = slice(tmr.S_ALB, tmr.S_ALB + 3)
+        assert _elements_off(stage[alb], ref[alb]) == 0.0
 
 
-def test_textured_gi_kernels_match_plain(cuda):
+@MOVES
+@pytest.mark.parametrize("size", TEX_SIZES, ids=TEX_IDS)
+def test_textured_gi_kernels_match_plain(cuda, size, move):
     """K6 and K5 (both visibility modes), textured, each against its plain
-    version on the same inputs after two frames of history."""
-    scene, cam = _textured(cuda)
-    B = W * H
+    version on the same inputs after two frames of history, the camera
+    static or moved; K5 split and one block a tile, the same bits, held as
+    ``_k5_matches`` holds it."""
+    scene, cam = _textured(cuda, *size)
+    B = size[0] * size[1]
     z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
     _, state, stage = tmg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, GI, cam.proj_view, cam.proj_view)
-    ppv = cam.proj_view
+    ppv = _moved(cam, move)
     counts = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches)
-    got = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
+    k6 = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
     ref = tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)
-    assert _elements_off(got, ref) < 0.01
+    assert _elements_off(k6, ref) < 0.01
     for final_vis in (False, True):
         outs = []
-        for fn in (tmg.restir_gi_mono, tmg.restir_gi_mono_plain):
+        for fn in (_launched(tmg.restir_gi_mono, True),
+                   _launched(tmg.restir_gi_mono, False), tmg.restir_gi_mono_plain):
             acc, st, sg = torch.zeros((B, 3), device=cuda), torch.empty_like(state), torch.empty_like(stage)
             fn(scene, cam, 3, GI, state, stage, ppv, acc, st, sg, final_vis=final_vis)
             outs.append((acc, st, sg))
         torch.cuda.synchronize()
-        _gates(outs[0][0].cpu().numpy(), outs[1][0].cpu().numpy())
-        assert _elements_off(outs[0][1], outs[1][1]) < 0.01 and _elements_off(outs[0][2], outs[1][2]) < 0.01
-    assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches) == (counts[0] + 2, counts[1] + 1)
+        # a tile split over a cluster and a tile one block: the same bits
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+        outs = outs[1:]
+        _k5_matches(outs[0], outs[1], k6, size[0] == size[1])
+    assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches) == (counts[0] + 4, counts[1] + 1)
 
 
 # ---- the stack-overflow flag ----------------------------------------------------------
 
-@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer])
+@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer, MegakernelReSTIRDI, MegakernelReSTIRGI])
 def test_entry_points_raise_on_stack_overflow(cuda, cls):
     """A wide BVH handed a ``stack_need`` below its tree's true need: the
     walks drop entries and set the flag, and the entry point's next call
-    raises (it reads the flag without waiting; ``overflow.check()`` waits)."""
+    raises (it reads the flag without waiting; ``overflow.check()`` waits).
+    ReSTIR DI's walks that read it are K3's, ReSTIR GI's K5's (K4 walks the
+    threaded BVH)."""
     import dataclasses
 
     builder, cam = tproc.cornell_box(W, H)
     scene = skewed_scene(builder.compile(), 8)
     assert scene.wide.stack_need == 149
-    scene = dataclasses.replace(scene, wide=dataclasses.replace(scene.wide, stack_need=4))
-    r = cls(scene, cam, SETTINGS, device=cuda)
+    settings = {MegakernelReSTIRDI: DI, MegakernelReSTIRGI: GI}.get(cls, SETTINGS)
+    r = cls(scene, cam, settings, device=cuda)
+    # MegakernelReSTIRGI renumbers the triangles and rebuilds the records, so
+    # the short stack goes in after construction; the watch reads the same flag
+    r.scene = dataclasses.replace(r.scene, wide=dataclasses.replace(r.scene.wide, stack_need=4))
     r.render_many(1)
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="overflow"):
         r.render_many(1)
     with pytest.raises(RuntimeError, match="overflow"):
         r.overflow.check()
+
+
+# ---- the wide segment test, and K3's and K5's stack limit ----------------------------
+
+@pytest.mark.parametrize("name", ["cornell", "stress", "skewed"])
+def test_segment_kernel_matches_plain_twin(cuda, name):
+    """``trace_segments`` (``csrc/trace.cu::fyp_segment_visible``, the segment
+    test K5 walks) against ``segment_visible_wide`` and ``segment_visible``,
+    bit for bit, on segments ending at, before and past each ray's closest
+    hit; on the skewed tree its stacks take 149 entries."""
+    if name == "stress":
+        scene = _stress_host()[0]
+    else:
+        builder, _ = tproc.cornell_box(W, H)
+        scene = builder.compile()
+        if name == "skewed":
+            scene = skewed_scene(scene, 8)
+    scene = scene.to(cuda)
+    r = np.random.default_rng(5)
+    o = torch.as_tensor(r.uniform([-0.99, 0.01, -0.99], [0.99, 1.99, 0.99], (8192, 3)).astype(np.float32), device=cuda)
+    d = torch.nn.functional.normalize(torch.as_tensor(r.normal(size=(8192, 3)).astype(np.float32), device=cuda), dim=1)
+    t = ttrav.trace_rays(scene.bvh, scene.geometry, o, d)["t"]
+    scale = torch.as_tensor(r.choice([1.0, 1.0005, 0.9995, 1.002, 0.998, 0.5], 8192).astype(np.float32), device=cuda)
+    dist = (torch.where(t > 0, t, 1.0) * scale).contiguous()
+    before = ttrav.trace_segments.launches
+    got = ttrav.trace_segments(scene, o, d, dist)
+    torch.cuda.synchronize()
+    assert ttrav.trace_segments.launches == before + 1
+    assert torch.equal(got, ttrav.segment_visible_wide(scene.wide, o, d, dist))
+    assert torch.equal(got, ttrav.segment_visible(scene.bvh, scene.geometry, o, d, dist))
+    assert 0.1 < got.float().mean().item() < 0.9
+    ttrav.check_overflow(scene)
+
+
+def test_k3_and_k5_refuse_an_oversize_stack(cuda):
+    """A chain BVH whose walk needs 290 stack entries: K3 and K5 hold 227 a
+    thread in a block of 128, and their wrappers refuse it with the reason,
+    launching nothing."""
+    builder, cam = tproc.cornell_box(W, H)
+    scene = skewed_scene(builder.compile(), 4).to(cuda)
+    em = tmr.prepare_emissive_table(scene)
+    B = W * H
+    state = torch.zeros((tmr.ST_ROWS, B), device=cuda)
+    before = (tmr.restir_di_k3.launches, tmg.restir_gi_mono.launches)
+    with pytest.raises(ValueError, match="restir_di_k3: the wide BVH needs a stack of 290 entries"):
+        tmr.restir_di_k3(scene, em, cam, 1, DI, state, cam.proj_view)
+    gi = [torch.zeros((rows, B), device=cuda) for rows in (tmg.GT_ROWS, tmg.GS_ROWS, tmg.GT_ROWS, tmg.GS_ROWS)]
+    with pytest.raises(ValueError, match="restir_gi_mono: the wide BVH needs a stack of 290 entries"):
+        tmg.restir_gi_mono(scene, cam, 1, GI, gi[0], gi[1], cam.proj_view, torch.zeros((B, 3), device=cuda),
+                           gi[2], gi[3])
+    assert (tmr.restir_di_k3.launches, tmg.restir_gi_mono.launches) == before
