@@ -102,6 +102,20 @@ albedos), in phases:
      must fall below 0.6 of its start, the loss fall, and K8 launch 9
      times), and 5 SGD steps of ``make_train_step``
      under NEE (the albedo, lr 30) in which the loss falls and K1 launches;
+  6c. the multi-device layer (``parallel/``) on the one card: K2's pixel
+     slabs (2, 3 and 7, the last ragged) against its one launch, bit for
+     bit: NEE with 1 and 4 lanes at Cornell 1920x1088, NEE on the stress
+     scene and the textured Cornell box at 256², every other sampler at
+     256²; every sharded path (``sharded_megakernel_render``,
+     ``sharded_render``, the sharded DI and GI wavefronts, the NEE, DI and GI
+     train steps) at world size 1 under NCCL against its single-device entry
+     point, bit for bit, with the counters reset before each path and read
+     after; the same paths at world size 2 as two processes that share the
+     card under gloo (every collective staged through host memory: NCCL
+     refuses two ranks on one device) against world size 1; and timings:
+     the fast path against ``MegakernelRenderer.render_many(64)`` in turns,
+     the halo exchange's ms a frame (world 2, gloo, host-staged) and the
+     NEE train step's ``all_reduce`` ms a step (world 1, NCCL);
   7. timing with CUDA events: the median of 5 reps after a warm-up, of
      ``render_many(64)`` for the K1 wavefront and the K2 megakernel (every
      technique) at 256², NEE also at 1920x1088, ``MegakernelReSTIRDI`` and
@@ -139,7 +153,7 @@ pixels that shade, since only they read it) and its outputs; a textured
 instantiation adds its texel reads, 4 texels of 12 bytes a fetch times the
 fetches its plain version counts (at most the texture tables once).
 
-``--ab`` times K3 and K5, and the entry points, of other checkouts against
+``--ab`` times K2 NEE, K3 and K5, and the entry points, of other checkouts against
 this one in turns (e.g. the commit before a change).
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
@@ -148,8 +162,8 @@ the last is the kernels' summary, the last line is
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --quick    # phases 1-6: build, check, main paths
-    python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K3 and
-                                     # K5 a launch: each DIR's package against
+    python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K2, K3
+                                     # and K5 a launch: each DIR's package against
                                      # this one's, in turns (ab_turn)
 """
 
@@ -1055,6 +1069,7 @@ def phase_restir_gi(summary: dict) -> None:
              mode=mode, **row)
         if not row["ok"]:
             raise AssertionError(f"the GI frame loop {mode} disagrees with its plain version on {name} {size}")
+    k5_parting()
     shapes = by_shape("k5", st)
     for fv, row in ((False, "restir_gi_mono"), (True, "restir_gi_mono[final_vis]")):
         summary[row].update({k: {s_: v for s_, v in d.items() if s_.endswith(" final_vis") == fv}
@@ -1062,6 +1077,84 @@ def phase_restir_gi(summary: dict) -> None:
 
 
 DIFF_SIZE = 256
+
+
+def ulps(a, b):
+    """Units in the last place between float32 tensors of one shape (as
+    ordered integers: the distance across zero counts too)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def k5_parting() -> None:
+    """Where K5 and its plain version part, one frame after two of
+    history, the camera static: the stage's rows by field (K5's stage is
+    K6's bit for bit), the state's and the image's, each with the pixels
+    that differ and the largest distance in ulps, on the stress scene at
+    32² and on Cornell at 40x16 and 80x48 (the camera-ray cases of ROADMAP
+    queue 3).  A diagnostic, no gate."""
+    import copy
+
+    import torch
+
+    from fypraytracer_tpu_torch.core.camera import Camera
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    st = settings_for("RESTIR_GI", spatial_neighbors=3, spatial_radius=8)
+    rows = {"pos": (mg.GS_POS, 3), "nrm": (mg.GS_NRM, 3), "alb": (mg.GS_ALB, 3), "rough": (mg.GS_ROUGH, 1),
+            "metal": (mg.GS_METAL, 1), "t": (mg.GS_T, 1), "shade": (mg.GS_SHADE, 1), "emit": (mg.GS_EMIT, 3),
+            "hit": (mg.GS_HIT, 1), "sky": (mg.GS_SKY, 3), "sample_point": (mg.GS_SP, 3),
+            "sample_normal": (mg.GS_SN, 3), "sample_radiance": (mg.GS_RAD, 3), "p_hat": (mg.GS_PHAT, 1),
+            "w": (mg.GS_W, 1), "m": (mg.GS_M, 1), "wsum": (mg.GS_WSUM, 1)}
+    scene_s, cam_s = stress_scene(128, 128)
+    cam_s = copy.deepcopy(cam_s)
+    cam_s.resize(32, 32)
+    cases = [("stress 32x32", scene_s, cam_s)]
+    for w, h in ((40, 16), (80, 48)):
+        builder, _ = cornell_box(w, h, sphere_res=(6, 10))
+        cases.append((f"cornell {w}x{h}", morton_permuted_scene(builder.compile())[0].to("cuda"),
+                      Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=w, height=h)))
+    for label, scene, cam in cases:
+        B = cam.width * cam.height
+        z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+        _, state, stage = mg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, st, cam.proj_view, cam.proj_view)
+        outs = []
+        for fn in (mg.restir_gi_mono, mg.restir_gi_mono_plain):
+            acc, s_, g_ = torch.zeros((B, 3), device="cuda"), torch.empty_like(state), torch.empty_like(stage)
+            fn(scene, cam, 3, st, state, stage, cam.proj_view, acc, s_, g_)
+            outs.append((acc, s_, g_))
+        torch.cuda.synchronize()
+        (acc_k, st_k, sg_k), (acc_p, st_p, sg_p) = outs
+
+        def differ(a, b):
+            d = ulps(a, b)
+            return dict(pixels=int((d > 0).reshape(-1, B).any(0).sum()), max_ulps=int(d.max()))
+
+        stage_rows = {k: differ(sg_k[r:r + n], sg_p[r:r + n]) for k, (r, n) in rows.items()}
+        emit("k5_parting", case=label, frame=3, stage={k: v for k, v in stage_rows.items() if v["pixels"]},
+             state=differ(st_k, st_p), image=differ(acc_k.T, acc_p.T), ok=True)
+
+    # the device library's powf(x, 5), cosf, sinf and sqrtf (restir_gi.cu's
+    # build) against PyTorch's x ** 5.0, cos, sin and sqrt on the card, on
+    # the shading code's arguments: 1 - cos in [0, 1] and angles in [0, 2π)
+    from fypraytracer_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.rand(1 << 20, generator=gen, device="cuda")
+    phi = x * (2.0 * math.pi)
+    for label, arg, row, plain in (("powf(x, 5) vs x ** 5.0", x, 0, lambda v: v ** 5.0),
+                                   ("cosf vs torch.cos", phi, 1, torch.cos), ("sinf vs torch.sin", phi, 2, torch.sin),
+                                   ("sqrtf vs torch.sqrt", x, 3, torch.sqrt)):
+        d = ulps(kernels.math_ops("restir_gi", arg.contiguous())[row], plain(arg))
+        emit("k5_parting", case=f"device library {label}", values=arg.numel(), differ=int((d > 0).sum()),
+             max_ulps=int(d.max()), ok=True)
 
 
 def diff_inputs(size: int = DIFF_SIZE):
@@ -1609,6 +1702,453 @@ def phase_train(summary: dict) -> None:
         raise AssertionError("make_train_step's loss did not fall, or K1 did not launch")
 
 
+# phase 6c: the multi-device layer (parallel/) and K2's pixel-slab entry
+PAR_SIZE = 256        # Cornell's ReSTIR, cosine and NEE-training frames
+PAR_HD = (1920, 1088)
+PAR_HD_FRAMES = 64
+PAR_DI_TRAIN = 128
+PAR_SLABS = 256      # the slab checks' square frames (stress, textured, every sampler)
+
+
+def slab_starts(n_pix: int, n_slabs: int) -> list:
+    """Boundaries of ``n_slabs`` slabs of ceil(n_pix / n_slabs) pixels, the
+    last one ragged."""
+    per = -(-n_pix // n_slabs)
+    return list(range(0, n_pix, per)) + [n_pix]
+
+
+def k2_slabs(summary: dict) -> None:
+    """K2's pixel-slab entry against its one launch, bit for bit: NEE with 1
+    and 4 lanes at Cornell 1920x1088 (8 frames), NEE on the stress scene at
+    256², the textured Cornell box at 256² (NEE) and every other sampler at
+    Cornell 256² (8 frames), each cut into 2, 3 and 7 slabs, the last one
+    ragged."""
+    import copy
+
+    import torch
+
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel as mk
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    builder, cam_hd = cornell_box(*PAR_HD)
+    scene_hd = builder.compile().to("cuda")
+    builder, cam_c = cornell_box(PAR_SLABS, PAR_SLABS)
+    scene_c = builder.compile().to("cuda")
+    scene_s, cam_s = stress_scene(128, 128)       # the scene of phase 4, its camera at 256²
+    cam_s = copy.deepcopy(cam_s)
+    cam_s.resize(PAR_SLABS, PAR_SLABS)
+    sq = f"{PAR_SLABS}x{PAR_SLABS}"
+    cases = [("NEE_MIS", "cornell {}x{}".format(*PAR_HD), scene_hd, cam_hd, 1),
+             ("NEE_MIS", "cornell {}x{}".format(*PAR_HD), scene_hd, cam_hd, 4),
+             ("NEE_MIS", f"stress {sq}", scene_s, cam_s, None),
+             ("NEE_MIS", f"textured cornell {sq}", *textured_scene(PAR_SLABS, PAR_SLABS), None)]
+    cases += [(tech, f"cornell {sq}", scene_c, cam_c, None) for tech in K2_NAMES if tech != "NEE_MIS"]
+    for tech, label, scene, cam, lanes in cases:
+        st = settings_for(tech)
+        whole = mk.megakernel(scene, cam, 1, 8, st, lanes=lanes)
+        n = cam.width * cam.height
+        differ = {}
+        for k in (2, 3, 7):
+            starts = slab_starts(n, k)
+            joined = torch.cat([mk.megakernel(scene, cam, 1, 8, st, lanes=lanes, pix0=a, n_pix=b - a)
+                                for a, b in zip(starts, starts[1:])])
+            differ[k] = int((joined != whole).any(-1).sum())
+        torch.cuda.synchronize()
+        check_overflow(scene)
+        ok = all(v == 0 for v in differ.values())
+        emit("parallel", case="k2 slabs vs one launch", technique=tech, scene=label, frames=8,
+             lanes=lanes or mk.k2_lanes(8), slabs=[2, 3, 7], last_slab=[n - slab_starts(n, k)[-2] for k in (2, 3, 7)],
+             differing_pixels=differ, ok=ok)
+        if not ok:
+            raise AssertionError(f"K2's slabs do not join into its one launch: {tech} on {label}")
+        row = summary.get(TEX_ROWS[tech] if label.startswith("textured") else K2_NAMES[tech])
+        if row is not None:
+            row.setdefault("slab_entry", []).append(f"{label}, {lanes or mk.k2_lanes(8)} lanes: 2/3/7 slabs "
+                                                    "bit for bit the one launch")
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host milliseconds in the port's collectives inside the block, each
+    call fenced by ``torch.cuda.synchronize`` before and after: yields
+    {"all_gather": [ms, ...], "all_reduce": [ms, ...]}."""
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.parallel import distributed, restir_shard, shard
+
+    times: dict = {"all_gather": [], "all_reduce": []}
+
+    def fenced(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    gather = fenced("all_gather", distributed.all_gather_shards)
+    reduce = fenced("all_reduce", distributed.all_reduce_sum)
+    with contextlib.ExitStack() as stack:
+        for mod in (shard, restir_shard):
+            stack.enter_context(mock.patch.object(mod, "all_gather_shards", gather))
+            stack.enter_context(mock.patch.object(mod, "all_reduce_sum", reduce))
+        yield times
+
+
+def sharded_runs(timed: bool = False) -> dict:
+    """Every sharded path on this process's shard of the default process
+    group, on the card, the results gathered on the host: the fast path
+    (NEE at 1920x1088, 64 frames), the cosine wavefront frame and the DI
+    (static and moving camera, 3 frames) and GI (2 frames) wavefronts at
+    Cornell 256² (radius 30), the NEE train step at 256² (2 SGD steps of the
+    albedo) and the DI train step at 128² (``steps_per_call=2``, and as two
+    calls of one step), the GI train step once; each case's launches; with
+    ``timed``, the ms in the collectives a frame or step."""
+    import dataclasses
+
+    import torch
+
+    from fypraytracer_tpu_torch.parallel import restir_shard, shard
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    mesh = shard.make_pixel_mesh(device="cuda")
+    out: dict = {"launches": {}, "collective_ms": {}}
+
+    def case(name, fn):
+        reset_launches()
+        with timed_collectives() as times:
+            result = fn()
+            torch.cuda.synchronize()
+        out["launches"][name] = launch_counts()
+        out["collective_ms"][name] = times
+        out[name] = result
+
+    builder, cam = cornell_box(*PAR_HD)
+    scene = shard.replicate_scene(builder.compile(), mesh)
+    render = shard.sharded_megakernel_render(scene, mesh, *PAR_HD, settings_for("NEE_MIS"), PAR_HD_FRAMES)
+    case("megakernel", lambda: shard.gather_pixels(mesh, render(cam, 1)).cpu())
+
+    builder, cam = cornell_box(PAR_SIZE, PAR_SIZE)
+    scene = shard.replicate_scene(builder.compile(), mesh)
+    cosine = shard.sharded_render(scene, mesh, PAR_SIZE, PAR_SIZE, settings_for("COSINE"))
+    case("render", lambda: shard.gather_pixels(mesh, cosine(cam.inv_projection, cam.inv_view, 1)).cpu())
+
+    def restir(make, tech, frames, move):
+        step, init_state = make(scene, mesh, PAR_SIZE, PAR_SIZE, settings_for(tech))
+        state, acc = init_state(), None
+        for f, (c, ppv) in enumerate(camera_path(cam, frames, move)):
+            hdr, state = step(c.inv_projection, c.inv_view, ppv, f + 1, state)
+            acc = hdr if acc is None else acc + hdr
+        return shard.gather_pixels(mesh, acc).cpu()
+
+    case("di", lambda: restir(restir_shard.make_restir_di_sharded, "RESTIR_DI", 3, False))
+    case("di_move", lambda: restir(restir_shard.make_restir_di_sharded, "RESTIR_DI", 3, True))
+    case("gi", lambda: restir(restir_shard.make_restir_gi_sharded, "RESTIR_GI", 2, False))
+
+    # the NEE train step's target: the cosine frame 2 of the true albedos
+    nee, start = settings_for("NEE_MIS"), dataclasses.replace(scene.materials, albedo=scene.materials.albedo * 0.8)
+    target = shard.gather_pixels(mesh, shard.sharded_render(scene, mesh, PAR_SIZE, PAR_SIZE, settings_for("COSINE"))(
+        cam.inv_projection, cam.inv_view, 2))
+
+    def nee_train():
+        step = shard.make_train_step(scene, PAR_SIZE, PAR_SIZE, nee, lr=30.0, fields=("albedo",), mesh=mesh)
+        params, losses = start, []
+        for i in range(2):
+            params, loss = step(params, cam.inv_projection, cam.inv_view, i + 1, target)
+            losses.append(loss)
+        return dict(losses=torch.stack(losses).cpu(), albedo=params.albedo.cpu())
+
+    case("nee_train", nee_train)
+
+    builder, cam_t = cornell_box(PAR_DI_TRAIN, PAR_DI_TRAIN)
+    scene_t = shard.replicate_scene(builder.compile(), mesh)
+    st_t = settings_for("RESTIR_DI")
+    ip, iv, ppv = cam_t.inv_projection, cam_t.inv_view, cam_t.prev_proj_view
+
+    def di_train():
+        render_t, init_t = restir_shard.make_restir_di_sharded(scene_t, mesh, PAR_DI_TRAIN, PAR_DI_TRAIN, st_t)
+        tgt, state = render_t(ip, iv, ppv, 1, init_t())
+        tgt = shard.gather_pixels(mesh, tgt)
+        params = dataclasses.replace(scene_t.materials, albedo=scene_t.materials.albedo * 0.8)
+        res = {}
+        for k in (2, 1):
+            step, _ = restir_shard.make_restir_di_train_step(scene_t, mesh, PAR_DI_TRAIN, PAR_DI_TRAIN, st_t, lr=0.5,
+                                                             fields=("albedo",), steps_per_call=k, clip01=("albedo",))
+            p, losses = params, []
+            for _ in range(2 // k):
+                p, _, loss = step(p, ip, iv, ppv, 2, state, tgt)
+                losses.append(loss.reshape(-1))
+            res[k] = dict(losses=torch.cat(losses).cpu(), albedo=p.albedo.cpu())
+        return res
+
+    case("di_train", di_train)
+
+    def gi_train():
+        step, init_state = restir_shard.make_restir_gi_train_step(scene_t, mesh, PAR_DI_TRAIN, PAR_DI_TRAIN,
+                                                                  settings_for("RESTIR_GI"), lr=0.5,
+                                                                  fields=("albedo",))
+        _, _, loss = step(scene_t.materials, ip, iv, ppv, 1, init_state(),
+                          torch.zeros((PAR_DI_TRAIN ** 2, 3), device="cuda"))
+        return loss.cpu()
+
+    case("gi_train", gi_train)
+
+    if timed:
+        # the DI frame's halo exchanges and the NEE step's all_reduces, 5 reps
+        step, init_state = restir_shard.make_restir_di_sharded(scene, mesh, PAR_SIZE, PAR_SIZE,
+                                                               settings_for("RESTIR_DI"))
+        state, halo_ms = init_state(), []
+        for f in range(6):
+            with timed_collectives() as times:
+                _, state = step(cam.inv_projection, cam.inv_view, cam.prev_proj_view, f + 1, state)
+            if f:
+                halo_ms.append(sum(times["all_gather"]))
+        step = shard.make_train_step(scene, PAR_SIZE, PAR_SIZE, nee, lr=30.0, fields=("albedo",), mesh=mesh)
+        reduce_ms = []
+        for i in range(6):
+            with timed_collectives() as times:
+                step(start, cam.inv_projection, cam.inv_view, 1, target)
+            if i:
+                reduce_ms.append(sum(times["all_reduce"]))
+        out["timing"] = dict(halo_ms_per_frame=halo_ms, all_reduce_ms_per_step=reduce_ms)
+    return out
+
+
+def camera_path(cam, frames: int, move: bool):
+    """(camera, prev proj @ view) of each frame: ``cam`` static, or panning
+    up 0.05 a frame (tests/test_restir_shard.py's moving camera)."""
+    from fypraytracer_tpu_torch.core.camera import Camera
+
+    if not move:
+        return [(cam, cam.prev_proj_view)] * frames
+    poses = [Camera(position=(0.0, 1.0 + 0.05 * f, 2.6), forward=(0.0, 0.0, -1.0), vfov_deg=45.0,
+                    width=cam.width, height=cam.height) for f in range(frames)]
+    return [(p, poses[max(f - 1, 0)].proj_view) for f, p in enumerate(poses)]
+
+
+def parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One of ``world`` processes on the one card, joined by gloo over a
+    FileStore (every collective staged through host memory): runs
+    ``sharded_runs`` and rank 0 saves it."""
+    import torch
+    import torch.distributed as dist
+
+    from fypraytracer_tpu_torch.parallel.distributed import init_distributed
+
+    torch.cuda.set_device(0)
+    init_distributed(f"file://{os.path.join(tmp, 'rendezvous')}", world, rank, backend="gloo")
+    try:
+        out = sharded_runs(timed=True)
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "rank0.pt"))
+        dist.barrier()              # no rank leaves the group while another still talks to it
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(summary: dict) -> None:
+    """The multi-device layer on one card: K2's slabs (``k2_slabs``); every
+    sharded path at world size 1 under NCCL against its single-device entry
+    point, bit for bit (``MegakernelRenderer``, the wavefront ``Renderer``
+    frames, ``make_train_step`` without a mesh), with the counters reset
+    before each path and read after; then world size 2 as two processes
+    that share the card under gloo, every collective staged through host
+    memory (NCCL refuses two ranks on one device), against world size 1:
+    the fast path bit for bit, DI and GI under tests/test_restir_shard.py's
+    gates with the share of bit-equal pixels, the train steps' losses
+    within 1 ulp and parameters within 1e-6 relative.  Timings: the fast
+    path at world size 1 against ``MegakernelRenderer.render_many(64)`` in
+    turns at 1920x1088 and 256² (5 reps a turn), the halo exchange's ms a
+    frame at world size 2 (gloo, host-staged: no NVLink figure) and the
+    ``all_reduce`` ms a step of the NEE train step at world size 1 (NCCL)."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fypraytracer_tpu_torch.config import SamplingTechnique
+    from fypraytracer_tpu_torch.parallel import shard
+    from fypraytracer_tpu_torch.render import restir_di
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
+    from fypraytracer_tpu_torch.render.renderer import Renderer, frame_hdr, render_step_stateful
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    t_phase = time.perf_counter()
+    k2_slabs(summary)
+
+    # ---- world size 1, NCCL
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", world_size=1,
+                                rank=0)
+        try:
+            one = sharded_runs(timed=True)
+            timing = parallel_timing()
+        finally:
+            dist.destroy_process_group()
+
+    def single(make):
+        """A single-device entry point's result, with its launches."""
+        reset_launches()
+        ref = make()
+        torch.cuda.synchronize()
+        return ref, launch_counts()
+
+    needs = dict(megakernel=["megakernel"], render=["trace_closest"], di=["trace_closest"],
+                 di_move=["trace_closest"], gi=["trace_closest"], nee_train=["trace_closest"],
+                 di_train=["trace_closest"], gi_train=["trace_closest"])
+    b256, c256 = cornell_box(PAR_SIZE, PAR_SIZE)
+    host = b256.compile()
+
+    def megakernel_renderer():
+        builder, cam = cornell_box(*PAR_HD)
+        r = MegakernelRenderer(builder.compile(), cam, settings_for("NEE_MIS"), device="cuda")
+        r.render_many(PAR_HD_FRAMES)
+        return r.accum.cpu()
+
+    def renderer_sum(tech, frames):
+        """``Renderer``'s accumulation of ``frames`` frames: their sum."""
+        r = Renderer(host, copy.deepcopy(c256), settings_for(tech), device="cuda")
+        r.render_many(frames)
+        return r.accum.reshape(-1, 3).cpu()
+
+    def moving_di():
+        scene = host.to("cuda")
+        state, acc = restir_di.init_state(PAR_SIZE ** 2, device="cuda"), None
+        for f, (c, ppv) in enumerate(camera_path(c256, 3, True)):
+            hdr, state = render_step_stateful(scene, c, ppv, f + 1, settings_for("RESTIR_DI"), state)
+            acc = hdr if acc is None else acc + hdr
+        return acc.reshape(-1, 3).cpu()
+
+    def nee_train_one():
+        scene = host.to("cuda")
+        nee = settings_for("NEE_MIS")
+        target = frame_hdr(scene, c256, 2, nee.replace(technique=SamplingTechnique.COSINE)).reshape(-1, 3)
+        step = shard.make_train_step(scene, PAR_SIZE, PAR_SIZE, nee, lr=30.0, fields=("albedo",), device="cuda")
+        params = dataclasses.replace(scene.materials, albedo=scene.materials.albedo * 0.8)
+        losses = []
+        for i in range(2):
+            params, loss = step(params, c256.inv_projection, c256.inv_view, i + 1, target)
+            losses.append(loss)
+        return dict(losses=torch.stack(losses).cpu(), albedo=params.albedo.cpu())
+
+    checks = {"megakernel": single(megakernel_renderer), "render": single(lambda: renderer_sum("COSINE", 1)),
+              "di": single(lambda: renderer_sum("RESTIR_DI", 3)), "di_move": single(moving_di),
+              "gi": single(lambda: renderer_sum("RESTIR_GI", 2)), "nee_train": single(nee_train_one)}
+    for name, (ref, launched_ref) in checks.items():
+        got = one[name]
+        if name == "nee_train":
+            equal = torch.equal(got["losses"], ref["losses"]) and torch.equal(got["albedo"], ref["albedo"])
+            share = None
+        else:
+            equal = torch.equal(got, ref.reshape(got.shape))
+            share = float((got == ref.reshape(got.shape)).all(-1).float().mean())
+        launched = one["launches"][name]
+        ok = bool(equal and all(launched[k] > 0 for k in needs[name]))
+        emit("parallel", case=f"world 1 (nccl) {name} vs single device", bit_equal=equal, bit_equal_share=share,
+             launches=nonzero(launched), single_device_launches=nonzero(launched_ref), ok=ok)
+        if not ok:
+            raise AssertionError(f"sharded {name} at world size 1 is not the single-device result bit for bit")
+    dt = one["di_train"]
+    ok = bool(torch.equal(dt[2]["losses"], dt[1]["losses"]) and torch.equal(dt[2]["albedo"], dt[1]["albedo"])
+              and torch.isfinite(dt[2]["losses"]).all() and bool(torch.isfinite(one["gi_train"]).all())
+              and all(one["launches"][k]["trace_closest"] > 0 for k in ("di_train", "gi_train")))
+    emit("parallel", case="world 1 (nccl) DI train step steps_per_call=2 vs two calls",
+         losses=dt[2]["losses"].tolist(), gi_train_loss=float(one["gi_train"]), ok=ok)
+    if not ok:
+        raise AssertionError("the DI train step's micro-steps differ from its per-step loop")
+    emit("parallel", case="world 1 (nccl) all_reduce of the NEE train step", backend="nccl",
+         all_reduce_ms_per_step=one["timing"]["all_reduce_ms_per_step"],
+         median=statistics.median(one["timing"]["all_reduce_ms_per_step"]), ok=True)
+    emit("parallel", case="sharded_megakernel_render (world 1, nccl) vs MegakernelRenderer.render_many(64)",
+         backend="nccl", **timing, ok=True)
+
+    # ---- world size 2: two processes on the one card, gloo through the host
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(parallel_rank, args=(2, tmp), nprocs=2, start_method="spawn", join=True)
+        two = torch.load(os.path.join(tmp, "rank0.pt"))
+        spawn_s = time.perf_counter() - t0
+    rows = []
+    for name in ("megakernel", "render", "di", "di_move", "gi"):
+        got, ref = two[name], one[name]
+        share = float((got == ref).all(-1).float().mean())
+        row = parity(got.numpy(), ref.numpy()) if name in ("di", "di_move", "gi") else {}
+        if name in ("di", "di_move", "gi"):
+            # tests/test_restir_shard.py:173-178
+            diff = np.abs(got.numpy().astype(np.float64) - ref.numpy())
+            ok = bool(np.median(diff) < 1e-6 and (diff.max(-1) > 1e-3).mean() < 0.03
+                      and abs(got.mean() - ref.mean()) / ref.mean() < (0.01 if name != "gi" else 0.02))
+        else:
+            ok = torch.equal(got, ref)
+        rows.append(ok)
+        emit("parallel", case=f"world 2 (gloo, host-staged) {name} vs world 1", bit_equal_share=share,
+             launches=nonzero(two["launches"][name]), **{k: v for k, v in row.items() if k != "ok"}, ok=ok)
+    for name in ("nee_train",):
+        got, ref = two[name], one[name]
+        ulp = np.abs(got["losses"].numpy() - ref["losses"].numpy()) / np.spacing(np.abs(ref["losses"].numpy()))
+        rel = float(((got["albedo"] - ref["albedo"]).abs() / ref["albedo"].abs().clamp_min(1e-12)).max())
+        ok = bool(ulp.max() <= 1.0 and rel <= 1e-6)
+        rows.append(ok)
+        emit("parallel", case=f"world 2 (gloo, host-staged) {name} vs world 1", loss_ulps=ulp.tolist(),
+             albedo_max_rel=rel, ok=ok)
+    for k in (2, 1):
+        got, ref = two["di_train"][k], one["di_train"][k]
+        ulp = np.abs(got["losses"].numpy() - ref["losses"].numpy()) / np.spacing(np.abs(ref["losses"].numpy()))
+        rel = float(((got["albedo"] - ref["albedo"]).abs() / ref["albedo"].abs().clamp_min(1e-12)).max())
+        ok = bool(ulp.max() <= 1.0 and rel <= 1e-6)
+        rows.append(ok)
+        emit("parallel", case=f"world 2 (gloo, host-staged) di_train steps_per_call={k} vs world 1",
+             loss_ulps=ulp.tolist(), albedo_max_rel=rel, ok=ok)
+    halo = two["timing"]["halo_ms_per_frame"]
+    emit("parallel", case=f"world 2 halo exchange of a DI frame at {PAR_SIZE}x{PAR_SIZE}",
+         backend="gloo, staged through host memory",
+         halo_ms_per_frame=halo, median=statistics.median(halo), spawn_and_run_seconds=spawn_s,
+         note="two processes on one card: no NVLink figure", ok=True)
+    emit("parallel", case="phase", seconds=time.perf_counter() - t_phase, ok=all(rows))
+    if not all(rows):
+        raise AssertionError("world size 2 disagrees with world size 1")
+
+
+def nonzero(launched: dict) -> dict:
+    return {k: v for k, v in launched.items() if v}
+
+
+def parallel_timing() -> dict:
+    """``sharded_megakernel_render`` at world size 1 against
+    ``MegakernelRenderer.render_many(64)``, in turns (renderer, sharded,
+    sharded, renderer; 5 reps a turn, CUDA events), at 1920x1088 and 256²."""
+    from fypraytracer_tpu_torch.parallel import shard
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    out = {}
+    for w, h in (PAR_HD, (PAR_SIZE, PAR_SIZE)):
+        builder, cam = cornell_box(w, h)
+        mesh = shard.make_pixel_mesh(device="cuda")
+        scene = shard.replicate_scene(builder.compile(), mesh)
+        st = settings_for("NEE_MIS")
+        r = MegakernelRenderer(scene, cam, st, device="cuda")
+        render = shard.sharded_megakernel_render(scene, mesh, w, h, st, PAR_HD_FRAMES)
+        runs = {"MegakernelRenderer": lambda: r.render_many(PAR_HD_FRAMES), "sharded": lambda: render(cam, 1)}
+        for fn in runs.values():
+            fn()
+        times: dict = {k: [] for k in runs}
+        for k in ("MegakernelRenderer", "sharded", "sharded", "MegakernelRenderer"):
+            times[k] += gpu_ms(runs[k], 5)
+        out[f"{w}x{h}"] = {k: dict(ms=v, median=statistics.median(v)) for k, v in times.items()}
+    return out
+
+
 # the __global__ names of csrc/*.cu, to count the port's kernels in a trace
 PORT_KERNELS = ("trace_closest_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1",
                 "gi_stage2", "diff_kernel", "trace_threaded_kernel", "frames_threaded_kernel", "trace_lane_kernel",
@@ -1881,6 +2421,23 @@ def phase_timing_train() -> None:
              kernels_per_step=prof["n_kernels"] / n if seen else None, top_kernels_ms=prof["top"])
 
 
+def k2_by_shape() -> dict:
+    """K2 NEE's device ms a launch of the whole image (8 frames, the lanes
+    ``k2_lanes`` picks) at Cornell 256² and 1920x1088, as ``ab_turn``
+    times it in each tree (``kernel_ms``)."""
+    from fypraytracer_tpu_torch.render.megakernel import megakernel
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    out = {}
+    for w, h, calls in ((256, 256, 20), (1920, 1088, 5)):
+        builder, cam = cornell_box(w, h)
+        scene = builder.compile().to("cuda")
+        st = settings_for("NEE_MIS")
+        megakernel(scene, cam, 1, 8, st)                    # warm-up
+        out[f"cornell {w}x{h} 8 frames"] = kernel_ms(lambda: megakernel(scene, cam, 1, 8, st), calls)
+    return dict(ms_by_shape=out)
+
+
 def ab_turn(tree: str) -> None:
     """One turn of ``--ab``, in a process of its own: the untextured entry
     points of the package in ``tree`` (its kernels built there) at Cornell
@@ -1888,9 +2445,10 @@ def ab_turn(tree: str) -> None:
     ``MegakernelRenderer`` NEE, ``MegakernelReSTIRDI`` and
     ``MegakernelReSTIRGI`` (mono; ``render_many(64)``), DI and GI also on
     the stress scene at 128²; ``make_train_step`` under NEE and cosine at
-    256² (2 steps a rep); each 5 reps after a warm-up.  Before them, K3 and
-    K5 (both visibility modes) a launch at ``SHAPES`` (``by_shape``), with
-    the registers and spills of that tree's K3 and K5 from its nvcc report,
+    256² (2 steps a rep); each 5 reps after a warm-up.  Before them, K2 NEE
+    a launch of the whole image (``k2_by_shape``), and K3 and K5 (both
+    visibility modes) a launch at ``SHAPES`` (``by_shape``), with the
+    registers and spills of that tree's K2 NEE, K3 and K5 from its nvcc report,
     and their occupancy where the tree reports it.  Each step is named on
     stderr as it starts.  Prints one ``AB`` line with,
     per path and rep, the ms a frame (a step) by CUDA events and the host's
@@ -1927,8 +2485,9 @@ def ab_turn(tree: str) -> None:
     def progress(what):
         print(f"ab_turn {os.path.basename(tree)}: {what}", file=sys.stderr, flush=True)
 
-    progress("K3 and K5 by shape")
-    tile = {"k3": by_shape("k3", settings_for("RESTIR_DI")), "k5": by_shape("k5", settings_for("RESTIR_GI"))}
+    progress("K2, K3 and K5 by shape")
+    tile = {"k2": k2_by_shape(), "k3": by_shape("k3", settings_for("RESTIR_DI")),
+            "k5": by_shape("k5", settings_for("RESTIR_GI"))}
     out = {}
     cornell_sizes = (("cornell", 256, 256), ("cornell", 1920, 1088))
     for cls, tech, frames, shapes in ((Renderer, "NEE_MIS", 8, cornell_sizes),
@@ -1957,9 +2516,9 @@ def ab_turn(tree: str) -> None:
         torch.cuda.synchronize()
         out[f"make_train_step {tech} 256x256"] = reps(run, 2)
     ptxas = {}
-    for lib in ("restir_di", "restir_gi"):
+    for lib in ("megakernel", "restir_di", "restir_gi"):
         ptxas.update({k: v for k, v in ptxas_report(kernels.build_info[lib]["log"]).items()
-                      if k.startswith(("k3_candidates", "gi_mono"))})
+                      if k.startswith(("frames_kernel[nee]", "k3_candidates", "gi_mono"))})
     print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas)), flush=True)
 
 
@@ -2007,7 +2566,7 @@ def ab(others: list) -> None:
              turn_ms=[[label, statistics.median(t["paths"][key]["ms"])] for label, t in turns],
              turn_host_ms=[[label, statistics.median(t["paths"][key]["host_ms"])] for label, t in turns],
              reps=reps)
-    for kernel in ("k3", "k5"):
+    for kernel in ("k2", "k3", "k5"):
         for shape in runs["change"][0]["tile_kernels"][kernel]["ms_by_shape"]:
             ms = {label: [t["tile_kernels"][kernel]["ms_by_shape"][shape] for t in runs[label]] for label in labels}
             med = {label: statistics.median(v) for label, v in ms.items()}
@@ -2044,6 +2603,7 @@ def main() -> int:
         phase_textured(summary)
         phase_main(summary)
         phase_train(summary)
+        phase_parallel(summary)
         if not quick:
             phase_timing()
     except Exception:

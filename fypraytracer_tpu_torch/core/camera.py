@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from fypraytracer_tpu_torch.core.mathutils import normalize
+from fypraytracer_tpu_torch.core.mathutils import dot3, sqrt_rn
 
 
 def perspective_fov(vfov_deg: float, width: float, height: float, near: float, far: float) -> np.ndarray:
@@ -144,13 +144,25 @@ class Camera:
         return (self.prev_projection @ self.prev_view).astype(np.float32)
 
 
-def generate_rays(inv_projection, inv_view, width: int, height: int, device=None):
-    """Camera rays for the full pixel grid, (H*W, 3) origins and directions.
+def generate_rays(inv_projection, inv_view, width: int, height: int, device=None, pixel_x=None,
+                  pixel_y=None):
+    """Camera rays, (H*W, 3) origins and directions for the full pixel grid,
+    or for the pixels ``(pixel_x, pixel_y)`` (integer tensors of one shape,
+    row-major ids ``x + y*W`` of any subset, e.g. a shard's slab) with their
+    shape + (3,), each the same bits as the full grid's ray of that pixel.
 
     Per pixel: ``coord = (x/W, y/H)*2 - 1``; ``target = invProj @
     (cx,cy,1,1)``; ``dir = (invView @ (normalize(target.xyz / target.w),
     0)).xyz``.  Row 0 maps to NDC y = +1 (top of screen), so images are
     top-down (fypraytracer_tpu/core/camera.py:152-196).
+
+    Every step rounds once, as ``csrc/shading.cuh::camera_ray`` does, so
+    the kernels' rays and these agree bit for bit on every device: the
+    divisions by W and H divide by a tensor (PyTorch multiplies a CUDA
+    tensor by the reciprocal of a Python scalar divisor, which is not exact
+    unless W or H is a power of two), and the norm's root is taken in
+    float64 and rounded once (``sqrt_rn``; PyTorch's float32 root on the
+    CPU is not correctly rounded for every input).
 
     ``inv_projection``/``inv_view`` are (4, 4) arrays or tensors; the rays
     are made on ``device`` (default: where ``inv_projection`` lies).
@@ -158,17 +170,20 @@ def generate_rays(inv_projection, inv_view, width: int, height: int, device=None
     ip = torch.as_tensor(inv_projection, dtype=torch.float32, device=device)
     iv = torch.as_tensor(inv_view, dtype=torch.float32, device=ip.device)
 
-    pix = torch.arange(width * height, device=ip.device)
-    pixel_x = (pix % width).to(torch.float32)
-    pixel_y = (pix // width).to(torch.float32)
-    cx = (pixel_x / width) * 2.0 - 1.0
-    cy = 1.0 - (pixel_y / height) * 2.0
+    if pixel_x is None:
+        pix = torch.arange(width * height, device=ip.device)
+        pixel_x, pixel_y = pix % width, pix // width
+    px = torch.as_tensor(pixel_x, device=ip.device).to(torch.float32)
+    py = torch.as_tensor(pixel_y, device=ip.device).to(torch.float32)
+    cx = (px / torch.full_like(px, width)) * 2.0 - 1.0
+    cy = 1.0 - (py / torch.full_like(py, height)) * 2.0
 
     tx = ip[0, 0] * cx + ip[0, 1] * cy + ip[0, 2] + ip[0, 3]
     ty = ip[1, 0] * cx + ip[1, 1] * cy + ip[1, 2] + ip[1, 3]
     tz = ip[2, 0] * cx + ip[2, 1] * cy + ip[2, 2] + ip[2, 3]
     tw = ip[3, 0] * cx + ip[3, 1] * cy + ip[3, 2] + ip[3, 3]
-    d = normalize(torch.stack([tx, ty, tz], dim=-1) / tw[..., None])
+    t = torch.stack([tx, ty, tz], dim=-1) / tw[..., None]
+    d = t / sqrt_rn(torch.clamp_min(dot3(t, t), 1e-20))
 
     wx = iv[0, 0] * d[..., 0] + iv[0, 1] * d[..., 1] + iv[0, 2] * d[..., 2]
     wy = iv[1, 0] * d[..., 0] + iv[1, 1] * d[..., 1] + iv[1, 2] * d[..., 2]

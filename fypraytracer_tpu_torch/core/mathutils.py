@@ -45,6 +45,14 @@ def sqrt0(x):
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
+def sqrt_rn(x):
+    """The float32 square root rounded once from the exact root, on every
+    device (a float64 root rounded to float32 is that: 53 >= 2·24 + 2
+    bits), as CUDA's ``sqrtf`` gives it.  PyTorch's float32 ``sqrt`` on
+    the CPU is not correctly rounded for every input."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def normalize(v, eps=1e-20):
     return v / torch.sqrt(torch.clamp_min(dot3(v, v), eps))
 
@@ -170,10 +178,14 @@ def fresnel_schlick(albedo, metallic, cos_term):
 
 
 def specular_weight(normal, view, albedo, metallic):
-    """Lobe-selection weight: mean Fresnel at N·V (MathUtils.cuh:201-218)."""
+    """Lobe-selection weight: mean Fresnel at N·V (MathUtils.cuh:201-218),
+    summed ((r + g) + b) and scaled by 1/3 as ``csrc/shading.cuh::
+    spec_weight`` does (a reduction's ``mean`` adds in its own order and
+    parted from the kernels by an ulp where 0 < metallic < 1)."""
     m = _tail1(metallic, normal)
     n_dot_v = torch.clamp_min(dot3(normal, view), 0.0)
-    w = fresnel_schlick(albedo, metallic, n_dot_v).mean(dim=-1, keepdim=True)
+    f = fresnel_schlick(albedo, metallic, n_dot_v)
+    w = ((f[..., 0:1] + f[..., 1:2]) + f[..., 2:3]) * (1.0 / 3.0)
     return torch.where(m >= 1.0, 1.0, torch.where(m <= 0.0, 0.0, w))
 
 

@@ -62,12 +62,22 @@
 // differ from one lane's in the last bits.  Path regeneration and ray sorting
 // are later work.
 //
+// The pixel slab (the JAX kernel's chunk entry, render(..., pix0=) at
+// :2372-2420, read at :1792 and :1952-1953): a launch renders the n_pix
+// pixels that start at global pixel pix0 and writes them from out[0]; every
+// ray and key is the global pixel's, so slabs of any size and boundary (not
+// a multiple of the block or of the lanes) join into the one-launch image
+// bit for bit.  parallel/shard.py::sharded_megakernel_render gives each rank
+// its slab.
+//
 // C interface (loaded with ctypes by render/megakernel.py::megakernel):
-//   fyp_megakernel           writes the (H*W, 3) float32 HDR summed over
-//                            n_frames, returns cudaGetLastError() after the
+//   fyp_megakernel           writes the (n_pix, 3) float32 HDR of pixels
+//                            pix0 .. pix0 + n_pix - 1 summed over n_frames,
+//                            returns cudaGetLastError() after the
 //                            asynchronous launch (cudaErrorInvalidValue for an
-//                            unknown sampler or lane count, or the threaded
-//                            walk, lanes 0, with another sampler than NEE);
+//                            unknown sampler or lane count, the threaded
+//                            walk, lanes 0, with another sampler than NEE,
+//                            or a slab outside the image);
 //   fyp_megakernel_occupancy the blocks of the same kernel a multiprocessor
 //                            holds at once, by the CUDA runtime.
 #include "shading.cuh"
@@ -84,6 +94,7 @@ constexpr int kBlock = 128;  // threads; ptxas gives 72-96 registers a thread, n
 struct Params {
   const float* cam;  // (2, 4, 4): inv_projection, inv_view, row-major
   int width, height;
+  int pix0, n_pix;  // the slab: global pixels pix0 .. pix0 + n_pix - 1, written to out[0 .. n_pix - 1]
   uint32_t frame0;
   int n_frames, bounces, samples;
   int lanes;  // threads a pixel: 1, 2 or 4
@@ -346,42 +357,46 @@ __device__ __forceinline__ void store(float* __restrict__ out, int pix, float3 v
 // walk by the thread; the lanes add their sums by xor shuffles, for four
 // (l0 + l1) + (l2 + l3)
 template <int S, bool T, class Walk>
-__device__ __forceinline__ void lane_frames(const Params& P, const Walk& walk, int pix, float* __restrict__ out) {
+__device__ __forceinline__ void lane_frames(const Params& P, const Walk& walk, int local,
+                                            float* __restrict__ out) {
   const int lanes = P.lanes;
   const int lane = threadIdx.x & (lanes - 1);
   const unsigned mask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
   bool whole;  // the same in the pixel's lanes: one primary ray
-  float3 acc = frames<S, T>(P, walk, pix, lane, lanes, whole);
+  float3 acc = frames<S, T>(P, walk, P.pix0 + local, lane, lanes, whole);
   if (whole && lane != 0) acc = make_float3(0.0f, 0.0f, 0.0f);  // n_frames times its radiance, once
   for (int off = 1; off < lanes; off <<= 1) {
     acc.x += __shfl_xor_sync(mask, acc.x, off, lanes);
     acc.y += __shfl_xor_sync(mask, acc.y, off, lanes);
     acc.z += __shfl_xor_sync(mask, acc.z, off, lanes);
   }
-  if (lane == 0) store(out, pix, acc);
+  if (lane == 0) store(out, local, acc);
 }
 
 // T: textured (the albedo fetch of shading.cuh::tex_surface); the untextured
 // instantiations compile to the code they had before textures
+// Pixel `local` of the slab is global pixel P.pix0 + local: its ray and every
+// key are the global pixel's, so slabs join into the whole image bit for bit
 template <int S, bool T>
 __global__ void __launch_bounds__(kBlock) frames_kernel(Params P, float* __restrict__ out) {
-  const int pix = (blockIdx.x * kBlock + threadIdx.x) / P.lanes;
-  if (pix >= P.width * P.height) return;  // the ragged edge leaves a pixel's lanes whole
+  const int local = (blockIdx.x * kBlock + threadIdx.x) / P.lanes;
+  if (local >= P.n_pix) return;  // the ragged edge leaves a pixel's lanes whole
   const LaneStack st = lane_stack(P.wide.stack_depth);
   if constexpr (S == NEE) {
-    lane_frames<S, T>(P, LaneCallWalk{P.wide, st}, pix, out);
+    lane_frames<S, T>(P, LaneCallWalk{P.wide, st}, local, out);
   } else {
-    lane_frames<S, T>(P, LaneWalk{P.wide, st}, pix, out);
+    lane_frames<S, T>(P, LaneWalk{P.wide, st}, local, out);
   }
 }
 
 // one thread a pixel, the threaded walk (untextured only)
 template <int S>
 __global__ void __launch_bounds__(kBlock) frames_threaded_kernel(Params P, float* __restrict__ out) {
-  const int pix = blockIdx.x * kBlock + threadIdx.x;
-  if (pix >= P.width * P.height) return;
+  const int local = blockIdx.x * kBlock + threadIdx.x;
+  if (local >= P.n_pix) return;
   bool whole;
-  store(out, pix, frames<S, false>(P, ThreadedWalk{P.bvh, Tris{P.geo.positions, P.geo.tri_v}}, pix, 0, 1, whole));
+  store(out, local,
+        frames<S, false>(P, ThreadedWalk{P.bvh, Tris{P.geo.positions, P.geo.tri_v}}, P.pix0 + local, 0, 1, whole));
 }
 
 using Kernel = void (*)(Params, float*);
@@ -413,7 +428,8 @@ size_t smem_of(int lanes, int stack_depth) { return lanes == 0 ? 0 : wide_stack_
 }  // namespace
 
 extern "C" int fyp_megakernel(
-    int sampler, int lanes, const void* cam, int width, int height, unsigned int frame0, int n_frames, int bounces,
+    int sampler, int lanes, const void* cam, int width, int height, int pix0, int n_pix, unsigned int frame0,
+    int n_frames, int bounces,
     int samples, float sky_r, float sky_g, float sky_b,
     const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
     const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
@@ -427,8 +443,10 @@ extern "C" int fyp_megakernel(
     const void* lt_left, const void* lt_right, const void* lt_tri, const void* lt_parent,
     const void* lt_leaf_of_tri, int lt_max_depth,
     void* out, void* stream) {
-  const int n_pix = width * height;
   if (n_pix <= 0) return 0;
+  if (pix0 < 0 || pix0 + static_cast<long long>(n_pix) > static_cast<long long>(width) * height) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Kernel k = kernel_of(sampler, lanes, textured != 0);
   if (k == nullptr || wide_stack_depth < 1 || (textured && tex_k < 1)) return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
@@ -437,6 +455,8 @@ extern "C" int fyp_megakernel(
   P.cam = F(cam);
   P.width = width;
   P.height = height;
+  P.pix0 = pix0;
+  P.n_pix = n_pix;
   P.frame0 = frame0;
   P.n_frames = n_frames;
   P.bounces = bounces;

@@ -3,7 +3,8 @@
 // (K3 and K4, the two ReSTIR DI stages).
 //
 //   * the counter-based PCG of core/rng.py, bit for bit;
-//   * camera rays (core/camera.py::generate_rays), uncontracted;
+//   * camera rays (core/camera.py::generate_rays), each step rounded once, and
+//     the test entry fyp_camera_rays that writes them;
 //   * the samplers and the Cook-Torrance BRDF of core/mathutils.py, in its
 //     operation order;
 //   * the light tree's importance descent and its bottom-up emitter pmf
@@ -375,4 +376,52 @@ __device__ __forceinline__ Surf tex_surface(const Geo& g, const Mats& m, const T
   return s;
 }
 
+// camera_ray of pixels pix0 .. pix0 + n - 1, for the test entry below
+__global__ void camera_rays_kernel(const float* cam, int width, int height, int pix0, int n, float* orig,
+                                   float* dir) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float3 o, d;
+  camera_ray(cam, width, height, pix0 + i, o, d);
+  orig[3 * i] = o.x;
+  orig[3 * i + 1] = o.y;
+  orig[3 * i + 2] = o.z;
+  dir[3 * i] = d.x;
+  dir[3 * i + 1] = d.y;
+  dir[3 * i + 2] = d.z;
+}
+
+// the device library's functions that the shading code calls, on x[i]:
+// out rows powf(x, 5), cosf(x), sinf(x), sqrtf(x), for the test entry below
+__global__ void math_ops_kernel(const float* x, int n, float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = x[i];
+  out[i] = powf(v, 5.0f);
+  out[n + i] = cosf(v);
+  out[2 * n + i] = sinf(v);
+  out[3 * n + i] = sqrtf(v);
+}
+
 }  // namespace fyp
+
+// Test entry: the (4, n) rows of math_ops_kernel, built with the library's
+// flags, for holding the device library's functions against PyTorch's
+// (chip_smoke.py::k5_parting)
+extern "C" int fyp_math_ops(const void* x, int n, void* out, void* stream) {
+  if (n <= 0) return 0;
+  fyp::math_ops_kernel<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Test entry of every library that includes this file: the rays camera_ray
+// gives pixels pix0 .. pix0 + n - 1, (n, 3) origins and directions, built
+// with the library's own flags (ops/kernels.py::camera_rays)
+extern "C" int fyp_camera_rays(const void* cam, int width, int height, int pix0, int n, void* orig, void* dir,
+                               void* stream) {
+  if (n <= 0) return 0;
+  fyp::camera_rays_kernel<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cam), width, height, pix0, n, static_cast<float*>(orig), static_cast<float*>(dir));
+  return static_cast<int>(cudaGetLastError());
+}

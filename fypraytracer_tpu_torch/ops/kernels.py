@@ -131,3 +131,36 @@ def check_inputs(name: str, floats=(), ints=()) -> None:
                 raise ValueError(f"{name}: every input must be on one CUDA device, got {t.device}")
             if not t.is_contiguous() or t.dtype != dtype:
                 raise ValueError(f"{name}: inputs must be contiguous {dtype}, got {t.dtype}")
+
+
+# the libraries whose sources include csrc/shading.cuh, each with the test
+# entry fyp_camera_rays
+CAMERA_LIBS = ("megakernel", "restir_di", "restir_gi", "megakernel_diff")
+
+
+def camera_rays(name: str, cam: torch.Tensor, width: int, height: int, pix0: int = 0,
+                n_pix: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (n_pix, 3) origins and directions that ``shading.cuh::camera_ray``
+    gives pixels ``pix0 .. pix0 + n_pix - 1`` in library ``name``, built
+    with that library's flags: the test entry that holds the kernels' rays
+    against ``core/camera.py::generate_rays``.  ``cam`` is the (2, 4, 4)
+    float32 inverse projection and view on a CUDA device."""
+    n_pix = width * height - pix0 if n_pix is None else n_pix
+    check_inputs("camera_rays", floats=(cam,))
+    fn = load(name, "fyp_camera_rays", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    orig, dirs = (torch.empty((n_pix, 3), dtype=torch.float32, device=cam.device) for _ in range(2))
+    check(fn(ptr(cam), width, height, pix0, n_pix, ptr(orig), ptr(dirs), stream_ptr(cam.device)), "camera_rays")
+    return orig, dirs
+
+
+def math_ops(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The (4, n) rows ``powf(x, 5)``, ``cosf(x)``, ``sinf(x)``, ``sqrtf(x)``
+    of the device library, as library ``name`` is built (one of
+    ``CAMERA_LIBS``): the test entry that holds the functions the shading
+    code calls against PyTorch's on the same inputs."""
+    check_inputs("math_ops", floats=(x,))
+    fn = load(name, "fyp_math_ops", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    out = torch.empty((4, x.numel()), dtype=torch.float32, device=x.device)
+    check(fn(ptr(x), x.numel(), ptr(out), stream_ptr(x.device)), "math_ops")
+    return out

@@ -16,8 +16,12 @@ albedo launches that instantiation with the scene's kernel levels
 (``Scene.tex``: mip 0 box-filtered to at most 256², and the bounce level),
 which the scene builders make with the scene.
 
+Both take a pixel slab (``pix0``, ``n_pix``), the TPU kernel's chunk
+entry (:2372-2420): ``parallel/shard.py::sharded_megakernel_render`` gives
+each rank its slab, and slabs join into the whole image bit for bit.
+
 ``megakernel_plain`` is its plain PyTorch version: the sum of ``n_frames``
-frames of the matching wavefront integrator (``renderer.frame_hdr``) with
+frames of the matching wavefront integrator (``renderer.pixels_hdr``) with
 the plain BVH walk.  The wrapper takes it for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  ``megakernel.launches`` counts
 kernel launches.
@@ -45,7 +49,7 @@ from fypraytracer_tpu_torch.core.camera import Camera
 from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_kernel_atlas
 from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, stack_depth, trace_rays, wide_records
-from fypraytracer_tpu_torch.render.renderer import frame_hdr
+from fypraytracer_tpu_torch.render.renderer import pixels_hdr
 from fypraytracer_tpu_torch.scene.types import Scene
 
 # megakernel.py:2566; the int is csrc/megakernel.cu's Sampler
@@ -113,28 +117,42 @@ def _sampler(settings: RenderSettings) -> str:
     return SAMPLER_OF[tech]
 
 
+def slab(camera: Camera, pix0: int, n_pix: int | None) -> int:
+    """The pixel count of the slab that starts at ``pix0`` (all the pixels
+    after it when ``n_pix`` is None); raises unless it lies in the image."""
+    total = camera.width * camera.height
+    n_pix = total - pix0 if n_pix is None else n_pix
+    if pix0 < 0 or n_pix < 0 or pix0 + n_pix > total:
+        raise ValueError(f"megakernel: the slab of {n_pix} pixels at {pix0} leaves the {total}-pixel image")
+    return n_pix
+
+
 def megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
-                     settings: RenderSettings) -> torch.Tensor:
-    """(H*W, 3) HDR summed over frames ``frame0 .. frame0+n_frames-1``:
-    the wavefront frame of ``settings.technique`` with the plain BVH walk,
-    in PyTorch, reading the kernel's texture levels (``with_kernel_atlas``;
-    where every texture is at most 256 a side they are the wavefront's)."""
+                     settings: RenderSettings, pix0: int = 0, n_pix: int | None = None) -> torch.Tensor:
+    """(n_pix, 3) HDR of the pixels ``pix0 .. pix0+n_pix-1`` (by default the
+    whole image, (H*W, 3)) summed over frames ``frame0 ..
+    frame0+n_frames-1``: the wavefront frame of ``settings.technique`` at
+    those pixels with the plain BVH walk, in PyTorch, reading the kernel's
+    texture levels (``with_kernel_atlas``; where every texture is at most
+    256 a side they are the wavefront's)."""
     _sampler(settings)
+    n_pix = slab(camera, pix0, n_pix)
     scene = with_kernel_atlas(scene)
 
     def trace(o, d):
         return trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
 
     dev = scene.geometry.positions.device
-    out = torch.zeros((camera.height * camera.width, 3), dtype=torch.float32, device=dev)
+    pixel_ids = torch.arange(pix0, pix0 + n_pix, device=dev)
+    out = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     for f in range(n_frames):
-        out = out + frame_hdr(scene, camera, frame0 + f, settings, trace_fn=trace).reshape(-1, 3)
+        out = out + pixels_hdr(scene, camera, frame0 + f, settings, pixel_ids, trace_fn=trace)
     return out
 
 
 _ARGTYPES = (
-    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p] * 5          # geometry
     + [ctypes.c_void_p] * 5          # materials
     + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5         # texture
@@ -145,21 +163,26 @@ _ARGTYPES = (
 
 
 def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
-               settings: RenderSettings, lanes: int | None = None) -> torch.Tensor:
-    """(H*W, 3) HDR summed over ``n_frames`` frames of ``settings.technique``
-    starting at ``frame0``, through the CUDA kernel ``csrc/megakernel.cu``
-    with ``lanes`` threads a pixel (1, 2 or 4; by default ``k2_lanes``)
-    (plain version for CPU tensors).  A textured scene launches the
-    textured instantiation with the levels of ``Scene.tex``."""
+               settings: RenderSettings, lanes: int | None = None, pix0: int = 0,
+               n_pix: int | None = None) -> torch.Tensor:
+    """(n_pix, 3) HDR of the pixel slab ``pix0 .. pix0+n_pix-1`` (by default
+    the whole image, (H*W, 3)) summed over ``n_frames`` frames of
+    ``settings.technique`` starting at ``frame0``, through the CUDA kernel
+    ``csrc/megakernel.cu`` with ``lanes`` threads a pixel (1, 2 or 4; by
+    default ``k2_lanes``) (plain version for CPU tensors).  A slab's pixels
+    are the same bits as the whole image's (the JAX kernel's chunk entry,
+    ``pix0``).  A textured scene launches the textured instantiation with
+    the levels of ``Scene.tex``."""
     sampler = _sampler(settings)
+    n_pix = slab(camera, pix0, n_pix)
     if scene.geometry.positions.device.type == "cpu":
-        return megakernel_plain(scene, camera, frame0, n_frames, settings)
+        return megakernel_plain(scene, camera, frame0, n_frames, settings, pix0, n_pix)
     if lanes is None:
         lanes = k2_lanes(n_frames)
     if lanes not in (1, 2, 4):
         raise ValueError(f"megakernel: lanes must be 1, 2 or 4, got {lanes}")
     out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, "megakernel",
-                  scene.tex)
+                  scene.tex, pix0, n_pix)
     megakernel.launches += 1
     return out
 
@@ -179,7 +202,7 @@ def megakernel_threaded(scene: Scene, camera: Camera, frame0: int, n_frames: int
     if scene.tex is not None:
         raise NotImplementedError("the threaded walk is built untextured; megakernel renders textured scenes")
     out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID["nee"], THREADED, "megakernel_threaded",
-                  None)
+                  None, 0, camera.width * camera.height)
     megakernel_threaded.launches += 1
     return out
 
@@ -187,10 +210,11 @@ def megakernel_threaded(scene: Scene, camera: Camera, frame0: int, n_frames: int
 megakernel_threaded.launches = 0
 
 
-def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name, tex):
+def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name, tex, pix0, n_pix):
     """Check the inputs, allocate the output and launch ``fyp_megakernel``
-    with ``lanes`` threads a pixel (``THREADED``: the threaded walk) on the
-    current stream; textured with the tables ``tex`` unless it is None."""
+    on the slab of ``n_pix`` pixels at ``pix0`` with ``lanes`` threads a
+    pixel (``THREADED``: the threaded walk) on the current stream; textured
+    with the tables ``tex`` unless it is None."""
     g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
     wide = wide_records(scene)
     dev = g.positions.device
@@ -208,9 +232,9 @@ def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name, tex
     # (megakernel.py:2603, Renderer.cu:565-701)
     samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
     fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
-    out = torch.empty((camera.height * camera.width, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
     P = kernels.ptr
-    rc = fn(sampler, lanes, P(cam), camera.width, camera.height, int(frame0) & 0xFFFFFFFF, n_frames,
+    rc = fn(sampler, lanes, P(cam), camera.width, camera.height, pix0, n_pix, int(frame0) & 0xFFFFFFFF, n_frames,
             settings.bounces, samples, *(float(c) for c in settings.sky_color),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),

@@ -42,10 +42,20 @@ _SAMPLER_OF = {
 def frame_hdr(scene: Scene, camera: Camera, frame: int, settings: RenderSettings,
               trace_fn=None):
     """One stateless frame of HDR radiance, (H, W, 3), on the scene's device."""
-    dev = scene.geometry.positions.device
     w, h = camera.width, camera.height
-    origins, directions = generate_rays(camera.inv_projection, camera.inv_view, w, h, device=dev)
-    pixel_ids = torch.arange(w * h, device=dev)
+    pixel_ids = torch.arange(w * h, device=scene.geometry.positions.device)
+    return pixels_hdr(scene, camera, frame, settings, pixel_ids, trace_fn).reshape(h, w, 3)
+
+
+def pixels_hdr(scene: Scene, camera: Camera, frame: int, settings: RenderSettings, pixel_ids,
+               trace_fn=None):
+    """One stateless frame of HDR radiance at the pixels ``pixel_ids``
+    (row-major ids on the scene's device), (n, 3): each pixel's the same
+    bits as in the whole frame's, since rays and keys are the pixel's own."""
+    w, h = camera.width, camera.height
+    origins, directions = generate_rays(camera.inv_projection, camera.inv_view, w, h,
+                                        device=pixel_ids.device, pixel_x=pixel_ids % w,
+                                        pixel_y=pixel_ids // w)
     trace = trace_fn or pick_tracer(scene)
     tech = settings.technique
     args = (scene, trace, origins, directions, pixel_ids, frame, settings)
@@ -57,7 +67,7 @@ def frame_hdr(scene: Scene, camera: Camera, frame: int, settings: RenderSettings
         hdr = radiance_nee_mis(*args)
     else:
         raise NotImplementedError(f"technique {tech} is stateful: see render_step_stateful")
-    return hdr.reshape(h, w, 3)
+    return hdr
 
 
 def render_step_stateful(scene: Scene, camera: Camera, prev_proj_view, frame: int,

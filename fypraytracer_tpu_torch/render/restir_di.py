@@ -135,7 +135,9 @@ def _p_hat(scene, slot, prim, ctx):
 def restir_di_part1(scene: Scene, trace_fn, origins, directions, pixel_ids, frame, settings,
                     state, width: int, height: int, prev_proj_view):
     """Stage 1: primary trace, M candidates by RIS, temporal reuse
-    (PerPixel_ReSTIR_DI_Part1, Renderer.cu:1628-1873)."""
+    (PerPixel_ReSTIR_DI_Part1, Renderer.cu:1628-1873).  ``state`` is read
+    with global pixel ids: the whole image's, or a shard's with its halo
+    behind a global-index view (``parallel/restir_shard.py``)."""
     dev = origins.device
     num_emissive = max(scene.emissive_tris.shape[0], 1)
     prim = hit_payload(scene.geometry, origins, directions, trace_fn(origins, directions))
@@ -180,9 +182,12 @@ def restir_di_part1(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
 
 
 def restir_di_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, frame, settings,
-                    g, width: int, height: int):
+                    g, full_g, width: int, height: int):
     """Stage 2: spatial reuse and the final shade (PerPixel_ReSTIR_DI_Part2,
-    Renderer.cu:1875-2041).  ``g`` holds stage 1's full-image arrays."""
+    Renderer.cu:1875-2041).  ``g`` holds stage 1's arrays of these pixels,
+    ``full_g`` what the neighbour gathers index with global pixel ids: the
+    whole image's arrays, or a shard's with its halo behind a global-index
+    view (``parallel/restir_shard.py``)."""
     num_emissive = max(scene.emissive_tris.shape[0], 1)
     prim = dict(t=g["t"], mat=g["mat"], position=g["position"], normal=g["normal"], uv=g["uv"])
     ctx = _prim_setup(scene, directions, prim)
@@ -206,15 +211,15 @@ def restir_di_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
             oy = torch.clamp(py_self + ((uy * 2.0 - 1.0) * radius).to(torch.int32), 0, height - 1)
             nidx = (ox + oy * width).long()
 
-            n_depth = g["t"][nidx]
+            n_depth = full_g["t"][nidx]
             # the reference reads the oct-encoded normal G-buffer: quantize
-            n_normal = decode_octahedral(encode_octahedral(g["normal"][nidx]))
+            n_normal = decode_octahedral(encode_octahedral(full_g["normal"][nidx]))
             depth_ok = (n_depth <= (1.0 + _DEPTH_TOL) * prim["t"]) \
                 & (n_depth >= (1.0 - _DEPTH_TOL) * prim["t"])
             normal_ok = dot3(prim["normal"], n_normal, keepdims=False) >= _NORMAL_SPATIAL
             ok = ctx["shade"] & depth_ok & normal_ok
 
-            n_res = {k: g[k][nidx] for k in _RES_KEYS}
+            n_res = {k: full_g[k][nidx] for k in _RES_KEYS}
             p_n = _p_hat(scene, n_res["index"], prim, ctx)      # at THIS pixel (fix)
             sp = reservoir_update(sp, n_res["index"], p_n * n_res["w"] * n_res["m"].float(),
                                   n_res["m"], p_n, u_acc, ok)
@@ -260,7 +265,7 @@ def render_restir_di(scene: Scene, trace_fn, origins, directions, pixel_ids, fra
     g = restir_di_part1(scene, trace_fn, origins, directions, pixel_ids, frame, settings, state,
                         width, height, prev_proj_view)
     out, res = restir_di_part2(scene, trace_fn, origins, directions, pixel_ids, frame, settings,
-                               g, width, height)
+                               g, g, width, height)
     return out, dict(reservoir=res, depth=g["t"], normal_oct=encode_octahedral(g["normal"]))
 
 

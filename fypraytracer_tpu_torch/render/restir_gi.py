@@ -194,7 +194,9 @@ def _prim_lanes(scene: Scene, prim):
 def restir_gi_part1(scene: Scene, trace_fn, origins, directions, pixel_ids, frame, settings,
                     state, width: int, height: int, prev_proj_view):
     """Stage 1: primary trace, initial BRDF path, temporal reuse
-    (PerPixel_ReSTIR_GI_Part1, Renderer.cu:2043-2293)."""
+    (PerPixel_ReSTIR_GI_Part1, Renderer.cu:2043-2293).  ``state`` is read
+    with global pixel ids: the whole image's, or a shard's with its halo
+    behind a global-index view (``parallel/restir_shard.py``)."""
     prim = hit_payload(scene.geometry, origins, directions, trace_fn(origins, directions))
     shade_lanes = _prim_lanes(scene, prim)[3]
     view = -directions
@@ -244,10 +246,12 @@ def restir_gi_part1(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
 
 
 def restir_gi_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, frame, settings,
-                    g, width: int, height: int):
+                    g, full_g, width: int, height: int):
     """Stage 2: spatial reuse with the reconnection Jacobian and the shade
     (PerPixel_ReSTIR_GI_Part2, Renderer.cu:2295-2387).  ``g`` holds stage
-    1's full-image arrays."""
+    1's arrays of these pixels, ``full_g`` what the neighbour gathers index
+    with global pixel ids: the whole image's arrays, or a shard's with its
+    halo behind a global-index view (``parallel/restir_shard.py``)."""
     sky = torch.as_tensor(settings.sky_color, dtype=origins.dtype, device=origins.device)
     prim = dict(t=g["t"], mat=g["mat"], position=g["position"], normal=g["normal"], uv=g["uv"])
     prim_miss, prim_emission, prim_emissive, shade_lanes = _prim_lanes(scene, prim)
@@ -270,11 +274,11 @@ def restir_gi_part2(scene: Scene, trace_fn, origins, directions, pixel_ids, fram
             oy = torch.clamp(py_self + ((uy * 2.0 - 1.0) * radius).to(torch.int32), 0, height - 1)
             nidx = (ox + oy * width).long()
 
-            n_depth = g["t"][nidx]
+            n_depth = full_g["t"][nidx]
             # the reference reads the oct-encoded normal G-buffer: quantize
-            n_normal = decode_octahedral(encode_octahedral(g["normal"][nidx]))
-            nr = dict(sample={k: g["s_" + k][nidx] for k in sample_keys},
-                      w=g["w"][nidx], m=g["m"][nidx], wsum=g["wsum"][nidx])
+            n_normal = decode_octahedral(encode_octahedral(full_g["normal"][nidx]))
+            nr = dict(sample={k: full_g["s_" + k][nidx] for k in sample_keys},
+                      w=full_g["w"][nidx], m=full_g["m"][nidx], wsum=full_g["wsum"][nidx])
             n_rad_len = _luminance_norm(nr["sample"]["radiance"])
             # geometric acceptance only — zero-radiance neighbours still count
             # in Z (their merge weight is 0, the M accounting is not)
@@ -337,7 +341,7 @@ def render_restir_gi(scene: Scene, trace_fn, origins, directions, pixel_ids, fra
     g = restir_gi_part1(scene, trace_fn, origins, directions, pixel_ids, frame, settings, state,
                         width, height, prev_proj_view)
     out, flat_res = restir_gi_part2(scene, trace_fn, origins, directions, pixel_ids, frame,
-                                    settings, g, width, height)
+                                    settings, g, g, width, height)
     sample = {k[2:]: v for k, v in flat_res.items() if k.startswith("s_")}
     new_state = dict(reservoir=dict(sample=sample, w=flat_res["w"], m=flat_res["m"],
                                     wsum=flat_res["wsum"]),

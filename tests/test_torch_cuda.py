@@ -11,9 +11,11 @@ and its walks of the wide BVH equal to the threaded walk bit for bit; K2
 NEE with one thread a pixel the same against its threaded walk; the wide
 segment test (``trace_segments``) equal to its plain twin bit for bit; K5
 (a tile a cluster of blocks, the walks through the wide BVH) equal to its
-plain version bit for bit on the Cornell box at power-of-two squares, under
-the gates elsewhere, and its stage equal to K6's bit for bit, at tiles of
-512, 256 and 128 pixels;
+plain version bit for bit, and its stage equal to K6's bit for bit, at
+tiles of 512, 256 and 128 pixels, on square and other frames and on the
+stress scene; every kernel library's camera rays (``camera_ray``) equal to
+``generate_rays`` bit for bit; K2's pixel slabs joined equal to its
+one-launch image bit for bit;
 K2, K3+K4, K5-K7 (ReSTIR GI) and the renderers under
 tests/test_render_parity.py:111-114
 (median |Δ| < 1e-5, fewer than 1% of pixels off by more than 1e-3, mean
@@ -302,28 +304,22 @@ def _di_setup(cuda, w=W, h=H, scene_name="cornell"):
     return scene, tmr.prepare_emissive_table(scene), cam
 
 
-# (scene, width, height): tiles of 512, 256 and 128 pixels, and the stress
-# scene's deep tree
-TILES = [("cornell", 32, 32), ("cornell", 16, 16), ("cornell", 40, 16), ("stress", 32, 32)]
-TILE_IDS = ["C512", "C256", "C128", "stress C512"]
+# (scene, width, height): tiles of 512, 256 and 128 pixels, a frame that is
+# no power-of-two square (tiles of 256), and the stress scene's deep tree
+TILES = [("cornell", 32, 32), ("cornell", 16, 16), ("cornell", 40, 16), ("cornell", 80, 48), ("stress", 32, 32)]
+TILE_IDS = ["C512", "C256", "C128", "C256-80x48", "stress C512"]
 
 
-def _k5_matches(got, ref, k6_stage, bitwise):
-    """K5's (image, state, stage) against its plain version's: bit for bit
-    where ``bitwise``, else under the gates; and K5's stage bit for bit
-    K6's on the same inputs (the same first half of a frame, walked through
-    the wide BVH, against the threaded walk).  Bit for bit against the
-    plain version holds on the Cornell box at power-of-two squares;
-    elsewhere the kernels' and the plain version's primary hits differ in
-    the last bits at a few pixels, K6's and K7's too (ROADMAP queue 3)."""
+def _k5_matches(got, ref, k6_stage):
+    """K5's (image, state, stage) against its plain version's, bit for bit,
+    and K5's stage bit for bit K6's on the same inputs (the same first half
+    of a frame, walked through the wide BVH, against the threaded walk).
+    Until the plain versions' camera rays and specular weight were made to
+    round as the kernels' (ROADMAP queue 3) this held only on the Cornell
+    box at power-of-two squares."""
     for got_t, ref_t, name in zip(got, ref, ("image", "state", "stage")):
-        if bitwise:
-            off = (got_t != ref_t).any(-1 if name == "image" else 0).nonzero().flatten()
-            assert off.numel() == 0, f"{name} differs at pixels {off[:16].tolist()}"
-        elif name == "image":
-            _gates(got_t.cpu().numpy(), ref_t.cpu().numpy())
-        else:
-            assert _elements_off(got_t, ref_t) < 0.01, name
+        off = (got_t != ref_t).any(-1 if name == "image" else 0).nonzero().flatten()
+        assert off.numel() == 0, f"{name} differs at {off.numel()} pixels, first {off[:16].tolist()}"
     assert torch.equal(got[2], k6_stage)
 
 
@@ -447,7 +443,7 @@ def test_restir_gi_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, mo
         # a tile split over a cluster and a tile one block: the same bits
         assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
         outs = outs[1:]
-        _k5_matches(outs[0], outs[1], k6, scene_name == "cornell" and w == h)
+        _k5_matches(outs[0], outs[1], k6)
     assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches) == \
         (counts[0] + 4, counts[1] + 1, counts[2] + 1)
     ttrav.check_overflow(scene)
@@ -458,14 +454,17 @@ def test_restir_gi_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, mo
 @pytest.mark.parametrize("mode, size", [(dict(mono=True), (32, 32)), (dict(mono=True, final_vis=True), (32, 32)),
                                         (dict(mono=False), (32, 32)),
                                         (dict(mono=True), (16, 16)), (dict(mono=True, final_vis=True), (16, 16)),
-                                        (dict(mono=True), (40, 16)), (dict(mono=True, final_vis=True), (40, 16))],
+                                        (dict(mono=True), (40, 16)), (dict(mono=True, final_vis=True), (40, 16)),
+                                        (dict(mono=False), (80, 48))],
                          ids=["mono", "final_vis", "split", "mono-C256", "final_vis-C256", "mono-C128",
-                              "final_vis-C128"])
+                              "final_vis-C128", "split-80x48"])
 def test_restir_gi_kernels_match_plain_over_frames(cuda, mode, size):
     """The ping-pong frame loop against ``restir_gi_megakernel_plain``, 3 + 3
     frames with a camera move in between; launches: K5 once a frame, or K6
     and K7 once each.  K5 also at tiles of 256 and 128 pixels (K6 and K7
-    run a tile as one block, as before)."""
+    run a tile as one block, as before); K6 and K7 also at 80x48, which
+    ended past the 1% gate before the camera rays' repair (ROADMAP queue
+    3)."""
     w, h = size
     scene, _, _ = _di_setup(cuda, w, h)
     B = w * h
@@ -665,10 +664,10 @@ def test_textured_megakernel_matches_its_plain_version(cuda, tech):
 def test_textured_k3_matches_its_plain_version(cuda, size, move):
     """K3's textured instantiation launched alone, after two frames of
     history, the camera static or moved, against ``restir_di_k3_plain``:
-    the stage; its albedo rows exactly at power-of-two squares (elsewhere a
-    primary hit may differ in its last bits from the plain version's, and
-    its texel with it: ROADMAP queue 3); split and one block a tile, the
-    same bits."""
+    the stage; its albedo rows exactly (before the camera rays' repair a
+    primary hit could differ in its last bits from the plain version's away
+    from power-of-two squares, and its texel with it: ROADMAP queue 3);
+    split and one block a tile, the same bits."""
     scene, cam = _textured(cuda, *size)
     em = tmr.prepare_emissive_table(scene)
     state = torch.zeros((tmr.ST_ROWS, size[0] * size[1]), device=cuda)
@@ -681,9 +680,8 @@ def test_textured_k3_matches_its_plain_version(cuda, size, move):
     torch.cuda.synchronize()
     assert tmr.restir_di_k3.launches == before + 2
     assert _elements_off(stage, ref) < 0.01
-    if size[0] == size[1]:
-        alb = slice(tmr.S_ALB, tmr.S_ALB + 3)
-        assert _elements_off(stage[alb], ref[alb]) == 0.0
+    alb = slice(tmr.S_ALB, tmr.S_ALB + 3)
+    assert _elements_off(stage[alb], ref[alb]) == 0.0
 
 
 @MOVES
@@ -713,7 +711,7 @@ def test_textured_gi_kernels_match_plain(cuda, size, move):
         # a tile split over a cluster and a tile one block: the same bits
         assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
         outs = outs[1:]
-        _k5_matches(outs[0], outs[1], k6, size[0] == size[1])
+        _k5_matches(outs[0], outs[1], k6)
     assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches) == (counts[0] + 4, counts[1] + 1)
 
 
@@ -793,3 +791,108 @@ def test_k3_and_k5_refuse_an_oversize_stack(cuda):
         tmg.restir_gi_mono(scene, cam, 1, GI, gi[0], gi[1], cam.proj_view, torch.zeros((B, 3), device=cuda),
                            gi[2], gi[3])
     assert (tmr.restir_di_k3.launches, tmg.restir_gi_mono.launches) == before
+
+
+# ---- camera rays and K2's pixel slabs ---------------------------------------------------
+
+RAY_SIZES = [(40, 16), (80, 48), (256, 256)]
+
+
+@pytest.mark.parametrize("lib", kernels.CAMERA_LIBS)
+@pytest.mark.parametrize("w, h", RAY_SIZES, ids=[f"{w}x{h}" for w, h in RAY_SIZES])
+@pytest.mark.parametrize("scene_name", ["cornell", "stress"])
+def test_kernel_camera_rays_equal_generate_rays(cuda, lib, w, h, scene_name):
+    """``shading.cuh::camera_ray`` as each kernel library is built (its own
+    flags: restir_gi and megakernel_diff with -fmad=false, the others
+    without) against ``generate_rays`` on the card, bit for bit, over the
+    whole grid and a slab at an odd offset (ROADMAP queue 3: before the
+    repair the plain rays divided by W and H as a product with the
+    reciprocal, which parted wherever W or H is no power of two)."""
+    if scene_name == "cornell":
+        _, cam = tproc.cornell_box(w, h)
+    else:       # scene/procedural.py::stress's camera
+        cam = Camera(position=(0.0, 2.0, 4.5), forward=(0.0, -0.1, -1.0), vfov_deg=50.0, width=w, height=h)
+    cam_t = trc.camera_matrices(cam, cuda)
+    o, d = generate_rays(cam.inv_projection, cam.inv_view, w, h, device=cuda)
+    ko, kd = kernels.camera_rays(lib, cam_t, w, h)
+    torch.cuda.synchronize()
+    off = (kd != d).any(-1).nonzero().flatten()
+    assert off.numel() == 0, f"{off.numel()} of {w * h} rays differ, first {off[:8].tolist()}"
+    assert torch.equal(ko, o)
+    pix0 = w * h // 3 + 1
+    _, kd = kernels.camera_rays(lib, cam_t, w, h, pix0, w * h // 2)
+    assert torch.equal(kd, d[pix0:pix0 + w * h // 2])
+
+
+def _slab_starts(n_pix, n_slabs):
+    """Boundaries of ``n_slabs`` slabs of ceil(n_pix / n_slabs) pixels, the
+    last one ragged."""
+    per = -(-n_pix // n_slabs)
+    return list(range(0, n_pix, per)) + [n_pix]
+
+
+def _slabs_equal_whole(scene, cam, frames, settings, lanes, counts=(2, 3, 7)):
+    whole = tmk.megakernel(scene, cam, 1, frames, settings, lanes=lanes)
+    n = cam.width * cam.height
+    for k in counts:
+        starts = _slab_starts(n, k)
+        before = tmk.megakernel.launches
+        parts = [tmk.megakernel(scene, cam, 1, frames, settings, lanes=lanes, pix0=a, n_pix=b - a)
+                 for a, b in zip(starts, starts[1:])]
+        joined = torch.cat(parts)
+        torch.cuda.synchronize()
+        assert tmk.megakernel.launches == before + len(parts)
+        off = (joined != whole).any(-1).nonzero().flatten()
+        assert off.numel() == 0, f"{k} slabs: {off.numel()} pixels differ, first {off[:8].tolist()}"
+    ttrav.check_overflow(scene)
+    return whole
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("tech", list(tmk.SAMPLER_OF), ids=lambda t: t.name)
+def test_megakernel_slabs_join_into_the_one_launch_image(cuda, tech, lanes):
+    """K2's pixel-slab entry, every sampler and lane count: 2, 3 and 7 slabs
+    of Cornell 72x40 (2,880 pixels; slabs of 1,440, 960 and 412 pixels, the
+    last 408, off any multiple of a block of 128 threads) joined equal the
+    one-launch image bit for bit, and the slabs launch once each."""
+    builder, cam = tproc.cornell_box(72, 40, sphere_res=(6, 10))
+    scene = builder.compile().to(cuda)
+    whole = _slabs_equal_whole(scene, cam, 4, SETTINGS.replace(technique=tech), lanes)
+    assert float(whole.mean()) > 0.0
+
+
+def test_megakernel_nee_four_lane_slabs_at_1080p(cuda):
+    """The four-lane NEE launch of ``test_megakernel_nee_four_lanes_at_1080p``
+    (ROADMAP queue 3) cut into 2, 3 and 7 slabs, 8 frames: bit for bit the
+    one launch."""
+    builder, cam = tproc.cornell_box(1920, 1088)
+    scene = builder.compile().to(cuda)
+    whole = _slabs_equal_whole(scene, cam, 8, SETTINGS, 4)
+    assert bool(torch.isfinite(whole).all())
+
+
+@pytest.mark.parametrize("tech", ["NEE_MIS", "COSINE", "LIGHT_SOURCE"])
+def test_textured_megakernel_slabs_join(cuda, tech):
+    scene, cam = _textured(cuda, 48, 40)
+    settings = RenderSettings(technique=SamplingTechnique[tech], bounces=2, samples=1, sky_color=(0.1, 0.15, 0.2))
+    _slabs_equal_whole(scene, cam, 4, settings, None)
+
+
+def test_sharded_paths_on_one_process(cuda):
+    """The sharded entry points on a mesh of one process (no collectives):
+    ``sharded_megakernel_render`` is ``megakernel``'s one launch and
+    ``sharded_render`` the cosine wavefront frame, bit for bit."""
+    from fypraytracer_tpu_torch.parallel import shard
+    from fypraytracer_tpu_torch.render.renderer import frame_hdr
+
+    builder, cam = tproc.cornell_box(64, 48)
+    host = builder.compile()
+    mesh = shard.make_pixel_mesh(device=cuda)
+    scene = shard.replicate_scene(host, mesh)
+    before = tmk.megakernel.launches
+    got = shard.sharded_megakernel_render(scene, mesh, 64, 48, SETTINGS, 4)(cam, 1)
+    assert tmk.megakernel.launches == before + 1
+    assert torch.equal(got, tmk.megakernel(scene, cam, 1, 4, SETTINGS))
+    cos = SETTINGS.replace(technique=SamplingTechnique.COSINE)
+    got = shard.sharded_render(scene, mesh, 64, 48, cos)(cam.inv_projection, cam.inv_view, 1)
+    assert torch.equal(got, frame_hdr(scene, cam, 1, cos).reshape(-1, 3))
