@@ -43,23 +43,24 @@ albedos), in phases:
      stay clear;
   5. K3 ``restir_di_k3`` (the wide walk; each tile one block, or split over
      a cluster of blocks of 128 where the tiles are too few to fill the
-     card) and K4 ``restir_di_k4`` each against its plain version on the
-     same inputs, and the frame loop of both against
-     ``restir_di_megakernel_plain``: 128², 8 frames on the stress scene, and
-     64², 4 + 4 frames on Cornell with a camera move in between; then K3's
-     device time a launch at Cornell 256², stress 128² and Cornell
-     1920x1088 as the wrapper picks its launch, and both launches in turns
-     (split, one block, one block, split), each beside its resident blocks
-     and clusters (the CUDA runtime's occupancy; the registers and spills
-     are phase 2's);
-  5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``; the
-     wide walks, tiles launched as K3's), K6 ``restir_gi_k1`` and K7
-     ``restir_gi_k2`` each against its plain version on the same inputs
+     card) and K4 ``restir_di_k4`` (the wide walk, blocks of 128) each
+     against its plain version on the same inputs, and the frame loop of
+     both against ``restir_di_megakernel_plain``: 128², 8 frames on the
+     stress scene, and 64², 4 + 4 frames on Cornell with a camera move in
+     between; then K3's and K4's device time a launch at Cornell 256²,
+     stress 128² and Cornell 1920x1088, K3 as the wrapper picks its launch
+     and both launches in turns (split, one block, one block, split), each
+     beside its resident blocks and clusters (the CUDA runtime's
+     occupancy; the registers and spills are phase 2's);
+  5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``), K6
+     ``restir_gi_k1`` (both with the wide walks, tiles launched as K3's) and
+     K7 ``restir_gi_k2`` each against its plain version on the same inputs
      (Cornell 256², one frame after two of history); the K5 frame loop
      against ``restir_gi_megakernel_plain`` at Cornell 256², 8 frames, and
      stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at Cornell
-     64², 4 + 4 frames with a camera move; then K5 (both modes) timed at the
-     shapes of phase 5 with its occupancy;
+     64², 4 + 4 frames with a camera move; then K5 (both modes) and K6 timed
+     at the shapes of phase 5 with their occupancy, K6's two launches also
+     at 32-128 tiles (``BETWEEN``);
   5c. K8 ``diff_megakernel`` (the fused loss and albedo gradient) against its
      plain version ``diff_plain`` on the same inputs (Cornell 256², 2 bounces,
      frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
@@ -153,8 +154,9 @@ pixels that shade, since only they read it) and its outputs; a textured
 instantiation adds its texel reads, 4 texels of 12 bytes a fetch times the
 fetches its plain version counts (at most the texture tables once).
 
-``--ab`` times K2 NEE, K3 and K5, and the entry points, of other checkouts against
-this one in turns (e.g. the commit before a change).
+``--ab`` times K2 NEE, K3-K6 and the entry points of other checkouts against
+this one in turns (e.g. the commit before a change), and compares their
+ReSTIR outputs bit for bit.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -162,8 +164,8 @@ the last is the kernels' summary, the last line is
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --quick    # phases 1-6: build, check, main paths
-    python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K2, K3
-                                     # and K5 a launch: each DIR's package against
+    python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K2 and
+                                     # K3-K6 a launch: each DIR's package against
                                      # this one's, in turns (ab_turn)
 """
 
@@ -621,7 +623,7 @@ def phase_segment() -> None:
 
 def tile_occupancy(kernel: str, C: int, depth: int, clustered: bool, textured: bool = False,
                    final_vis: bool = False) -> dict:
-    """The blocks of K3 (``kernel`` "k3") or K5 ("k5") that one
+    """The blocks of K3 (``kernel`` "k3"), K5 ("k5") or K6 ("k6") that one
     multiprocessor holds at once and the clusters the card holds at once,
     by the CUDA runtime, for tiles of ``C`` pixels split over a cluster or
     not and stacks of ``depth`` entries, with the launch's block and
@@ -636,8 +638,10 @@ def tile_occupancy(kernel: str, C: int, depth: int, clustered: bool, textured: b
         fn = kernels.load("restir_di", "fyp_restir_di_k3_occupancy", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
         rc = fn(int(textured), C, int(clustered), depth, ctypes.byref(blocks), ctypes.byref(clusters))
     else:
+        # csrc/restir_gi.cu's kernel selector: K5, K5 final_vis, K6
+        which = 2 if kernel == "k6" else int(final_vis)
         fn = kernels.load("restir_gi", "fyp_restir_gi_occupancy", [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
-        rc = fn(int(final_vis), int(textured), C, int(clustered), depth, ctypes.byref(blocks), ctypes.byref(clusters))
+        rc = fn(which, int(textured), C, int(clustered), depth, ctypes.byref(blocks), ctypes.byref(clusters))
     kernels.check(rc, f"{kernel} occupancy")
     lay = tile_launch(C, clustered)
     return dict(threads_per_block=lay["threads"], blocks_per_cluster=lay["cluster"], blocks_per_sm=blocks.value,
@@ -826,7 +830,7 @@ def phase_restir(summary: dict) -> None:
     # (ST_NRM, ST_RM, ST_RIDX, ST_RW) and writes the stage; K4 reads the
     # camera and every stage row, writes the state and adds to the image
     k3_io = scene_bytes(scene, wide=True) + em_bytes + 3 * 16 * 4 + 6 * B * 4 + nbytes(out["stage"])
-    k4_io = scene_bytes(scene, surfaces=False) + em_bytes + 2 * 16 * 4 + nbytes(out["stage"]) \
+    k4_io = scene_bytes(scene, surfaces=False, wide=True) + em_bytes + 2 * 16 * 4 + nbytes(out["stage"]) \
         + nbytes(state) + 2 * B * 12
     summary["restir_di_k3"] = dict(max_abs_err=k3_row["max_abs_err"], ms=k3_ms, wrapper_ms=k3_wrapper_ms,
                                    plain_ms=k3_plain_ms,
@@ -867,28 +871,30 @@ def phase_restir(summary: dict) -> None:
         if not row["ok"]:
             raise AssertionError(f"K3+K4 disagree with restir_di_megakernel_plain on {name}")
     summary["restir_di_k3"].update(by_shape("k3", st))
+    summary["restir_di_k4"].update(by_shape("k4", st))
 
 
-# the shapes at which K3 and K5 are timed: few tiles, a deep tree, many tiles
+# the shapes at which K3-K6 are timed: few tiles, a deep tree, many tiles
 SHAPES = (("cornell", 256, 256), ("stress", 128, 128), ("cornell", 1920, 1088))
 # frames of 32 to 128 tiles of 512, on both scenes, at which only the two
-# launches are timed in turns: where restir_common.tile_clustered's threshold
-# should sit
+# launches of K3, K5 and K6 are timed in turns: where
+# restir_common.tile_clustered's threshold should sit
 BETWEEN = (("cornell", 128, 128), ("cornell", 160, 160), ("cornell", 192, 192), ("cornell", 224, 224),
            ("stress", 160, 160), ("stress", 192, 192), ("stress", 224, 224), ("stress", 256, 256))
 
 
-def by_shape(kernel: str, st, textured: bool = False) -> dict:
-    """K3 (``kernel`` "k3") or K5 in both visibility modes ("k5") a launch
-    at each of ``SHAPES`` (frame 3, after two frames of the kernels' own
-    loop): the device time of the launch the wrapper picks
-    (``ms_by_shape``) and, where the tree has ``tile_clustered``, of both
-    launches in turns at ``SHAPES`` and ``BETWEEN`` (split over clusters,
-    one block a tile, one block, split: ``designs_by_shape``; each forced by
-    standing in for ``tile_clustered``) with each one's occupancy by the
-    runtime and the pick; one line a shape.  It uses nothing else that the
-    port's ReSTIR modules lacked before, so that ``--ab`` can time an older
-    checkout too."""
+def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> dict:
+    """K3 (``kernel`` "k3"), K4 ("k4"), K5 in both visibility modes ("k5")
+    or K6 ("k6") a launch at each of ``SHAPES`` (frame 3, after two frames
+    of the kernels' own loop): the device time of the launch the wrapper
+    picks (``ms_by_shape``) and, with ``designs`` where the tree has
+    ``tile_clustered`` (not for K4, which has one launch), of both launches
+    in turns at ``SHAPES`` and ``BETWEEN`` (split, one block a tile, one
+    block, split: ``designs_by_shape``; each forced by standing in for
+    ``tile_clustered``) with each one's occupancy by the runtime and the
+    pick; one line a shape.  It uses nothing else that the port's ReSTIR
+    modules lacked before, so that ``--ab`` can time an older checkout
+    too."""
     from unittest import mock
 
     import torch
@@ -900,7 +906,8 @@ def by_shape(kernel: str, st, textured: bool = False) -> dict:
     from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
     from fypraytracer_tpu_torch.scene.procedural import cornell_box, stress
 
-    designs = hasattr(rc, "tile_clustered")
+    t0 = time.perf_counter()
+    designs = designs and hasattr(rc, "tile_clustered") and kernel != "k4"
     out: dict = {"ms_by_shape": {}, "designs_by_shape": {}, "occupancy_by_shape": {}, "picked_by_shape": {}}
     for name, w, h in SHAPES + (BETWEEN if designs else ()):
         timed = (name, w, h) in SHAPES
@@ -915,21 +922,31 @@ def by_shape(kernel: str, st, textured: bool = False) -> dict:
         B, C, depth = w * h, rc.pick_ray_lanes(w * h), stack_depth(scene.wide)
         ppv = torch.as_tensor(cam.proj_view, device="cuda")
         cam_t = rc.camera_matrices(cam, "cuda")
-        if kernel == "k3":
+        if kernel in ("k3", "k4"):
             em = mr.prepare_emissive_table(scene)
             state = torch.zeros((mr.ST_ROWS, B), device="cuda")
             mr.restir_di_megakernel(scene, em, cam, state, 1, 2, st, ppv, ppv)
-            runs = {shape: lambda: mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)}
-            count = lambda: mr.restir_di_k3.launches                                  # noqa: E731
+            if kernel == "k3":
+                runs = {shape: lambda: mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)}
+                count = lambda: mr.restir_di_k3.launches                              # noqa: E731
+            else:
+                stage = mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)
+                acc, st_out = torch.zeros((B, 3), device="cuda"), torch.empty_like(state)
+                runs = {shape: lambda: mr.restir_di_k4(scene, em, cam, 3, st, stage, st_out, acc, cam=cam_t)}
+                count = lambda: mr.restir_di_k4.launches                              # noqa: E731
         else:
             z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
-            _, state, stage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, st, ppv, ppv)
+            _, state, stage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, st, ppv, ppv, mono=kernel == "k5")
             outs = (torch.zeros((B, 3), device="cuda"), torch.empty_like(state), torch.empty_like(stage))
-            runs = {f"{shape}{' final_vis' if fv else ''}":
-                    functools.partial(lambda fv: mg.restir_gi_mono(scene, cam, 3, st, state, stage, ppv, *outs,
-                                                                   final_vis=fv, cam=cam_t), fv)
-                    for fv in (False, True)}
-            count = lambda: mg.restir_gi_mono.launches                                # noqa: E731
+            if kernel == "k5":
+                runs = {f"{shape}{' final_vis' if fv else ''}":
+                        functools.partial(lambda fv: mg.restir_gi_mono(scene, cam, 3, st, state, stage, ppv, *outs,
+                                                                       final_vis=fv, cam=cam_t), fv)
+                        for fv in (False, True)}
+                count = lambda: mg.restir_gi_mono.launches                            # noqa: E731
+            else:
+                runs = {shape: lambda: mg.restir_gi_k1(scene, cam, 3, st, state, ppv, outs[2], cam=cam_t)}
+                count = lambda: mg.restir_gi_k1.launches                              # noqa: E731
         for key, run in runs.items():
             if timed:
                 out["ms_by_shape"][key] = kernel_ms(run, launches=count)
@@ -950,6 +967,7 @@ def by_shape(kernel: str, st, textured: bool = False) -> dict:
         check_overflow(scene)
         emit("tile_kernel_by_shape", kernel=kernel, shape=shape, tiles=B // C, tile_pixels=C, stack_depth=depth,
              **{k: {key: v for key, v in d.items() if key.startswith(shape)} for k, d in out.items()})
+    emit("tile_kernel_by_shape_seconds", kernel=kernel, designs=designs, seconds=time.perf_counter() - t0)
     return out
 
 
@@ -1003,16 +1021,17 @@ def phase_restir_gi(summary: dict) -> None:
         return run
 
     # bytes read besides the outputs (csrc/restir_gi.cu): K5 and K6 read the
-    # camera, proj @ view and the surfaces, and 15 of the 16 state rows (not
-    # GT_WSUM) only at pixels that shade; K5 reads 19 of the 33 rows of the
-    # previous stage at neighbour pixels (GS_T, GS_NRM, GS_SHADE, GS_M, GS_SP,
-    # GS_SN, GS_RAD, GS_POS, GS_W); K7 reads every stage row, the camera and
-    # the triangles and BVH only; K5 and K7 add to the image (read it too)
+    # camera, proj @ view, the wide BVH's records and the surfaces, and 15 of
+    # the 16 state rows (not GT_WSUM) only at pixels that shade; K5 reads 19
+    # of the 33 rows of the previous stage at neighbour pixels (GS_T, GS_NRM,
+    # GS_SHADE, GS_M, GS_SP, GS_SN, GS_RAD, GS_POS, GS_W); K7 reads every
+    # stage row, the camera and the triangles and threaded BVH only; K5 and
+    # K7 add to the image (read it too)
     n_shade = int((ref_stage[mg.GS_SHADE] > 0.5).sum())
     state_rows = 15 * n_shade * 4
-    k5_in = scene_bytes(scene, wide=True) + 3 * 16 * 4 + state_rows + 19 * B * 4 + B * 12
-    cases = [("restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t), mg.restir_gi_k1_plain,
-              scene_bytes(scene) + 3 * 16 * 4 + state_rows),
+    k6_in = scene_bytes(scene, wide=True) + 3 * 16 * 4 + state_rows
+    k5_in = k6_in + 19 * B * 4 + B * 12
+    cases = [("restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t), mg.restir_gi_k1_plain, k6_in),
              ("restir_gi_k2", k2, functools.partial(mg.restir_gi_k2, cam=cam_t), mg.restir_gi_k2_plain,
               scene_bytes(scene, surfaces=False) + 2 * 16 * 4 + nbytes(ref_stage) + B * 12),
              ("restir_gi_mono", mono(False), functools.partial(mg.restir_gi_mono, cam=cam_t),
@@ -1074,6 +1093,7 @@ def phase_restir_gi(summary: dict) -> None:
     for fv, row in ((False, "restir_gi_mono"), (True, "restir_gi_mono[final_vis]")):
         summary[row].update({k: {s_: v for s_, v in d.items() if s_.endswith(" final_vis") == fv}
                              for k, d in shapes.items()})
+    summary["restir_gi_k1"].update(by_shape("k6", st))
 
 
 DIFF_SIZE = 256
@@ -1442,9 +1462,8 @@ def phase_textured(summary: dict) -> None:
         return run
 
     n_shade = int((gstage[mg.GS_SHADE] > 0.5).sum())
-    k1_in = scene_bytes(scene) + nbytes(scene.geometry.uvs, amap) + 3 * 16 * 4 + 15 * n_shade * 4
-    # K5 reads the wide BVH's records instead of the threaded BVH
-    k5_in = k1_in - scene_bytes(scene) + scene_bytes(scene, wide=True) + 19 * B * 4 + B * 12
+    k1_in = scene_bytes(scene, wide=True) + nbytes(scene.geometry.uvs, amap) + 3 * 16 * 4 + 15 * n_shade * 4
+    k5_in = k1_in + 19 * B * 4 + B * 12
     # (row, the untextured kernel's row at the same shape, ...)
     cases = [("restir_gi_k1[textured]", "restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t),
               mg.restir_gi_k1_plain, k1_in),
@@ -2438,22 +2457,84 @@ def k2_by_shape() -> dict:
     return dict(ms_by_shape=out)
 
 
+def restir_bits() -> dict:
+    """Digests (sha256, 16 hex digits) of the ReSTIR kernels' outputs at
+    ``SHAPES``, the camera static and moved 0.05 to the side before frame 3
+    (after two frames of the kernels' own loops): K3's stage, K4's state
+    and accum, K6's stage; and of the DI and ``mono=False`` GI entry points'
+    images after 8 frames.  ``ab`` compares them between checkouts, bit for
+    bit; it uses only what the ReSTIR modules had before K4 and K6 moved to
+    the wide BVH."""
+    import copy
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    di, gi = settings_for("RESTIR_DI"), settings_for("RESTIR_GI")
+    out = {}
+    for name, w, h in SHAPES:
+        if name == "stress":
+            scene, cam0 = stress_scene(w, h)
+        else:
+            builder, cam0 = cornell_box(w, h)
+            scene = morton_permuted_scene(builder.compile())[0].to("cuda")
+        B = w * h
+        em = mr.prepare_emissive_table(scene)
+        for move in (False, True):
+            cam = copy.deepcopy(cam0)
+            tag = f"{name} {w}x{h} {'moved' if move else 'static'}"
+            state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+            mr.restir_di_megakernel(scene, em, cam, state, 1, 2, di, cam.proj_view, cam.proj_view)
+            z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+            _, gstate, _ = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view,
+                                                   mono=False)
+            ppv = cam.proj_view
+            if move:
+                cam.move_to(cam.position + np.float32([0.05, 0.0, 0.0]))
+            stage = mr.restir_di_k3(scene, em, cam, 3, di, state, ppv)
+            acc, st_out = torch.zeros((B, 3), device="cuda"), state.clone()
+            mr.restir_di_k4(scene, em, cam, 3, di, stage, st_out, acc)
+            out[f"K3 stage {tag}"] = digest(stage)
+            out[f"K4 state+accum {tag}"] = digest(st_out, acc)
+            out[f"K6 stage {tag}"] = digest(mg.restir_gi_k1(scene, cam, 3, gi, gstate, ppv))
+        for cls, st, mode in ((mr.MegakernelReSTIRDI, di, {}), (mg.MegakernelReSTIRGI, gi, dict(mono=False))):
+            r = cls(scene, copy.deepcopy(cam0), st, device="cuda", **mode)
+            out[f"{cls.__name__}{' mono=False' if mode else ''} {name} {w}x{h} 8 frames"] = digest(r.render_many(8))
+    torch.cuda.synchronize()
+    return out
+
+
 def ab_turn(tree: str) -> None:
     """One turn of ``--ab``, in a process of its own: the untextured entry
     points of the package in ``tree`` (its kernels built there) at Cornell
     256² and 1920x1088: ``Renderer`` NEE (``render_many(8)``),
     ``MegakernelRenderer`` NEE, ``MegakernelReSTIRDI`` and
-    ``MegakernelReSTIRGI`` (mono; ``render_many(64)``), DI and GI also on
-    the stress scene at 128²; ``make_train_step`` under NEE and cosine at
-    256² (2 steps a rep); each 5 reps after a warm-up.  Before them, K2 NEE
-    a launch of the whole image (``k2_by_shape``), and K3 and K5 (both
-    visibility modes) a launch at ``SHAPES`` (``by_shape``), with the
-    registers and spills of that tree's K2 NEE, K3 and K5 from its nvcc report,
-    and their occupancy where the tree reports it.  Each step is named on
-    stderr as it starts.  Prints one ``AB`` line with,
-    per path and rep, the ms a frame (a step) by CUDA events and the host's
-    ms a frame to enqueue the call (wall clock up to its return, before the
-    synchronize): where the two are close the path waits on the host."""
+    ``MegakernelReSTIRGI`` (mono and ``mono=False``; ``render_many(64)``),
+    DI and GI also on the stress scene at 128²; ``make_train_step`` under
+    NEE and cosine at 256² (2 steps a rep); each 5 reps after a warm-up.
+    Before them, K2 NEE a launch of the whole image (``k2_by_shape``), and
+    K3-K6 (K5 in both visibility modes) a launch at ``SHAPES``
+    (``by_shape``; K6's two launches only in this checkout, whose K6
+    follows ``tile_clustered``), with the registers and spills of
+    that tree's K2 NEE and K3-K6 from its nvcc report, their occupancy
+    where the tree reports it, and the digests of its ReSTIR outputs
+    (``restir_bits``).  Each step is named on stderr as it starts.  Prints
+    one ``AB`` line with, per path and rep, the ms a frame (a step) by CUDA
+    events and the host's ms a frame to enqueue the call (wall clock up to
+    its return, before the synchronize): where the two are close the path
+    waits on the host."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -2467,6 +2548,7 @@ def ab_turn(tree: str) -> None:
 
     if not os.path.abspath(fypraytracer_tpu_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
         raise RuntimeError(f"imported {fypraytracer_tpu_torch.__file__}, not the package in {tree}")
+    own = os.path.abspath(tree) == REPO
 
     def reps(fn, n):
         dev, host = [], []
@@ -2485,24 +2567,28 @@ def ab_turn(tree: str) -> None:
     def progress(what):
         print(f"ab_turn {os.path.basename(tree)}: {what}", file=sys.stderr, flush=True)
 
-    progress("K2, K3 and K5 by shape")
-    tile = {"k2": k2_by_shape(), "k3": by_shape("k3", settings_for("RESTIR_DI")),
-            "k5": by_shape("k5", settings_for("RESTIR_GI"))}
+    progress("ReSTIR outputs' digests")
+    bits = restir_bits()
+    progress("K2 and K3-K6 by shape")
+    di, gi = settings_for("RESTIR_DI"), settings_for("RESTIR_GI")
+    tile = {"k2": k2_by_shape(), "k3": by_shape("k3", di), "k4": by_shape("k4", di),
+            "k5": by_shape("k5", gi), "k6": by_shape("k6", gi, designs=own)}
     out = {}
     cornell_sizes = (("cornell", 256, 256), ("cornell", 1920, 1088))
-    for cls, tech, frames, shapes in ((Renderer, "NEE_MIS", 8, cornell_sizes),
-                                      (MegakernelRenderer, "NEE_MIS", 64, cornell_sizes),
-                                      (MegakernelReSTIRDI, "RESTIR_DI", 64, SHAPES),
-                                      (MegakernelReSTIRGI, "RESTIR_GI", 64, SHAPES)):
+    for cls, tech, frames, shapes, mode in ((Renderer, "NEE_MIS", 8, cornell_sizes, {}),
+                                            (MegakernelRenderer, "NEE_MIS", 64, cornell_sizes, {}),
+                                            (MegakernelReSTIRDI, "RESTIR_DI", 64, SHAPES, {}),
+                                            (MegakernelReSTIRGI, "RESTIR_GI", 64, SHAPES, {}),
+                                            (MegakernelReSTIRGI, "RESTIR_GI", 64, SHAPES, dict(mono=False))):
         for name, w, h in shapes:
             if name == "stress":
                 scene, cam = stress_scene(w, h)
             else:
                 builder, cam = cornell_box(w, h)
                 scene = builder.compile()
-            key = f"{cls.__name__} {tech} {'' if name == 'cornell' else 'stress '}{w}x{h}"
+            key = f"{cls.__name__} {tech} {'mono=False ' if mode else ''}{'' if name == 'cornell' else 'stress '}{w}x{h}"
             progress(key)
-            r = cls(scene, cam, settings_for(tech), device="cuda")
+            r = cls(scene, cam, settings_for(tech), device="cuda", **mode)
             r.render_many(2)                       # warm-up
             torch.cuda.synchronize()
             out[key] = reps(r.render_many, frames)
@@ -2518,8 +2604,8 @@ def ab_turn(tree: str) -> None:
     ptxas = {}
     for lib in ("megakernel", "restir_di", "restir_gi"):
         ptxas.update({k: v for k, v in ptxas_report(kernels.build_info[lib]["log"]).items()
-                      if k.startswith(("frames_kernel[nee]", "k3_candidates", "gi_mono"))})
-    print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas)), flush=True)
+                      if k.startswith(("frames_kernel[nee]", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1"))})
+    print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas, bits=bits)), flush=True)
 
 
 def ab(others: list) -> None:
@@ -2530,9 +2616,11 @@ def ab(others: list) -> None:
     this one, this one again, the others in reverse (parent, change,
     change, parent for one).  Prints one line a path: each side's median
     and range over its reps, change / each side, and each turn's median
-    device and host ms in the order of the turns; one line a shape of K3
-    and K5 with each side's device ms a launch, and one line with each
-    side's registers, spills and occupancy."""
+    device and host ms in the order of the turns; one line a shape of K2
+    and K3-K6 with each side's device ms a launch; one line with each
+    side's registers, spills, occupancy and launches by shape; and one line
+    a ReSTIR output whose digest any turn of any side gives otherwise than
+    the change's first (``ab_bits``), with a count of those that agree."""
     trees = [os.path.abspath(t) for t in others] + [REPO]
     labels = [os.path.basename(t.rstrip(os.sep)) for t in trees[:-1]] + ["change"]
     order = list(zip(labels, trees))
@@ -2543,7 +2631,7 @@ def ab(others: list) -> None:
         if label in failed:
             continue
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-turn", tree], capture_output=True,
-                           text=True, cwd=tree, timeout=900)
+                           text=True, cwd=tree, timeout=1200)
         line = [ln for ln in r.stdout.splitlines() if ln.startswith("AB ")]
         if r.returncode != 0 or not line:
             # a side whose turn fails is reported and left out; the change's must not fail
@@ -2566,17 +2654,27 @@ def ab(others: list) -> None:
              turn_ms=[[label, statistics.median(t["paths"][key]["ms"])] for label, t in turns],
              turn_host_ms=[[label, statistics.median(t["paths"][key]["host_ms"])] for label, t in turns],
              reps=reps)
-    for kernel in ("k2", "k3", "k5"):
+    tile_kernels = ("k2", "k3", "k4", "k5", "k6")
+    for kernel in tile_kernels:
         for shape in runs["change"][0]["tile_kernels"][kernel]["ms_by_shape"]:
             ms = {label: [t["tile_kernels"][kernel]["ms_by_shape"][shape] for t in runs[label]] for label in labels}
             med = {label: statistics.median(v) for label, v in ms.items()}
             emit("ab_kernel", kernel=kernel, shape=shape, median_ms=med, turn_ms=ms,
                  change_over={label: med["change"] / med[label] for label in labels if label != "change"})
     emit("ab_kernel_build", ptxas={label: runs[label][0]["ptxas"] for label in labels},
-         occupancy={label: {k: runs[label][0]["tile_kernels"][k]["occupancy_by_shape"] for k in ("k3", "k5")}
+         occupancy={label: {k: runs[label][0]["tile_kernels"][k].get("occupancy_by_shape") for k in tile_kernels[1:]}
                     for label in labels},
-         designs={label: {k: [t["tile_kernels"][k]["designs_by_shape"] for t in runs[label]] for k in ("k3", "k5")}
-                  for label in labels})
+         designs={label: {k: [t["tile_kernels"][k].get("designs_by_shape") for t in runs[label]]
+                          for k in tile_kernels[1:]} for label in labels})
+    first = runs["change"][0]["bits"]
+    agree = 0
+    for key, want in first.items():
+        got = {label: [t["bits"].get(key) for t in runs[label]] for label in labels}
+        if all(v == want for vs in got.values() for v in vs):
+            agree += 1
+        else:
+            emit("ab_bits", output=key, change_first=want, digests=got, equal=False)
+    emit("ab_bits_summary", outputs=len(first), equal_in_every_turn=agree)
 
 
 def main() -> int:

@@ -15,8 +15,9 @@
 // The semantics are the megakernel's, not the wavefront's (render/restir_di.py):
 //   * pixels are linear; a tile is C consecutive pixels (tile.cuh,
 //     C = render/restir_common.py::pick_ray_lanes(B)): K3 runs it as one
-//     block of C threads or split over a cluster of blocks of 128, K4 as one
-//     block of C threads;
+//     block of C threads or split over a cluster of blocks of 128, K4 as
+//     C / 128 blocks of 128 (no cluster: K4 has no tile sum, and its reads
+//     need only the tile's index pix / C);
 //   * candidates are uniform over the emissive list with p-hat at the emitter's
 //     centroid (:219-240, :313-325), dist^-1 by rsqrtf;
 //   * temporal reuse: each shading pixel reprojects its hit point through ppv;
@@ -46,11 +47,14 @@
 // stage and state rows are read and written once per frame, coalesced (22 + 9
 // rows of 4 B per pixel), plus N neighbour reads of 8 rows that stay in L2.
 // The emissive table is a few floats per emitter.  One thread per pixel, state
-// in global memory, reads through __ldg.  K3 walks the 4-wide BVH
-// (wide.cuh::WideTracer, its stack in dynamic shared memory) and runs each
-// tile as one block or, where the tiles are too few to fill the card, split
-// over a cluster of blocks of 128 (tile.cuh); K4 walks the threaded BVH
-// (traverse.cuh).
+// in global memory, reads through __ldg.  Both walk the 4-wide BVH
+// (wide.cuh::WideTracer, inlined, each thread's stack in dynamic shared
+// memory).  K3 runs each tile as one block or, where the tiles are too few
+// to fill the card, split over a cluster of blocks of 128 (tile.cuh).  K4
+// runs every frame in blocks of 128, which need no cluster: at 77 registers
+// a thread an SM holds six of them against one block of 512, and they beat
+// one block a tile at every shape timed, by 1.46x at 1920x1088 (on an H100,
+// PERF.md Findings).
 //
 // C interface (loaded with ctypes by render/megakernel_restir.py): each entry
 // launches one kernel on the given stream and returns the launch's error (K3)
@@ -274,24 +278,26 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
 struct K4Params {
   const float* cam;  // (2, 4, 4)
   int width, height;
+  int C;             // pixels a tile
   uint32_t frame;
   int neighbors;
   float radius;
   int spatial;
   float3 sky;
-  Tris tris;
-  Bvh bvh;
+  WideBvh wide;
   Emitters em;
   const float* stage;  // (S rows, B), read
   float* state;        // (ST rows, B), written
   float* accum;        // (B, 3), this frame's HDR added
 };
 
-__global__ void __launch_bounds__(512) k4_shade(K4Params P) {
-  const int C = blockDim.x;
-  const int lane = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int pix = tile * C + lane;
+// K4: blocks of kTileBlock threads, C / kTileBlock of them a tile, the shadow
+// ray through the wide BVH
+__global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int C = P.C;
+  const int tile = pix / C;
+  const int lane = pix - tile * C;
   const int B = P.width * P.height;
   const float* sg = P.stage;
 
@@ -368,7 +374,8 @@ __global__ void __launch_bounds__(512) k4_shade(K4Params P) {
     const float cos_y = fmaxf(-dot(l, ldg3(P.em.normal, e)), 0.0f);
     const float area = fmaxf(__ldg(P.em.area + e), 1e-20f);
     const float thr_s = cos_x * cos_y * area / dist2;
-    const Hit sh = trace_closest(P.bvh, P.tris, pos + n * kOriginEps, l, kBig);
+    const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
+    const Hit sh = tr.closest(pos + n * kOriginEps, l);
     const int sel_tri = __ldg(P.em.tri + e);
     hdr = make_float3(0.0f, 0.0f, 0.0f);
     if (sh.tri == sel_tri && sel_tri >= 0) hdr = f * thr_s * ldg3(P.em.emission, e) * res.w;
@@ -467,32 +474,35 @@ extern "C" int fyp_restir_di_k3_occupancy(int textured, int lanes, int clustered
 extern "C" int fyp_restir_di_k4(
     const void* cam, int width, int height, unsigned int frame, int lanes, int neighbors, float radius,
     int spatial, float sky_r, float sky_g, float sky_b,
-    const void* positions, const void* tri_v,
-    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
-    const void* bvh_prim_idx, int n_nodes, int leaf_size,
+    const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* em_p0, const void* em_e1, const void* em_e2, const void* em_area, const void* em_normal,
     const void* em_emission, const void* em_centroid, const void* em_tri, int n_emissive,
     const void* stage, void* state, void* accum, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
-  if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || n_emissive <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  if (!tile_fits(lanes, true, wide_stack_depth, &smem) || n_pix % lanes != 0 || n_emissive <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
-  auto I = [](const void* p) { return static_cast<const int*>(p); };
   K4Params P;
   P.cam = F(cam);
   P.width = width;
   P.height = height;
+  P.C = lanes;
   P.frame = frame;
   P.neighbors = neighbors;
   P.radius = radius;
   P.spatial = spatial;
   P.sky = make_float3(sky_r, sky_g, sky_b);
-  P.tris = Tris{F(positions), I(tri_v)};
-  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
+                   static_cast<int*>(wide_overflow), wide_stack_depth};
   P.em = emitters(em_p0, em_e1, em_e2, em_area, em_normal, em_emission, em_centroid, em_tri, n_emissive);
   P.stage = F(stage);
   P.state = static_cast<float*>(state);
   P.accum = static_cast<float*>(accum);
-  k4_shade<<<n_pix / lanes, lanes, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  const cudaError_t e = allow_stack_smem(k4_shade, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  k4_shade<<<n_pix / kTileBlock, kTileBlock, smem, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
+

@@ -49,15 +49,14 @@
 // with the divergence of a warp's 32 paths; the stage and state rows (33 + 16
 // floats a pixel) are read and written once a frame, coalesced, plus N
 // neighbour reads of 17 rows that stay in L2 at these sizes.  One thread per
-// pixel, reservoirs in registers, buffers read through __ldg.  K5 walks the
-// 4-wide BVH (wide.cuh::WideTracer: trace_closest_wide1 and
-// segment_visible_wide1, each walk's stack in dynamic shared memory) and runs
-// each tile as one block of C threads or, where the tiles are too few to
-// fill the card, split over a cluster of blocks of 128 (tile.cuh); K6 and K7
-// walk the threaded BVH
-// (traverse.cuh::ThreadedTracer), one block of C threads a tile
-// (__launch_bounds__(512) caps a thread at 128 registers; ptxas reports the
-// spills).
+// pixel, reservoirs in registers, buffers read through __ldg.  K5 and K6 walk
+// the 4-wide BVH (wide.cuh::WideTracer: trace_closest_wide1 and
+// segment_visible_wide1, inlined, each walk's stack in dynamic shared memory)
+// and run each tile as one block of C threads or, where the tiles are too few
+// to fill the card, split over a cluster of blocks of 128 (tile.cuh); K7
+// walks the threaded BVH (traverse.cuh::ThreadedTracer), one block of C
+// threads a tile (__launch_bounds__(512) caps a thread at 128 registers;
+// ptxas reports the spills).
 //
 // Floating point: built with -fmad=false (ops/kernels.py), so no product is
 // fused into a sum and every expression rounds as the plain PyTorch version's
@@ -67,7 +66,7 @@
 // C interface (loaded with ctypes by render/megakernel_restir_gi.py):
 // fyp_restir_gi launches one kernel, chosen by `kernel`, on the given stream
 // and returns the launch's error, or cudaGetLastError(); fyp_restir_gi_occupancy
-// reports K5's resident blocks and clusters.
+// reports K5's and K6's resident blocks and clusters.
 #include "shading.cuh"
 #include "tile.cuh"
 #include "wide.cuh"
@@ -124,8 +123,8 @@ struct Params {
   Geo geo;
   Mats mats;
   Tex tex;                // the textured instantiations' levels
-  Bvh bvh;               // K6, K7
-  WideBvh wide;           // K5
+  Bvh bvh;                // K7
+  WideBvh wide;           // K5, K6
   const float* state_in;  // K5: previous state; K6: state
   const float* stage_in;  // K5: previous stage; K7: this frame's stage
   float* state_out;       // K5, K7
@@ -462,15 +461,16 @@ __global__ void __launch_bounds__(kThreads) gi_mono(Params P) {
   shade_out(P, tr, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
 }
 
-// K6: the stage of this frame, one block of C threads a tile.
-template <bool T>
-__global__ void __launch_bounds__(512) gi_stage1(Params P) {
+// K6: the stage of this frame, each tile a cluster of blocks of kThreads
+// threads as K5's, the walks through the wide BVH.
+template <bool T, int kThreads>
+__global__ void __launch_bounds__(kThreads) gi_stage1(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  const ThreadedTracer tr{P.bvh, Tris{P.geo.positions, P.geo.tri_v}};
+  const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
   Own o;
   PathRes res;
   uint32_t key;
-  stage1<T, ThreadedTracer, BlockTile>(P, tr, pix, o, res, key);
+  stage1<T, WideTracer, ClusterTile>(P, tr, pix, o, res, key);
   write_stage(P.stage_out, P.width * P.height, pix, o, res);
 }
 
@@ -501,17 +501,27 @@ __global__ void __launch_bounds__(512) gi_stage2(Params P) {
   shade_out(P, tr, pix, o, res, -dir, false);
 }
 
-using MonoKernel = void (*)(Params);
+using TileKernel = void (*)(Params);
 
 template <int kThreads>
-MonoKernel mono_of(bool final_vis, bool textured) {
-  if (final_vis) return textured ? gi_mono<true, true, kThreads> : gi_mono<true, false, kThreads>;
-  return textured ? gi_mono<false, true, kThreads> : gi_mono<false, false, kThreads>;
+TileKernel tile_kernel_of(Kernel kernel, bool textured) {
+  switch (kernel) {
+    case kMono:
+      return textured ? gi_mono<false, true, kThreads> : gi_mono<false, false, kThreads>;
+    case kMonoFinalVis:
+      return textured ? gi_mono<true, true, kThreads> : gi_mono<true, false, kThreads>;
+    case kStage1:
+      return textured ? gi_stage1<true, kThreads> : gi_stage1<false, kThreads>;
+    default:
+      return nullptr;
+  }
 }
 
-// K5's instantiation for final_vis, texturing and a tile split over a cluster
-MonoKernel mono_kernel(bool final_vis, bool textured, bool clustered) {
-  return clustered ? mono_of<kTileBlock>(final_vis, textured) : mono_of<kTileMax>(final_vis, textured);
+// K5's (final_vis or not) or K6's instantiation for texturing and a tile split
+// over a cluster; null for K7, which runs one block a tile
+TileKernel tile_kernel(int kernel, bool textured, bool clustered) {
+  const Kernel k = static_cast<Kernel>(kernel);
+  return clustered ? tile_kernel_of<kTileBlock>(k, textured) : tile_kernel_of<kTileMax>(k, textured);
 }
 
 }  // namespace
@@ -532,9 +542,10 @@ extern "C" int fyp_restir_gi(
   if (n_pix <= 0) return 0;
   if (lanes <= 0 || lanes > 512 || n_pix % lanes != 0 || (textured && tex_k < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool mono = kernel == kMono || kernel == kMonoFinalVis;
+  if (kernel < kMono || kernel > kStage2) return static_cast<int>(cudaErrorInvalidValue);
+  const TileKernel tiled = tile_kernel(kernel, textured != 0, clustered != 0);
   size_t smem = 0;
-  if (mono && !tile_fits(lanes, clustered != 0, wide_stack_depth, &smem))
+  if (tiled != nullptr && !tile_fits(lanes, clustered != 0, wide_stack_depth, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
@@ -564,40 +575,26 @@ extern "C" int fyp_restir_gi(
   P.stage_out = static_cast<float*>(stage_out);
   P.accum = static_cast<float*>(accum);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = n_pix / lanes;
-  switch (kernel) {
-    case kMono:
-    case kMonoFinalVis: {
-      const MonoKernel k = mono_kernel(kernel == kMonoFinalVis, textured != 0, clustered != 0);
-      cudaError_t e = allow_stack_smem(k, smem);
-      if (e == cudaSuccess) e = launch_tiles(k, n_pix, lanes, tile_threads(lanes, clustered != 0), smem, s, P);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      break;
-    }
-    case kStage1:
-      if (textured) {
-        gi_stage1<true><<<blocks, lanes, 0, s>>>(P);
-      } else {
-        gi_stage1<false><<<blocks, lanes, 0, s>>>(P);
-      }
-      break;
-    case kStage2:
-      gi_stage2<<<blocks, lanes, 0, s>>>(P);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (tiled == nullptr) {
+    gi_stage2<<<n_pix / lanes, lanes, 0, s>>>(P);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = allow_stack_smem(tiled, smem);
+  if (e == cudaSuccess) e = launch_tiles(tiled, n_pix, lanes, tile_threads(lanes, clustered != 0), smem, s, P);
+  return static_cast<int>(e);
 }
 
-// The blocks of K5 (final_vis, textured, split or not) one multiprocessor
-// holds at once, and the clusters the card holds at once, for tiles of lanes
-// pixels and stacks of wide_stack_depth entries, by the CUDA runtime.
-extern "C" int fyp_restir_gi_occupancy(int final_vis, int textured, int lanes, int clustered, int wide_stack_depth,
+// The blocks of K5 (kernel kMono or kMonoFinalVis) or K6 (kStage1), textured
+// or not, split or not, one multiprocessor holds at once, and the clusters
+// the card holds at once, for tiles of lanes pixels and stacks of
+// wide_stack_depth entries, by the CUDA runtime.
+extern "C" int fyp_restir_gi_occupancy(int kernel, int textured, int lanes, int clustered, int wide_stack_depth,
                                        int* blocks_per_sm, int* clusters) {
   size_t smem = 0;
-  if (!tile_fits(lanes, clustered != 0, wide_stack_depth, &smem)) return static_cast<int>(cudaErrorInvalidValue);
-  const MonoKernel k = mono_kernel(final_vis != 0, textured != 0, clustered != 0);
+  const TileKernel k = kernel >= kMono && kernel <= kStage1 ? tile_kernel(kernel, textured != 0, clustered != 0)
+                                                            : nullptr;
+  if (k == nullptr || !tile_fits(lanes, clustered != 0, wide_stack_depth, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_stack_smem(k, smem);
   const int threads = tile_threads(lanes, clustered != 0);
   if (e == cudaSuccess) e = tile_occupancy(k, lanes, threads, smem, blocks_per_sm, clusters);

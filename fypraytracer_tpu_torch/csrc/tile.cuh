@@ -9,9 +9,11 @@
 // [0, B - C] as one row.  Pixel pix lies in tile pix / C at lane pix % C,
 // whatever the launch.
 //
-// K4, K6 and K7 run a tile as one block of C threads (BlockTile).  K3 and K5
-// are launched as clusters (ClusterTile, launch_tiles) in one of two shapes,
-// which the host picks by frame (render/restir_common.py::tile_clustered):
+// K7 runs a tile as one block of C threads, K4 as C / kTileBlock blocks of
+// kTileBlock threads, which need no cluster: K4 sums nothing over its tile.
+// K3, K5 and K6 are launched as clusters (ClusterTile, launch_tiles) in one
+// of two shapes, which the host picks by frame
+// (render/restir_common.py::tile_clustered):
 //   * a tile split over a cluster of C / kTileBlock blocks of kTileBlock
 //     threads: each block adds its pixels' offsets in its own shared memory,
 //     the cluster meets at its barrier, every block reads the blocks' parts
@@ -26,11 +28,12 @@
 // blocks for the H100's 132 multiprocessors; split, the same frame is 128
 // blocks of 128 on 128 multiprocessors, and K5 runs it 1.23x faster, K3
 // 1.09x.  Where the tiles, one block each, fill most of the card (256²: 128
-// tiles), one block a tile is faster (K5 1.35x, K3 1.08x): the card holds
-// 124 clusters of four blocks at once, so 128 tiles split take two waves, and
-// the cluster barriers cost (on an H100, PERF.md Findings).  Between the two
-// the crossover follows the tree: 32-50 tiles on the Cornell box, 72-98 on
-// the stress scene; the host splits up to half the multiprocessors.  A
+// tiles), one block a tile is faster (K5 1.35x, K3 1.08x, K6 1.34x): the
+// card holds 124 clusters of four blocks at once, so 128 tiles split take two
+// waves, and the cluster barriers cost (on an H100, PERF.md Findings).
+// Between the two the crossover follows the tree: 32-50 tiles on the Cornell
+// box, 72-98 on the stress scene, for K5 and K6 alike; the host splits up to
+// half the multiprocessors.  A
 // cluster runs within one GPC, and B / threads blocks are whole clusters
 // since C divides B.
 #pragma once
@@ -42,10 +45,10 @@
 
 namespace fyp {
 
-constexpr int kTileBlock = 128;  // threads a block of a tile split over a cluster (K3, K5)
+constexpr int kTileBlock = 128;  // threads a block of a split tile (K3-K6)
 constexpr int kTileMax = 512;    // the largest tile, and the block of a tile run as one block
 
-// The threads of a block of K3 or K5 for tiles of C pixels, split or not
+// The threads of a block of K3-K6 for tiles of C pixels, split or not
 inline int tile_threads(int C, bool clustered) { return clustered ? kTileBlock : C; }
 
 // The static shared memory of a tile kernel: ClusterTile's part, beside the
@@ -53,7 +56,7 @@ inline int tile_threads(int C, bool clustered) { return clustered ? kTileBlock :
 // a block may hold)
 constexpr size_t kTileStaticSmem = sizeof(int2);
 
-// Whether K3 or K5 can launch tiles of C pixels, split or not: C a tile size
+// Whether K3-K6 can launch tiles of C pixels, split or not: C a tile size
 // whose blocks are whole, and a stack of depth entries for every thread of a
 // block in its shared memory; *smem gets the stacks' bytes
 inline bool tile_fits(int C, bool clustered, int depth, size_t* smem) {
@@ -63,24 +66,9 @@ inline bool tile_fits(int C, bool clustered, int depth, size_t* smem) {
 }
 
 // The sum of v over the tile's threads that add, and their count (x, y): every
-// thread of the tile calls it and gets the tile's totals.  The tile is the
-// block (K6) ...
-struct BlockTile {
-  __device__ static int2 sum(bool add, int v) {
-    __shared__ int2 part;
-    if (threadIdx.x == 0) part = make_int2(0, 0);
-    __syncthreads();
-    if (add) {
-      atomicAdd(&part.x, v);
-      atomicAdd(&part.y, 1);
-    }
-    __syncthreads();
-    return part;
-  }
-};
-
-// ... or the cluster (K3, K5): the block's part in its shared memory, the
-// cluster's barrier, every block's part read in rank order, the barrier again.
+// thread of the tile calls it and gets the tile's totals.  The block's part
+// in its shared memory, the cluster's barrier, every block's part read in
+// rank order, the barrier again (a tile one block is a cluster of one).
 struct ClusterTile {
   __device__ static int2 sum(bool add, int v) {
     namespace cg = cooperative_groups;

@@ -1,10 +1,10 @@
 // Closest-hit traversal of the threaded BVH, one thread per ray.
 //
 // Device code shared by trace.cu (the standalone trace kernel),
-// megakernel.cu, megakernel_diff.cu, restir_di.cu and restir_gi.cu (K4, K6,
-// K7 and K8 call trace_closest for their primary, shadow and continuation
-// rays, and K7 segment_visible for the visibility of a ReSTIR GI
-// reconnection; K1, K2, K3 and K5 walk the wide BVH of wide.cuh instead).
+// megakernel.cu, megakernel_diff.cu and restir_gi.cu (K7 and K8 call
+// trace_closest for their primary and continuation rays, and K7
+// segment_visible for the visibility of a ReSTIR GI reconnection; K1-K6 walk
+// the wide BVH of wide.cuh instead, K1 and K2 keeping this walk for an A/B).
 // It replaces the TPU's dense ray x triangle tile sweep
 // (fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel) with the
 // reference's own per-ray walk (Renderer.cu:460-561), in the stackless
@@ -219,7 +219,7 @@ __device__ inline bool segment_visible(const Bvh& bvh, const Tris& tris, float3 
   return best < t_end;
 }
 
-// A kernel's walks through the threaded BVH (K6, K7): the closest hit and the
+// A kernel's walks through the threaded BVH (K7): the closest hit and the
 // segment test, as wide.cuh::WideTracer offers them through the wide BVH.
 struct ThreadedTracer {
   Bvh bvh;

@@ -1,9 +1,9 @@
 // Traversal of the 4-wide BVH: the closest hit by a quad of lanes or by one
 // thread, and the segment test by one thread.
 //
-// Device code of K1 (trace.cu), K2 (megakernel.cu), K3 (restir_di.cu) and K5
-// (restir_gi.cu).  It replaces, for them, the threaded walks of
-// traverse.cuh::trace_closest and segment_visible, which K4 and K6-K8 keep.
+// Device code of K1 (trace.cu), K2 (megakernel.cu), K3 and K4 (restir_di.cu),
+// K5 and K6 (restir_gi.cu).  It replaces, for them, the threaded walks of
+// traverse.cuh::trace_closest and segment_visible, which K7 and K8 keep.
 // The records are built on the host by accel/wide.py (scene/types.py::
 // WideBVH): a node is 8 float4, child k's (lo.xyz, hi.x) at k and its
 // (hi.yz, ref, 0) at 4 + k, so lane k of a quad fetches its child with two
@@ -45,7 +45,7 @@
 // failed check counts its code in the host's buffer (the first failure's code,
 // values and thread beside it) and the walk goes on safely; without the macro
 // the checks are not compiled.  tests/test_torch_cuda.py::
-// test_wide_walks_stay_in_range runs K3 and K5 so built.
+// test_wide_walks_stay_in_range runs K3-K6 so built.
 //
 // What bounds it on an H100: the latency of dependent loads.  Against the
 // threaded walk a Cornell camera ray makes 3.6 node visits and 1.2 leaf
@@ -54,8 +54,8 @@
 // triangles in one hop.  The quad puts four threads on a ray, which pays
 // while a batch's quads fit on the card at once; past that its shuffles and
 // ballots cost more than they hide, and one thread a ray is faster (K1
-// chooses by batch size, ops/traverse.py::k1_lanes; K2, K3 and K5 run one
-// thread a ray, PERF.md Findings).
+// chooses by batch size, ops/traverse.py::k1_lanes; K2-K6 run one thread a
+// ray, PERF.md Findings).
 #pragma once
 
 #include "traverse.cuh"
@@ -456,7 +456,7 @@ __device__ __forceinline__ bool segment_visible_wide1(const WideBvh& w, const La
   return best < t_end;
 }
 
-// A kernel's walks through the wide BVH, one thread a ray (K3, K5):
+// A kernel's walks through the wide BVH, one thread a ray (K3-K6):
 // traverse.cuh::ThreadedTracer's interface.  The walks are inlined at each
 // call site: K5 so built takes 126-128 registers and spills nothing under
 // __launch_bounds__(128), and K5 with the walks as __noinline__ calls, as K2

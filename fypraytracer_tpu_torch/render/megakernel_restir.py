@@ -16,8 +16,10 @@ with no synchronisation between them:
     (``restir_common.tile_clustered``);
   * K4 ``restir_di_k4`` replaces ``k2`` (:417, launched at :718): spatial
     reuse over frame-shared neighbour offsets, a shadow ray to a random
-    point on the chosen emitter, the shade by W; it adds the frame to the
-    output and writes the per-pixel state.
+    point on the chosen emitter through the wide BVH, the shade by W; it
+    adds the frame to the output and writes the per-pixel state.  It runs
+    every frame in blocks of 128 threads, ``C / 128`` a tile and no
+    cluster (it sums nothing over a tile).
 
 The semantics are the megakernel's, not the wavefront's
 (``render/restir_di.py``): pixels are linear and a tile is
@@ -61,7 +63,7 @@ from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_kernel_atlas
 from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, trace_rays
 from fypraytracer_tpu_torch.render.restir_common import (
-    bvh_args,
+    TILE_BLOCK,
     camera_matrices,
     camera_rays,
     hit_surface,
@@ -277,7 +279,6 @@ def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
 
 # ---- kernels -------------------------------------------------------------------
 
-_BVH = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
 _WIDE = [ctypes.c_void_p] * 3 + [ctypes.c_int]
 _EM = [ctypes.c_void_p] * 8 + [ctypes.c_int]
 _K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
@@ -287,8 +288,7 @@ _K3_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, c
                 + _WIDE + _EM + [ctypes.c_void_p] * 3)
 _K4_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int]
-                + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2 + _BVH + _EM
-                + [ctypes.c_void_p] * 4)
+                + [ctypes.c_float] * 3 + _WIDE + _EM + [ctypes.c_void_p] * 4)
 
 
 def _em_args(em: EmissiveTable):
@@ -297,19 +297,16 @@ def _em_args(em: EmissiveTable):
             P(em.centroid), P(em.tri), em.n)
 
 
-def _check(name, scene, em, tensors, ints=(), wide=None):
+def _check(name, scene, em, wide, tensors, ints=()):
     """Raise unless the kernel's inputs lie on one CUDA device, contiguous,
-    in their dtypes: ``tensors`` and the scene's tables, with the threaded
-    BVH (K4) or the wide one ``wide`` (K3)."""
-    g, m, b = scene.geometry, scene.materials, scene.bvh
-    walk_f, walk_i = (b.lo, b.hi), (b.miss, b.first, b.prim_idx)
-    if wide is not None:
-        walk_f, walk_i = (wide.nodes, wide.tris), (wide.overflow,)
+    in their dtypes: ``tensors``, the scene's tables, the wide BVH ``wide``
+    and the emissive table."""
+    g, m = scene.geometry, scene.materials
     kernels.check_inputs(
         name,
-        floats=(*tensors, g.positions, g.normals, m.albedo, m.roughness, m.metallic, *walk_f,
+        floats=(*tensors, g.positions, g.normals, m.albedo, m.roughness, m.metallic, wide.nodes, wide.tris,
                 em.p0, em.e1, em.e2, em.area, em.normal, em.emission, em.centroid),
-        ints=(*ints, g.tri_v, g.tri_mat, *walk_i, em.tri))
+        ints=(*ints, g.tri_v, g.tri_mat, wide.overflow, em.tri))
 
 
 def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
@@ -332,8 +329,8 @@ def restir_di_k3(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
     tex = scene.tex
     lay = pick_tile_launch(scene, B, dev)
     wide = tile_walk_records("restir_di_k3", scene, lay["threads"])
-    _check("restir_di_k3", scene, em, (cam, pv, emission, state, stage, scene.geometry.uvs)
-           + (() if tex is None else (tex.prim, tex.bounce)), ints=(scene.materials.albedo_map,), wide=wide)
+    _check("restir_di_k3", scene, em, wide, (cam, pv, emission, state, stage, scene.geometry.uvs)
+           + (() if tex is None else (tex.prim, tex.bounce)), ints=(scene.materials.albedo_map,))
     if state.shape != (ST_ROWS, B):
         raise ValueError(f"restir_di_k3: state must be ({ST_ROWS}, {B}), got {tuple(state.shape)}")
     _launch_k3(scene, em, camera, frame, settings, cam, pv, emission, state, stage,
@@ -363,13 +360,15 @@ def restir_di_k4(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                  accum: torch.Tensor, *, cam: torch.Tensor | None = None) -> None:
     """Spatial reuse and shade of frame ``frame`` through the CUDA kernel K4
     (plain version for CPU tensors): adds the frame to ``accum`` (B, 3) and
-    writes ``state`` in place.  ``cam`` as for ``restir_di_k3``."""
+    writes ``state`` in place, in blocks of ``TILE_BLOCK`` threads.
+    ``cam`` as for ``restir_di_k3``."""
     if stage.device.type == "cpu":
         return restir_di_k4_plain(scene, em, camera, frame, settings, stage, state, accum)
     dev = stage.device
     B = camera.width * camera.height
     cam = camera_matrices(camera, dev) if cam is None else cam
-    _check("restir_di_k4", scene, em, (cam, stage, state, accum))
+    wide = tile_walk_records("restir_di_k4", scene, TILE_BLOCK)
+    _check("restir_di_k4", scene, em, wide, (cam, stage, state, accum))
     if stage.shape != (S_ROWS, B) or state.shape != (ST_ROWS, B) or accum.shape != (B, 3):
         raise ValueError("restir_di_k4: stage, state and accum must be "
                          f"({S_ROWS}, {B}), ({ST_ROWS}, {B}) and ({B}, 3)")
@@ -378,15 +377,15 @@ def restir_di_k4(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
 
 
 def _launch_k4(scene, em, camera, frame, settings, cam, stage, state, accum, stream):
-    """Launch ``fyp_restir_di_k4`` on ``stream`` (inputs already checked)."""
-    g = scene.geometry
+    """Launch ``fyp_restir_di_k4`` on ``stream`` (inputs already checked;
+    the walk reads ``scene.wide``)."""
     P = kernels.ptr
     fn = kernels.load("restir_di", "fyp_restir_di_k4", _K4_ARGTYPES)
     rc = fn(P(cam), camera.width, camera.height, int(frame) & 0xFFFFFFFF,
             pick_ray_lanes(camera.width * camera.height), settings.spatial_neighbors,
             float(settings.spatial_radius), int(settings.spatial_reuse),
-            *(float(c) for c in settings.sky_color), P(g.positions), P(g.tri_v),
-            *bvh_args(scene.bvh), *_em_args(em), P(stage), P(state), P(accum), stream)
+            *(float(c) for c in settings.sky_color), *wide_args(scene.wide), *_em_args(em), P(stage), P(state),
+            P(accum), stream)
     restir_di_k4.launches += 1
     kernels.check(rc, "restir_di_k4")
 

@@ -18,7 +18,8 @@ The torch counterpart of ``fypraytracer_tpu/render/megakernel_restir_gi.py``
     block, or split over a cluster of blocks of 128 threads where the tiles
     are too few to fill the card (``restir_common.tile_clustered``);
   * K6 ``restir_gi_k1`` replaces ``make_restir_gi_megakernel::k1`` (:169,
-    launched at :748): K5's first half, writing the stage;
+    launched at :748): K5's first half, writing the stage, its walks and
+    tiles as K5's;
   * K7 ``restir_gi_k2`` replaces ``k2a`` (:447 → :758) and ``k2b`` (:544 →
     :794): same-frame spatial reuse from K6's stage with per-neighbour
     visibility, the shade, the state out (``mono=False``, the reference's
@@ -389,8 +390,8 @@ _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctyp
 def _check(name, scene, camera, tensors, shapes, tex, wide=None):
     """Raise unless the kernel's inputs lie on one CUDA device, contiguous,
     in their dtypes and shapes: ``tensors`` (``shapes``: their rows, 3 for
-    a (B, 3) image) and the scene's tables, with the threaded BVH (K6, K7)
-    or the wide one ``wide`` (K5)."""
+    a (B, 3) image) and the scene's tables, with the threaded BVH (K7) or
+    the wide one ``wide`` (K5, K6)."""
     g, m, b = scene.geometry, scene.materials, scene.bvh
     walk_f, walk_i = (b.lo, b.hi), (b.miss, b.first, b.prim_idx)
     if wide is not None:
@@ -414,8 +415,8 @@ def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, 
     ``ppv``: an array or a tensor on the card, None for K7.  K5 and K6 run
     their textured instantiation with the tables ``tex`` unless it is None;
     K7 reads the staged albedo and takes None.  ``wide``: the wide BVH K5
-    walks (K6 and K7 walk the threaded one and take None); ``clustered``:
-    K5 splits each tile over a cluster."""
+    and K6 walk (K7 walks the threaded one and takes None); ``clustered``:
+    K5 or K6 splits each tile over a cluster."""
     g, m = scene.geometry, scene.materials
     dev = g.positions.device
     P = kernels.ptr
@@ -474,16 +475,19 @@ def restir_gi_k1(scene: Scene, camera: Camera, frame: int, settings: RenderSetti
                  cam: torch.Tensor | None = None) -> torch.Tensor:
     """The stage of frame ``frame`` through the CUDA kernel K6 (plain version
     for CPU tensors), into ``stage`` when one is given.  ``ppv`` and ``cam``
-    as for ``restir_gi_mono``."""
+    as for ``restir_gi_mono``; the texturing and the tiles' launch as
+    K5's."""
     if state.device.type == "cpu":
         return restir_gi_k1_plain(scene, camera, frame, settings, state, ppv, stage)
+    B = camera.width * camera.height
     if stage is None:
-        stage = torch.empty((GS_ROWS, camera.width * camera.height), dtype=torch.float32,
-                            device=state.device)
+        stage = torch.empty((GS_ROWS, B), dtype=torch.float32, device=state.device)
     tex = scene.tex
-    _check("restir_gi_k1", scene, camera, (state, stage), (GT_ROWS, GS_ROWS), tex)
+    lay = pick_tile_launch(scene, B, state.device)
+    wide = tile_walk_records("restir_gi_k1", scene, lay["threads"])
+    _check("restir_gi_k1", scene, camera, (state, stage), (GT_ROWS, GS_ROWS), tex, wide)
     _launch(_K6, restir_gi_k1, scene, camera, frame, settings, cam, ppv, state, None, None, stage, None,
-            kernels.stream_ptr(state.device), tex)
+            kernels.stream_ptr(state.device), tex, wide, lay["clustered"])
     return stage
 
 

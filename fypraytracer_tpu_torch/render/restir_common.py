@@ -2,13 +2,14 @@
 frame-shared neighbour offsets, the surface record and the launch helpers.
 
 A tile is ``pick_ray_lanes(B)`` consecutive pixels: one block of C threads
-of K4, K6 and K7; of K3 and K5 one block too, or split over a cluster of
-blocks of ``TILE_BLOCK`` threads where the frame's tiles are too few to fill
-the card (``tile_clustered``, ``tile_launch``, ``csrc/tile.cuh``);
+of K7; ``C / TILE_BLOCK`` blocks of ``TILE_BLOCK`` threads of K4; of K3, K5
+and K6 one block of C threads, or split over a cluster of blocks of
+``TILE_BLOCK`` threads where the frame's tiles are too few to fill the card
+(``tile_clustered``, ``tile_launch``, ``csrc/tile.cuh``);
 ``tile_history_index`` is where a tile reads the previous frame's buffers,
 ``spatial_offsets`` the frame's neighbour offsets, and ``hit_surface`` the
 surface record of ``csrc/shading.cuh::surface`` in PyTorch.
-``tile_walk_records`` hands K3 and K5 the scene's wide BVH, refusing a tree
+``tile_walk_records`` hands K3-K6 the scene's wide BVH, refusing a tree
 whose stacks would not fit in one of their blocks.  ``camera_matrices`` is
 the (2, 4, 4) camera tensor the kernels read: the frame loops make it, and
 the previous proj @ view, once a call, so that the frames launch without a
@@ -40,35 +41,36 @@ def pick_ray_lanes(num_pixels: int) -> int:
     raise ValueError(f"pixel count {num_pixels} not divisible by 128")
 
 
-# threads a block of K3 and K5 whose tiles are split over a cluster
+# threads a block of K4, and of K3, K5 and K6 whose tiles are split
 # (csrc/tile.cuh::kTileBlock)
 TILE_BLOCK = 128
-# shared memory a block may hold on sm_90, and what K3's and K5's blocks hold
-# beside their stacks (csrc/tile.cuh::kTileStaticSmem)
+# shared memory a block may hold on sm_90, and what K3's, K5's and K6's blocks
+# hold beside their stacks (csrc/tile.cuh::kTileStaticSmem; K4 is held to the
+# same room)
 BLOCK_SMEM = 232448
 TILE_STATIC_SMEM = 8
 
 
 def stack_fits(threads: int) -> int:
-    """The stack entries each thread of a K3 or K5 block of ``threads`` gets
+    """The stack entries each thread of a K3-K6 block of ``threads`` gets
     in the block's shared memory."""
     return (BLOCK_SMEM - TILE_STATIC_SMEM) // (8 * threads)
 
 
 def tile_clustered(num_pixels: int, multiprocessors: int, stack_need: int = 0) -> bool:
-    """Whether K3 and K5 split each tile of a frame over a cluster of blocks
-    of ``TILE_BLOCK`` threads, rather than run it as one block of C threads:
-    where the frame's tiles, one block each, would keep at most half of the
-    card's ``multiprocessors`` busy, or where a block of C threads cannot
-    hold the tree's stacks.  Timed on an H100 (132 multiprocessors; PERF.md
-    Findings), both launches in turns at 32, 50, 72, 98 and 128 tiles of
-    512: split is faster at 32 tiles on both scenes (K5 by 1.1-1.25x);
-    one block a tile is as fast or faster from 50 tiles on the Cornell box
-    but only from about 98 on the 200k-triangle stress scene (split
-    1.05-1.16x faster at 50 and 72).  Of the single thresholds, half
-    the multiprocessors (66 tiles) loses least over those frames; a
-    threshold that followed the tree would lose nothing there, and two
-    scenes are too few to fit one."""
+    """Whether K3, K5 and K6 split each tile of a frame over a cluster of
+    blocks of ``TILE_BLOCK`` threads, rather than run it as one block of C
+    threads: where the frame's tiles, one block each, would keep at most
+    half of the card's ``multiprocessors`` busy, or where a block of C
+    threads cannot hold the tree's stacks.  Timed on an H100 (132
+    multiprocessors; PERF.md Findings), both launches in turns at 32, 50,
+    72, 98 and 128 tiles of 512: split is faster at 32 tiles on both
+    scenes (K5 by 1.1-1.25x, K6 by 1.08-1.19x); one block a tile is as fast
+    or faster from 50 tiles on the Cornell box but only from about 98 on
+    the 200k-triangle stress scene (split 1.05-1.19x faster at 50 and 72).
+    Of the single thresholds, half the multiprocessors (66 tiles) loses
+    least over those frames; a threshold that followed the tree would lose
+    nothing there, and two scenes are too few to fit one."""
     C = pick_ray_lanes(num_pixels)
     return 2 * (num_pixels // C) <= multiprocessors or stack_need > stack_fits(C)
 
@@ -79,9 +81,10 @@ def _multiprocessors(index: int) -> int:
 
 
 def tile_launch(num_pixels: int, clustered: bool) -> dict:
-    """How K3 and K5 launch a frame (``csrc/tile.cuh::tile_config``): tiles
-    of ``C`` pixels, blocks of ``threads`` (``TILE_BLOCK`` split, C not),
-    ``cluster`` blocks to a tile, ``grid`` blocks.  Block b's thread i is
+    """How K3, K5 and K6 launch a frame (``csrc/tile.cuh::tile_config``):
+    tiles of ``C`` pixels, blocks of ``threads`` (``TILE_BLOCK`` split, C
+    not), ``cluster`` blocks to a tile, ``grid`` blocks; K4 launches the
+    split grid without the cluster.  Block b's thread i is
     pixel b·threads + i, tile (b // cluster) and lane
     (b % cluster)·threads + i."""
     C = pick_ray_lanes(num_pixels)
@@ -98,7 +101,7 @@ def pick_tile_launch(scene: Scene, num_pixels: int, device) -> dict:
 
 
 def tile_walk_records(name: str, scene: Scene, threads: int):
-    """The scene's wide BVH for K3 or K5 (``wide_records``), refused with
+    """The scene's wide BVH for K3-K6 (``wide_records``), refused with
     the reason where the stacks of one of their blocks of ``threads``
     (``stack_need`` entries of 8 bytes a thread) would not fit in its
     shared memory."""

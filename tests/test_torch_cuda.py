@@ -13,7 +13,8 @@ segment test (``trace_segments``) equal to its plain twin bit for bit; K5
 (a tile a cluster of blocks, the walks through the wide BVH) equal to its
 plain version bit for bit, and its stage equal to K6's bit for bit, at
 tiles of 512, 256 and 128 pixels, on square and other frames and on the
-stress scene; every kernel library's camera rays (``camera_ray``) equal to
+stress scene; K3, K5 and K6 the same bits with their tiles split and one
+block each; every kernel library's camera rays (``camera_ray``) equal to
 ``generate_rays`` bit for bit; K2's pixel slabs joined equal to its
 one-launch image bit for bit;
 K2, K3+K4, K5-K7 (ReSTIR GI) and the renderers under
@@ -74,9 +75,9 @@ def _gates(got, ref):
 
 
 def _launched(fn, clustered):
-    """K3's or K5's wrapper ``fn`` with each tile split over a cluster
-    (``clustered``) or one block, whichever ``restir_common.tile_clustered``
-    would pick."""
+    """The wrapper ``fn`` of K3, K5 or K6 with each tile split over a
+    cluster (``clustered``) or one block, whichever
+    ``restir_common.tile_clustered`` would pick."""
     @functools.wraps(fn)
     def run(*args, **kw):
         with mock.patch.object(trc, "tile_clustered", lambda *_: clustered):
@@ -342,7 +343,7 @@ def test_restir_di_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, mo
     """K3 and K4 each against its plain version, fed the same state and stage
     after two frames of history, the camera static or moved before the
     third; K3 with its tiles split over clusters and one block each, the
-    same bits."""
+    same bits; K4 in its blocks of 128."""
     scene, em, cam = _di_setup(cuda, w, h, scene_name)
     state = torch.zeros((tmr.ST_ROWS, w * h), device=cuda)
     tmr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
@@ -410,7 +411,7 @@ def _elements_off(got, ref):
 def test_restir_gi_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, move):
     """K5 (both visibility modes), K6 and K7 each against its plain version,
     fed the same state and stage after two frames of history, the camera
-    static or moved before the third; K5 with its tiles split over
+    static or moved before the third; K5 and K6 with their tiles split over
     clusters and one block each, the same bits, held as ``_k5_matches``
     holds it."""
     scene, _, cam = _di_setup(cuda, w, h, scene_name)
@@ -420,7 +421,8 @@ def test_restir_gi_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, mo
     ppv = _moved(cam, move)
     counts = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches)
 
-    k6 = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
+    k6 = _launched(tmg.restir_gi_k1, True)(scene, cam, 3, GI, state, ppv)
+    assert torch.equal(k6, _launched(tmg.restir_gi_k1, False)(scene, cam, 3, GI, state, ppv))
     ref = tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)
     assert _elements_off(k6, ref) < 0.01
 
@@ -445,7 +447,7 @@ def test_restir_gi_kernels_match_plain_on_same_inputs(cuda, scene_name, w, h, mo
         outs = outs[1:]
         _k5_matches(outs[0], outs[1], k6)
     assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches, tmg.restir_gi_k2.launches) == \
-        (counts[0] + 4, counts[1] + 1, counts[2] + 1)
+        (counts[0] + 4, counts[1] + 2, counts[2] + 1)
     ttrav.check_overflow(scene)
     with pytest.raises(ValueError, match="buffers of their own"):
         tmg.restir_gi_mono(scene, cam, 3, GI, state, stage, ppv, acc, state, stage)
@@ -494,18 +496,26 @@ def test_restir_gi_kernels_match_plain_over_frames(cuda, mode, size):
     mk.overflow.check()
 
 
-@pytest.mark.parametrize("w, h, frames", [(256, 256, 448), (512, 512, 136), (1920, 1088, 16)],
-                         ids=["256", "512", "1080p"])
-def test_restir_gi_runs_clean_over_many_frames(cuda, w, h, frames):
-    """``MegakernelReSTIRGI`` (K5, per-neighbour visibility) over many frames,
-    eight a call: K5 with its walks as ``__noinline__`` calls faulted with
-    an illegal address within these frames (at frame 441, 129 and 9), and
-    the kept kernel, whose walks are inlined, must run them clean, finite
-    and without a stack overflow (ROADMAP queue 3)."""
+@pytest.mark.parametrize("cls, mode, w, h, frames", [
+    (MegakernelReSTIRGI, {}, 256, 256, 448), (MegakernelReSTIRGI, {}, 512, 512, 136),
+    (MegakernelReSTIRGI, {}, 1920, 1088, 16),
+    (MegakernelReSTIRGI, dict(mono=False), 256, 256, 448), (MegakernelReSTIRGI, dict(mono=False), 512, 512, 136),
+    (MegakernelReSTIRGI, dict(mono=False), 1920, 1088, 16),
+    (MegakernelReSTIRDI, {}, 1920, 1088, 320),
+], ids=["256", "512", "1080p", "two-kernels-256", "two-kernels-512", "two-kernels-1080p", "di-1080p"])
+def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
+    """``MegakernelReSTIRGI`` (K5, per-neighbour visibility; K6+K7 with
+    ``mono=False``) over many frames, eight a call: K5 with its walks as
+    ``__noinline__`` calls faulted with an illegal address within these
+    frames (at frame 441, 129 and 9), and the kept kernels, whose walks are
+    inlined, must run them clean, finite and without a stack overflow
+    (ROADMAP queue 3); ``MegakernelReSTIRDI`` (K3+K4) too, over 320 frames
+    at 1920x1088."""
     builder, cam = tproc.cornell_box(w, h)
-    settings = RenderSettings(technique=SamplingTechnique.RESTIR_GI, bounces=2, samples=1,
+    technique = SamplingTechnique.RESTIR_GI if cls is MegakernelReSTIRGI else SamplingTechnique.RESTIR_DI
+    settings = RenderSettings(technique=technique, bounces=2, samples=1,
                               sky_color=(0.05, 0.06, 0.08))     # the defaults: 5 neighbours, radius 30
-    r = MegakernelReSTIRGI(builder.compile(), cam, settings, device=cuda)
+    r = cls(builder.compile(), cam, settings, device=cuda, **mode)
     for _ in range(frames // 8):
         img = r.render_many(8)
     torch.cuda.synchronize()
@@ -519,14 +529,18 @@ def test_restir_gi_runs_clean_over_many_frames(cuda, w, h, frames):
     (MegakernelReSTIRGI, {}, "cornell", 1920, 1088, 16),
     (MegakernelReSTIRGI, dict(final_vis=True), "cornell", 1920, 1088, 16),
     (MegakernelReSTIRGI, {}, "stress", 128, 128, 16),
+    (MegakernelReSTIRGI, dict(mono=False), "cornell", 256, 256, 448),
+    (MegakernelReSTIRGI, dict(mono=False), "cornell", 1920, 1088, 16),
+    (MegakernelReSTIRGI, dict(mono=False), "stress", 128, 128, 16),
     (MegakernelReSTIRDI, {}, "cornell", 1920, 1088, 16),
     (MegakernelReSTIRDI, {}, "stress", 128, 128, 16),
-], ids=["gi-256", "gi-512", "gi-1080p", "gi-final_vis-1080p", "gi-stress", "di-1080p", "di-stress"])
+], ids=["gi-256", "gi-512", "gi-1080p", "gi-final_vis-1080p", "gi-stress", "gi-two-kernels-256",
+        "gi-two-kernels-1080p", "gi-two-kernels-stress", "di-1080p", "di-stress"])
 def test_wide_walks_stay_in_range(cuda, monkeypatch, cls, mode, scene_name, w, h, frames):
-    """K5 (both visibility modes) and K3 built with the walks' range checks
-    (``csrc/wide.cuh``, ``FYP_WALK_CHECKS``), over the frames at which K5
-    with ``__noinline__`` walk calls faulted (ROADMAP queue 3) and on the
-    stress scene, whose 32 tiles are split over clusters: every node index,
+    """K5 (both visibility modes), K6 (``mono=False``), K3 and K4 built with
+    the walks' range checks (``csrc/wide.cuh``, ``FYP_WALK_CHECKS``), over
+    the frames at which K5 with ``__noinline__`` walk calls faulted (ROADMAP
+    queue 3) and on the stress scene, whose 32 tiles are split: every node index,
     child ref, leaf slot, triangle id and stack pointer lies in the tree,
     every ray and segment length is finite, and no walk runs away.  First a
     control: limits of one node, which the root's children break, must be
@@ -689,15 +703,16 @@ def test_textured_k3_matches_its_plain_version(cuda, size, move):
 def test_textured_gi_kernels_match_plain(cuda, size, move):
     """K6 and K5 (both visibility modes), textured, each against its plain
     version on the same inputs after two frames of history, the camera
-    static or moved; K5 split and one block a tile, the same bits, held as
-    ``_k5_matches`` holds it."""
+    static or moved; K5 and K6 split and one block a tile, the same bits,
+    held as ``_k5_matches`` holds it."""
     scene, cam = _textured(cuda, *size)
     B = size[0] * size[1]
     z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
     _, state, stage = tmg.restir_gi_megakernel_plain(scene, cam, *z, 1, 2, GI, cam.proj_view, cam.proj_view)
     ppv = _moved(cam, move)
     counts = (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches)
-    k6 = tmg.restir_gi_k1(scene, cam, 3, GI, state, ppv)
+    k6 = _launched(tmg.restir_gi_k1, True)(scene, cam, 3, GI, state, ppv)
+    assert torch.equal(k6, _launched(tmg.restir_gi_k1, False)(scene, cam, 3, GI, state, ppv))
     ref = tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)
     assert _elements_off(k6, ref) < 0.01
     for final_vis in (False, True):
@@ -712,7 +727,7 @@ def test_textured_gi_kernels_match_plain(cuda, size, move):
         assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
         outs = outs[1:]
         _k5_matches(outs[0], outs[1], k6)
-    assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches) == (counts[0] + 4, counts[1] + 1)
+    assert (tmg.restir_gi_mono.launches, tmg.restir_gi_k1.launches) == (counts[0] + 4, counts[1] + 2)
 
 
 # ---- the stack-overflow flag ----------------------------------------------------------
@@ -722,8 +737,8 @@ def test_entry_points_raise_on_stack_overflow(cuda, cls):
     """A wide BVH handed a ``stack_need`` below its tree's true need: the
     walks drop entries and set the flag, and the entry point's next call
     raises (it reads the flag without waiting; ``overflow.check()`` waits).
-    ReSTIR DI's walks that read it are K3's, ReSTIR GI's K5's (K4 walks the
-    threaded BVH)."""
+    ReSTIR DI's walks that set it are K3's and K4's, ReSTIR GI's K5's (K6's
+    with ``mono=False``; K7 walks the threaded BVH)."""
     import dataclasses
 
     builder, cam = tproc.cornell_box(W, H)
@@ -775,7 +790,7 @@ def test_segment_kernel_matches_plain_twin(cuda, name):
 
 
 def test_k3_and_k5_refuse_an_oversize_stack(cuda):
-    """A chain BVH whose walk needs 290 stack entries: K3 and K5 hold 227 a
+    """A chain BVH whose walk needs 290 stack entries: K3-K6 hold 226 a
     thread in a block of 128, and their wrappers refuse it with the reason,
     launching nothing."""
     builder, cam = tproc.cornell_box(W, H)
@@ -783,14 +798,20 @@ def test_k3_and_k5_refuse_an_oversize_stack(cuda):
     em = tmr.prepare_emissive_table(scene)
     B = W * H
     state = torch.zeros((tmr.ST_ROWS, B), device=cuda)
-    before = (tmr.restir_di_k3.launches, tmg.restir_gi_mono.launches)
+    wrappers = (tmr.restir_di_k3, tmr.restir_di_k4, tmg.restir_gi_mono, tmg.restir_gi_k1)
+    before = [w.launches for w in wrappers]
     with pytest.raises(ValueError, match="restir_di_k3: the wide BVH needs a stack of 290 entries"):
         tmr.restir_di_k3(scene, em, cam, 1, DI, state, cam.proj_view)
+    stage = torch.zeros((tmr.S_ROWS, B), device=cuda)
+    with pytest.raises(ValueError, match="restir_di_k4: the wide BVH needs a stack of 290 entries"):
+        tmr.restir_di_k4(scene, em, cam, 1, DI, stage, state, torch.zeros((B, 3), device=cuda))
     gi = [torch.zeros((rows, B), device=cuda) for rows in (tmg.GT_ROWS, tmg.GS_ROWS, tmg.GT_ROWS, tmg.GS_ROWS)]
     with pytest.raises(ValueError, match="restir_gi_mono: the wide BVH needs a stack of 290 entries"):
         tmg.restir_gi_mono(scene, cam, 1, GI, gi[0], gi[1], cam.proj_view, torch.zeros((B, 3), device=cuda),
                            gi[2], gi[3])
-    assert (tmr.restir_di_k3.launches, tmg.restir_gi_mono.launches) == before
+    with pytest.raises(ValueError, match="restir_gi_k1: the wide BVH needs a stack of 290 entries"):
+        tmg.restir_gi_k1(scene, cam, 1, GI, gi[0], cam.proj_view, gi[1])
+    assert [w.launches for w in wrappers] == before
 
 
 # ---- camera rays and K2's pixel slabs ---------------------------------------------------

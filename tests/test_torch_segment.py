@@ -7,10 +7,11 @@ Cornell box, on a stress scene in Morton order and on a chain BVH
 (tests/torch_skewed_bvh.py), also for segments whose ends sit exactly at
 dist ± tol, and the JAX wavefront's test |t_closest − dist| ≤ tol
 (fypraytracer_tpu/render/restir_gi.py:336-343) on the same segments
-through the JAX walk.  K3 and K5 refuse a tree whose stacks would not fit
-in one of their blocks; their cluster launch (``restir_common.tile_launch``)
-puts every pixel in its tile at its lane.  The kernels' own checks are in
-test_torch_cuda.py.
+through the JAX walk.  K3-K6 refuse a tree whose stacks would not fit
+in one of their blocks; the split launch (``restir_common.tile_launch``)
+puts every pixel in its tile at its lane, and K4's blocks of 128 read their
+spatial neighbours where its plain version does.  The kernels' own checks
+are in test_torch_cuda.py.
 """
 
 import dataclasses
@@ -147,7 +148,7 @@ def test_segment_visible_wide_matches_jax_wavefront_test():
 
 
 def test_k3_and_k5_refuse_an_oversize_stack():
-    """A block of 128 threads of K3 or K5 holds 128 stacks and the tile's
+    """A block of 128 threads of K3-K6 holds 128 stacks and the tile's
     sums (8 bytes) in its 232,448 bytes of shared memory: 226 entries a
     stack; a block of 512, 56.  A chain BVH needing 290 is refused with the
     reason by the wrappers' own check, and so would one needing 227, which
@@ -156,7 +157,7 @@ def test_k3_and_k5_refuse_an_oversize_stack():
     assert (rc.stack_fits(128), rc.stack_fits(512)) == (226, 56)
     deep = _scene("skewed4")
     assert deep.wide.stack_need > MAX_STACK
-    for name in ("restir_di_k3", "restir_gi_mono"):
+    for name in ("restir_di_k3", "restir_gi_mono", "restir_di_k4", "restir_gi_k1"):
         with pytest.raises(ValueError, match=rf"{name}: the wide BVH needs a stack of {deep.wide.stack_need} "
                                              r"entries a thread, and a block of 128 threads holds 226"):
             rc.tile_walk_records(name, deep, 128)
@@ -204,3 +205,70 @@ def test_tile_launch_puts_each_pixel_in_its_tile(width, height, C, clustered):
     np.testing.assert_array_equal(tile, block // lay["cluster"])
     np.testing.assert_array_equal(lane, (block % lay["cluster"]) * lay["threads"] + thread)
     np.testing.assert_array_equal(tile * C + lane, np.arange(B))
+
+
+@pytest.mark.parametrize("name, threads, fits", [("restir_di_k4", 128, 226), ("restir_gi_k1", 128, 226),
+                                                 ("restir_gi_k1", 512, 56)])
+def test_k4_and_k6_stack_limits(name, threads, fits):
+    """K4 and K6 hold the stacks K3 and K5 hold: 226 entries a thread in a
+    block of 128 (K4's only block), 56 in a block of 512 (K6's tile one
+    block).  A tree that needs exactly that many is handed over; one that
+    needs one more is refused with the reason, naming the kernel, before
+    anything launches."""
+    ok = _scene("skewed8")
+    at = dataclasses.replace(ok, wide=dataclasses.replace(ok.wide, stack_need=fits))
+    assert rc.tile_walk_records(name, at, threads) is at.wide
+    over = dataclasses.replace(ok, wide=dataclasses.replace(ok.wide, stack_need=fits + 1))
+    with pytest.raises(ValueError, match=rf"{name}: the wide BVH needs a stack of {fits + 1} entries a thread, "
+                                         rf"and a block of {threads} threads holds {fits}"):
+        rc.tile_walk_records(name, over, threads)
+
+
+def _k4_reads(B, w, C, threads, offsets):
+    """K4's spatial reads as the kernel computes them for a launch of blocks
+    of ``threads``: block b's thread i is pixel b·threads + i, its tile
+    pix / C and lane pix − tile·C; the neighbour at (dx, dy) is read at
+    clamp(tile·C + dy·w + dx, 0, B − C) + lane, and counts only where the
+    clamp left it.  Returns the pixels in launch order, and per offset the
+    read index and whether it counts."""
+    block, thread = np.divmod(np.arange(B), threads)
+    pix = block * threads + thread
+    tile = pix // C
+    lane = pix - tile * C
+    reads = []
+    for dx, dy in offsets:
+        s = tile * C + dy * w + dx
+        sc = np.clip(s, 0, B - C)
+        reads.append((sc + lane, s == sc))
+    return pix, reads
+
+
+@pytest.mark.parametrize("width, height, C", [(32, 32, 512), (16, 16, 256), (40, 16, 128), (48, 16, 256),
+                                              (1920, 1088, 512)])
+def test_k4_blocks_of_128_read_the_plain_versions_neighbours(width, height, C):
+    """K4 in blocks of 128 (no cluster: it sums nothing over a tile)
+    covers every pixel once, each block within one tile, and reads each
+    frame-shared neighbour offset at the index ``restir_di_k4_plain``
+    reads (``stage[:, q]`` with q = clamp(tile·C + dy·W + dx, 0, B − C) +
+    pix mod C), with the same unclamped test, as its launch of one block
+    of C threads a tile did: at tiles of 512, 256 and 128 pixels."""
+    B = width * height
+    assert rc.pick_ray_lanes(B) == C
+    lay = rc.tile_launch(B, True)
+    assert (lay["threads"], lay["grid"] * lay["threads"]) == (128, B)
+    offsets = rc.spatial_offsets(3, 5, 30.0, stream=7002) + [(0, 0), (-width, 0), (0, height)]
+    split_pix, split = _k4_reads(B, width, C, 128, offsets)
+    block_pix, block = _k4_reads(B, width, C, C, offsets)
+    np.testing.assert_array_equal(split_pix, np.arange(B))
+    np.testing.assert_array_equal(block_pix, np.arange(B))
+    first_tile = (np.arange(0, B, 128) // C)
+    np.testing.assert_array_equal((np.arange(0, B, 128) + 127) // C, first_tile)     # a block lies in one tile
+    pix = torch.arange(B)
+    for (q, counts), (q1, counts1), (dx, dy) in zip(split, block, offsets):
+        s = (pix // C) * C + dy * width + dx                     # restir_di_k4_plain's index arithmetic
+        sc = torch.clamp(s, 0, B - C)
+        np.testing.assert_array_equal(q, (sc + pix % C).numpy())
+        np.testing.assert_array_equal(counts, (s == sc).numpy())
+        np.testing.assert_array_equal(q, q1)
+        np.testing.assert_array_equal(counts, counts1)
+        assert q.min() >= 0 and q.max() < B
