@@ -10,8 +10,10 @@ albedos), in phases:
   1. environment: the card's name and power limit, torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN;
   2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
-     nvcc per source, started together; ptxas's registers and spills of every
-     kernel, the untextured and the textured instantiations by name;
+     nvcc per source, started together, with K8 again without its
+     gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c); ptxas's
+     registers and spills of every kernel, the untextured and the textured
+     instantiations and K8's bounce counts by name;
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
      wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
      random rays (a quad a ray) and on the 1920x1088 camera's rays (one
@@ -54,19 +56,24 @@ albedos), in phases:
      occupancy; the registers and spills are phase 2's);
   5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``), K6
      ``restir_gi_k1`` (both with the wide walks, tiles launched as K3's) and
-     K7 ``restir_gi_k2`` each against its plain version on the same inputs
+     K7 ``restir_gi_k2`` (the wide walks, blocks of 128) each against its
+     plain version on the same inputs
      (Cornell 256², one frame after two of history); the K5 frame loop
      against ``restir_gi_megakernel_plain`` at Cornell 256², 8 frames, and
      stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at Cornell
-     64², 4 + 4 frames with a camera move; then K5 (both modes) and K6 timed
-     at the shapes of phase 5 with their occupancy, K6's two launches also
-     at 32-128 tiles (``BETWEEN``);
+     64², 4 + 4 frames with a camera move; then K5 (both modes), K6 and K7
+     timed at the shapes of phase 5 with their occupancy, K6's two launches
+     also at 32-128 tiles (``BETWEEN``);
   5c. K8 ``diff_megakernel`` (the fused loss and albedo gradient) against its
      plain version ``diff_plain`` on the same inputs (Cornell 256², 2 bounces,
      frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
      within 1e-4 of their largest entry), its d_mat against torch autograd of
      the port's cosine wavefront on the card (K1 traces; 1e-4, 1e-3), and one
-     launch per ``DiffRenderer.loss_and_grad``;
+     launch per ``DiffRenderer.loss_and_grad``; where its time goes (the
+     kept kernel against the one without its gradient's atomics, in turns:
+     the ``k8_attribution`` line); and its device ms a launch at Cornell
+     256², stress 128² and Cornell 1920x1088 with 2 bounces and at 256²
+     with 4;
   5d. textured: on the textured Cornell box at 256² (the 64² checker and a
      seeded 1024² page, which the kernels' primary level box-filters to
      256²), K2's textured instantiation under NEE, cosine and light
@@ -154,9 +161,9 @@ pixels that shade, since only they read it) and its outputs; a textured
 instantiation adds its texel reads, 4 texels of 12 bytes a fetch times the
 fetches its plain version counts (at most the texture tables once).
 
-``--ab`` times K2 NEE, K3-K6 and the entry points of other checkouts against
-this one in turns (e.g. the commit before a change), and compares their
-ReSTIR outputs bit for bit.
+``--ab`` times K2 NEE, K3-K8 and the entry points of other checkouts against
+this one in turns (e.g. the commit before a change), compares their ReSTIR
+outputs bit for bit and holds K8's loss and gradient to phase 5c's gates.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -165,7 +172,7 @@ the last is the kernels' summary, the last line is
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --quick    # phases 1-6: build, check, main paths
     python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K2 and
-                                     # K3-K6 a launch: each DIR's package against
+                                     # K3-K8 a launch: each DIR's package against
                                      # this one's, in turns (ab_turn)
 """
 
@@ -404,8 +411,18 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     names = ("trace", "megakernel", "restir_di", "restir_gi", "megakernel_diff")
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(kernels.build, names))      # raises if any build failed
+    # K8 without its gradient's atomics (k8_attribution), built beside the
+    # others by a process of its own: the flags are the build's global state
+    variant = subprocess.Popen([sys.executable, "-c", "from fypraytracer_tpu_torch.ops import kernels; "
+                                f"kernels.EXTRA_FLAGS['megakernel_diff'] += ['{K8_NO_ATOMICS}']; "
+                                "kernels.build('megakernel_diff')"], cwd=REPO)
+    try:
+        with ThreadPoolExecutor(len(names)) as pool:
+            list(pool.map(kernels.build, names))      # raises if any build failed
+    finally:
+        variant_rc = variant.wait(timeout=900)
+    if variant_rc != 0:
+        raise RuntimeError(f"the build of megakernel_diff with {K8_NO_ATOMICS} failed")
     secs = time.perf_counter() - t0
     ptxas = {}
     for name, info in kernels.build_info.items():
@@ -457,6 +474,8 @@ def ptxas_report(log: str) -> dict:
         for i, (kind, v) in enumerate(args):
             if base.startswith("frames") and kind == "i":
                 tags.append(_SAMPLER_NAMES.get(v, v))
+            elif base == "diff_kernel":                      # K8's bounce count
+                tags.append(f"bounces={v}")
             elif kind == "i":                                # K3's and K5's block: a split tile's, or a tile's
                 tags.append("split" if v == "128" else f"block{v}")
             elif kind == "b" and v == "1":                   # the last bool is textured, gi_mono's first final_vis
@@ -884,14 +903,14 @@ BETWEEN = (("cornell", 128, 128), ("cornell", 160, 160), ("cornell", 192, 192), 
 
 
 def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> dict:
-    """K3 (``kernel`` "k3"), K4 ("k4"), K5 in both visibility modes ("k5")
-    or K6 ("k6") a launch at each of ``SHAPES`` (frame 3, after two frames
-    of the kernels' own loop): the device time of the launch the wrapper
-    picks (``ms_by_shape``) and, with ``designs`` where the tree has
-    ``tile_clustered`` (not for K4, which has one launch), of both launches
-    in turns at ``SHAPES`` and ``BETWEEN`` (split, one block a tile, one
-    block, split: ``designs_by_shape``; each forced by standing in for
-    ``tile_clustered``) with each one's occupancy by the runtime and the
+    """K3 (``kernel`` "k3"), K4 ("k4"), K5 in both visibility modes ("k5"),
+    K6 ("k6") or K7 ("k7") a launch at each of ``SHAPES`` (frame 3, after
+    two frames of the kernels' own loop): the device time of the launch the
+    wrapper picks (``ms_by_shape``) and, with ``designs`` where the tree has
+    ``tile_clustered`` (not for K4 and K7, which have one launch), of both
+    launches in turns at ``SHAPES`` and ``BETWEEN`` (split, one block a
+    tile, one block, split: ``designs_by_shape``; each forced by standing in
+    for ``tile_clustered``) with each one's occupancy by the runtime and the
     pick; one line a shape.  It uses nothing else that the port's ReSTIR
     modules lacked before, so that ``--ab`` can time an older checkout
     too."""
@@ -907,7 +926,7 @@ def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> d
     from fypraytracer_tpu_torch.scene.procedural import cornell_box, stress
 
     t0 = time.perf_counter()
-    designs = designs and hasattr(rc, "tile_clustered") and kernel != "k4"
+    designs = designs and hasattr(rc, "tile_clustered") and kernel not in ("k4", "k7")
     out: dict = {"ms_by_shape": {}, "designs_by_shape": {}, "occupancy_by_shape": {}, "picked_by_shape": {}}
     for name, w, h in SHAPES + (BETWEEN if designs else ()):
         timed = (name, w, h) in SHAPES
@@ -944,9 +963,13 @@ def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> d
                                                                        final_vis=fv, cam=cam_t), fv)
                         for fv in (False, True)}
                 count = lambda: mg.restir_gi_mono.launches                            # noqa: E731
-            else:
+            elif kernel == "k6":
                 runs = {shape: lambda: mg.restir_gi_k1(scene, cam, 3, st, state, ppv, outs[2], cam=cam_t)}
                 count = lambda: mg.restir_gi_k1.launches                              # noqa: E731
+            else:
+                stage = mg.restir_gi_k1(scene, cam, 3, st, state, ppv, cam=cam_t)
+                runs = {shape: lambda: mg.restir_gi_k2(scene, cam, 3, st, stage, outs[1], outs[0], cam=cam_t)}
+                count = lambda: mg.restir_gi_k2.launches                              # noqa: E731
         for key, run in runs.items():
             if timed:
                 out["ms_by_shape"][key] = kernel_ms(run, launches=count)
@@ -1025,15 +1048,15 @@ def phase_restir_gi(summary: dict) -> None:
     # the 16 state rows (not GT_WSUM) only at pixels that shade; K5 reads 19
     # of the 33 rows of the previous stage at neighbour pixels (GS_T, GS_NRM,
     # GS_SHADE, GS_M, GS_SP, GS_SN, GS_RAD, GS_POS, GS_W); K7 reads every
-    # stage row, the camera and the triangles and threaded BVH only; K5 and
-    # K7 add to the image (read it too)
+    # stage row, the camera and the wide BVH's records only; K5 and K7 add
+    # to the image (read it too)
     n_shade = int((ref_stage[mg.GS_SHADE] > 0.5).sum())
     state_rows = 15 * n_shade * 4
     k6_in = scene_bytes(scene, wide=True) + 3 * 16 * 4 + state_rows
     k5_in = k6_in + 19 * B * 4 + B * 12
     cases = [("restir_gi_k1", k1, functools.partial(mg.restir_gi_k1, cam=cam_t), mg.restir_gi_k1_plain, k6_in),
              ("restir_gi_k2", k2, functools.partial(mg.restir_gi_k2, cam=cam_t), mg.restir_gi_k2_plain,
-              scene_bytes(scene, surfaces=False) + 2 * 16 * 4 + nbytes(ref_stage) + B * 12),
+              scene_bytes(scene, surfaces=False, wide=True) + 2 * 16 * 4 + nbytes(ref_stage) + B * 12),
              ("restir_gi_mono", mono(False), functools.partial(mg.restir_gi_mono, cam=cam_t),
               mg.restir_gi_mono_plain, k5_in),
              ("restir_gi_mono[final_vis]", mono(True), functools.partial(mg.restir_gi_mono, cam=cam_t),
@@ -1094,9 +1117,12 @@ def phase_restir_gi(summary: dict) -> None:
         summary[row].update({k: {s_: v for s_, v in d.items() if s_.endswith(" final_vis") == fv}
                              for k, d in shapes.items()})
     summary["restir_gi_k1"].update(by_shape("k6", st))
+    summary["restir_gi_k2"].update(by_shape("k7", st))
 
 
 DIFF_SIZE = 256
+# K8 built with its gradient's atomics compiled out (csrc/megakernel_diff.cu)
+K8_NO_ATOMICS = "-DFYP_DIFF_NO_ATOMICS"
 
 
 def ulps(a, b):
@@ -1260,13 +1286,84 @@ def phase_diff(summary: dict) -> None:
     if not auto["ok"]:
         raise AssertionError("K8 disagrees with autograd of the cosine wavefront, or launched other than once")
 
-    # bytes: the scene tables it reads, the camera, the target, d_tri, the loss
-    io = scene_bytes(scene) + 2 * 16 * 4 + nbytes(tgt) + nbytes(d_tri) + 4
+    # bytes: the scene tables it reads (the wide BVH's records), the camera,
+    # the target, d_tri, the loss
+    io = scene_bytes(scene, wide=True) + 2 * 16 * 4 + nbytes(tgt) + nbytes(d_tri) + 4
     summary["diff_megakernel"] = dict(max_abs_err=row["max_abs_err"], ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                       loss_rel_err=row["loss_rel_err"], d_tri_rel_err=row["d_tri_rel_err"],
                                       d_mat_rel_err=row["d_mat_rel_err"],
                                       parity_shape=f"cornell {DIFF_SIZE}x{DIFF_SIZE}, 2 bounces, frame 3",
-                                      **bound(walks, io))
+                                      atomics_share=k8_attribution(scene, cam, cam_t, tgt)["atomics_share"],
+                                      **k8_by_shape(), **bound(walks, io))
+    summary["diff_megakernel"].pop("outputs")
+
+
+def k8_by_shape(outputs: bool = False) -> dict:
+    """K8's device ms a launch (``kernel_ms``; frame 3, a target uniform in
+    [0, 0.5) from a seed) at each of ``SHAPES`` with 2 bounces and at
+    Cornell 256² with 4 (``ms_by_shape``), one line a shape; with
+    ``outputs`` also its loss and d_tri at Cornell 256², for ``ab``'s
+    gates.  It uses nothing that K8's module lacked before its move to the
+    wide BVH, so that ``--ab`` can time an older checkout too."""
+    import numpy as np
+    import torch
+
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel_diff as md
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    out: dict = {"ms_by_shape": {}, "outputs": {}}
+    for (name, w, h), bounces in [(shape, 2) for shape in SHAPES] + [(("cornell", 256, 256), 4)]:
+        if name == "stress":
+            scene, cam = stress_scene(w, h)
+        else:
+            builder, cam = cornell_box(w, h)
+            scene = builder.compile().to("cuda")
+        tgt = torch.as_tensor(np.random.default_rng(2026).uniform(0.0, 0.5, (w * h, 3)).astype(np.float32),
+                              device="cuda")
+        cam_t, alb = camera_matrices(cam, "cuda"), scene.materials.albedo
+        key = f"{name} {w}x{h} bounces={bounces}"
+        loss, d_tri = md.diff_megakernel(scene, cam, alb, tgt, 3, bounces, SKY, cam=cam_t)
+        if outputs and (name, w) == ("cornell", 256):
+            out["outputs"][key] = dict(loss=loss.item(), d_tri=d_tri.flatten().tolist())
+        out["ms_by_shape"][key] = kernel_ms(lambda: md.diff_megakernel(scene, cam, alb, tgt, 3, bounces, SKY,
+                                                                       cam=cam_t),
+                                            launches=lambda: md.diff_megakernel.launches)
+        torch.cuda.synchronize()
+        check_overflow(scene)
+        emit("k8_by_shape", shape=key, ms=out["ms_by_shape"][key])
+    return out
+
+
+def k8_attribution(scene, cam, cam_t, tgt) -> dict:
+    """Where K8's time goes at Cornell 256², 2 bounces: the kept kernel
+    against the same source built with ``-DFYP_DIFF_NO_ATOMICS`` (the
+    gradient's atomics compiled out, the sums kept live; phase 2 builds
+    it), in turns (kept, without, without, kept); the atomics' share is
+    1 − without / kept.  The walks' share is the parent's time against
+    this one's under ``--ab`` (PERF.md)."""
+    from unittest import mock
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.render import megakernel_diff as md
+
+    alb = scene.materials.albedo
+
+    def run(flags):
+        with mock.patch.dict(kernels.EXTRA_FLAGS, {"megakernel_diff": flags}):
+            md.diff_megakernel(scene, cam, alb, tgt, 3, 2, SKY, cam=cam_t)
+
+    kept = kernels.EXTRA_FLAGS["megakernel_diff"]
+    turns = in_turns({"kept": functools.partial(run, kept),
+                      "without_atomics": functools.partial(run, kept + [K8_NO_ATOMICS])},
+                     ("kept", "without_atomics", "without_atomics", "kept"), 20,
+                     launches=lambda: md.diff_megakernel.launches)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    row = dict(ms=med["kept"], ms_without_atomics=med["without_atomics"],
+               atomics_share=1.0 - med["without_atomics"] / med["kept"], turns_ms=turns)
+    emit("k8_attribution", size=f"{DIFF_SIZE}x{DIFF_SIZE}", bounces=2, **row)
+    return row
 
 
 # the textured phase's seeded page: larger than the kernels' 256² primary
@@ -2461,10 +2558,10 @@ def restir_bits() -> dict:
     """Digests (sha256, 16 hex digits) of the ReSTIR kernels' outputs at
     ``SHAPES``, the camera static and moved 0.05 to the side before frame 3
     (after two frames of the kernels' own loops): K3's stage, K4's state
-    and accum, K6's stage; and of the DI and ``mono=False`` GI entry points'
-    images after 8 frames.  ``ab`` compares them between checkouts, bit for
-    bit; it uses only what the ReSTIR modules had before K4 and K6 moved to
-    the wide BVH."""
+    and accum, K6's stage, K7's state and accum; and of the DI and
+    ``mono=False`` GI entry points' images after 8 frames.  ``ab`` compares
+    them between checkouts, bit for bit; it uses only what the ReSTIR
+    modules had before K4, K6 and K7 moved to the wide BVH."""
     import copy
     import hashlib
 
@@ -2508,7 +2605,11 @@ def restir_bits() -> dict:
             mr.restir_di_k4(scene, em, cam, 3, di, stage, st_out, acc)
             out[f"K3 stage {tag}"] = digest(stage)
             out[f"K4 state+accum {tag}"] = digest(st_out, acc)
-            out[f"K6 stage {tag}"] = digest(mg.restir_gi_k1(scene, cam, 3, gi, gstate, ppv))
+            gstage = mg.restir_gi_k1(scene, cam, 3, gi, gstate, ppv)
+            out[f"K6 stage {tag}"] = digest(gstage)
+            gacc, gst = torch.zeros((B, 3), device="cuda"), gstate.clone()
+            mg.restir_gi_k2(scene, cam, 3, gi, gstage, gst, gacc)
+            out[f"K7 state+accum {tag}"] = digest(gst, gacc)
         for cls, st, mode in ((mr.MegakernelReSTIRDI, di, {}), (mg.MegakernelReSTIRGI, gi, dict(mono=False))):
             r = cls(scene, copy.deepcopy(cam0), st, device="cuda", **mode)
             out[f"{cls.__name__}{' mono=False' if mode else ''} {name} {w}x{h} 8 frames"] = digest(r.render_many(8))
@@ -2523,14 +2624,16 @@ def ab_turn(tree: str) -> None:
     ``MegakernelRenderer`` NEE, ``MegakernelReSTIRDI`` and
     ``MegakernelReSTIRGI`` (mono and ``mono=False``; ``render_many(64)``),
     DI and GI also on the stress scene at 128²; ``make_train_step`` under
-    NEE and cosine at 256² (2 steps a rep); each 5 reps after a warm-up.
-    Before them, K2 NEE a launch of the whole image (``k2_by_shape``), and
-    K3-K6 (K5 in both visibility modes) a launch at ``SHAPES``
+    NEE and cosine at 256² (2 steps a rep) and ``DiffRenderer.step`` (10
+    steps a rep); each 5 reps after a warm-up.
+    Before them, K2 NEE a launch of the whole image (``k2_by_shape``),
+    K3-K7 (K5 in both visibility modes) a launch at ``SHAPES``
     (``by_shape``; K6's two launches only in this checkout, whose K6
-    follows ``tile_clustered``), with the registers and spills of
-    that tree's K2 NEE and K3-K6 from its nvcc report, their occupancy
-    where the tree reports it, and the digests of its ReSTIR outputs
-    (``restir_bits``).  Each step is named on stderr as it starts.  Prints
+    follows ``tile_clustered``) and K8 a
+    launch at ``SHAPES`` with its loss and d_tri at Cornell 256²
+    (``k8_by_shape``), with the registers and spills of that tree's K2 NEE
+    and K3-K8 from its nvcc report, their occupancy where the tree reports
+    it, and the digests of its ReSTIR outputs (``restir_bits``).  Each step is named on stderr as it starts.  Prints
     one ``AB`` line with, per path and rep, the ms a frame (a step) by CUDA
     events and the host's ms a frame to enqueue the call (wall clock up to
     its return, before the synchronize): where the two are close the path
@@ -2541,6 +2644,7 @@ def ab_turn(tree: str) -> None:
     import fypraytracer_tpu_torch
     from fypraytracer_tpu_torch.ops import kernels
     from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer
+    from fypraytracer_tpu_torch.render.megakernel_diff import DiffRenderer
     from fypraytracer_tpu_torch.render.megakernel_restir import MegakernelReSTIRDI
     from fypraytracer_tpu_torch.render.megakernel_restir_gi import MegakernelReSTIRGI
     from fypraytracer_tpu_torch.render.renderer import Renderer
@@ -2569,10 +2673,11 @@ def ab_turn(tree: str) -> None:
 
     progress("ReSTIR outputs' digests")
     bits = restir_bits()
-    progress("K2 and K3-K6 by shape")
+    progress("K2 and K3-K8 by shape")
     di, gi = settings_for("RESTIR_DI"), settings_for("RESTIR_GI")
     tile = {"k2": k2_by_shape(), "k3": by_shape("k3", di), "k4": by_shape("k4", di),
-            "k5": by_shape("k5", gi), "k6": by_shape("k6", gi, designs=own)}
+            "k5": by_shape("k5", gi), "k6": by_shape("k6", gi, designs=own),
+            "k7": by_shape("k7", gi, designs=own), "k8": k8_by_shape(outputs=True)}
     out = {}
     cornell_sizes = (("cornell", 256, 256), ("cornell", 1920, 1088))
     for cls, tech, frames, shapes, mode in ((Renderer, "NEE_MIS", 8, cornell_sizes, {}),
@@ -2594,17 +2699,29 @@ def ab_turn(tree: str) -> None:
             out[key] = reps(r.render_many, frames)
             del r
             torch.cuda.empty_cache()
-    scene, cam, _, _ = diff_inputs()
+    scene, cam, _, tgt = diff_inputs()
     for technique, tech in (("nee", "NEE_MIS"), ("cosine", "COSINE")):
         progress(f"make_train_step {tech}")
         run = train_steps(scene, cam, technique, settings_for(tech))
         run(1)                                     # warm-up
         torch.cuda.synchronize()
         out[f"make_train_step {tech} 256x256"] = reps(run, 2)
+    progress("DiffRenderer.step")
+    dr = DiffRenderer(scene, cam, bounces=2, sky_color=SKY, device="cuda")
+
+    def diff_steps(n):
+        a = scene.materials.albedo
+        for _ in range(n):
+            a, _ = dr.step(a, tgt, 3, lr=0.1)
+
+    diff_steps(1)                                  # warm-up
+    torch.cuda.synchronize()
+    out["DiffRenderer.step 256x256"] = reps(diff_steps, 10)
     ptxas = {}
-    for lib in ("megakernel", "restir_di", "restir_gi"):
+    for lib in ("megakernel", "restir_di", "restir_gi", "megakernel_diff"):
         ptxas.update({k: v for k, v in ptxas_report(kernels.build_info[lib]["log"]).items()
-                      if k.startswith(("frames_kernel[nee]", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1"))})
+                      if k.startswith(("frames_kernel[nee]", "k3_candidates", "k4_shade", "gi_mono", "gi_stage",
+                                       "diff_kernel"))})
     print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas, bits=bits)), flush=True)
 
 
@@ -2617,10 +2734,12 @@ def ab(others: list) -> None:
     change, parent for one).  Prints one line a path: each side's median
     and range over its reps, change / each side, and each turn's median
     device and host ms in the order of the turns; one line a shape of K2
-    and K3-K6 with each side's device ms a launch; one line with each
-    side's registers, spills, occupancy and launches by shape; and one line
-    a ReSTIR output whose digest any turn of any side gives otherwise than
-    the change's first (``ab_bits``), with a count of those that agree."""
+    and K3-K8 with each side's device ms a launch; one line with each
+    side's registers, spills, occupancy and launches by shape; one line a
+    K8 output with each turn's loss and d_tri off the change's first
+    (``ab_k8_gates``); and one line a ReSTIR output whose digest any turn
+    of any side gives otherwise than the change's first (``ab_bits``), with
+    a count of those that agree."""
     trees = [os.path.abspath(t) for t in others] + [REPO]
     labels = [os.path.basename(t.rstrip(os.sep)) for t in trees[:-1]] + ["change"]
     order = list(zip(labels, trees))
@@ -2654,7 +2773,7 @@ def ab(others: list) -> None:
              turn_ms=[[label, statistics.median(t["paths"][key]["ms"])] for label, t in turns],
              turn_host_ms=[[label, statistics.median(t["paths"][key]["host_ms"])] for label, t in turns],
              reps=reps)
-    tile_kernels = ("k2", "k3", "k4", "k5", "k6")
+    tile_kernels = ("k2", "k3", "k4", "k5", "k6", "k7", "k8")
     for kernel in tile_kernels:
         for shape in runs["change"][0]["tile_kernels"][kernel]["ms_by_shape"]:
             ms = {label: [t["tile_kernels"][kernel]["ms_by_shape"][shape] for t in runs[label]] for label in labels}
@@ -2666,6 +2785,19 @@ def ab(others: list) -> None:
                     for label in labels},
          designs={label: {k: [t["tile_kernels"][k].get("designs_by_shape") for t in runs[label]]
                           for k in tile_kernels[1:]} for label in labels})
+    # K8 sums in a run-dependent order: each side's loss and d_tri within
+    # phase 5c's gates of the change's first turn
+    for key, want in runs["change"][0]["tile_kernels"]["k8"]["outputs"].items():
+        w_tri = max(abs(x) for x in want["d_tri"])
+        turns_rel = {}
+        for label in labels:
+            turns_rel[label] = []
+            for t in runs[label]:
+                got = t["tile_kernels"]["k8"]["outputs"][key]
+                d_tri = max(abs(a - b) for a, b in zip(got["d_tri"], want["d_tri"])) / w_tri
+                turns_rel[label].append([abs(got["loss"] - want["loss"]) / want["loss"], d_tri])
+        ok = all(lr <= 1e-5 and dr <= 1e-4 for v in turns_rel.values() for lr, dr in v)
+        emit("ab_k8_gates", output=key, loss_and_d_tri_rel=turns_rel, ok=ok)
     first = runs["change"][0]["bits"]
     agree = 0
     for key, want in first.items():

@@ -5,7 +5,7 @@
 // make_diff_megakernel -> kernel (:117, launched at :241).  One thread owns
 // one pixel (128-thread blocks, as K2):
 //   * forward: K2's cosine path for one frame and one sample (camera_ray,
-//     trace_closest, surface, cosine_dir), keys fold(fold(fold(pcg(pix),
+//     the closest hit, surface, cosine_dir), keys fold(fold(fold(pcg(pix),
 //     frame), 0), 0) (megakernel_diff.py:144-147); NL = bounces scatter
 //     levels, level j scattering at the primary hit (j = 0) or at the hit of
 //     level j-1's trace.  Each level keeps its throughput factor g_c = f_c *
@@ -23,14 +23,30 @@
 //     g_c > 0 (a_c = 2 err_c / (3B)), added into d_tri[tri * 3 + c].  The TPU
 //     kernel forms a one-hot (T, C) product on the MXU instead.
 //
-// What bounds it on an H100: the BVH walks (1 + bounces traces a pixel, as
-// K2's cosine frame) and, after them, atomics on a few triangles: the
-// Cornell walls are 2 triangles each, and most of the 65,536 pixels x 2
-// levels land on them.  The design against that contention: where the 32
-// lanes of a warp hold one triangle id at a level, the warp sums its
-// gradient by shuffles and one lane adds it (3 atomics instead of 96);
-// otherwise each lane adds its own.  Float atomics sum in an order that
-// changes between runs.
+// What bounds it on an H100: the 1 + bounces BVH walks a pixel, as K2's
+// cosine frame.  They go through the 4-wide BVH (wide.cuh::WideTracer,
+// trace_closest_wide1, inlined; its stack in dynamic shared memory, one a
+// thread), and one walk site serves every trace: the level loop is not
+// unrolled, its step -1 traces the camera ray and step j scatters level j
+// and traces on, and the per-level registers are written through an
+// unrolled select on j, so they stay registers.  With the loop unrolled
+// NL = 4 inlined five walks and ran 3% slower than the threaded walks at 4
+// bounces on an H100, where one walk site runs 1.28x faster (PERF.md
+// Findings).  After the walks come the atomics, on a few triangles:
+// the Cornell walls are 2 triangles each, and most of the 65,536 pixels x 2
+// levels land on them; once the walks were wide they took 10% of the
+// kernel at 2 bounces and 23% at 4.  So at each level the lanes of a warp
+// that hold one triangle id (__match_any_sync) sum its gradient by a masked
+// warp sum, one such group at a time, and the group's lowest lane adds it
+// (3 atomics a group instead of 3 a lane); a lane alone adds its own.  That
+// took the kernel from 0.1090 to 0.0991 ms at Cornell 256² and 2 bounces
+// (0.2130 to 0.1860 at 4), and cost 0.8% at 1024², where the atomics are
+// 1% of it.  Float atomics sum in an order that changes between runs.
+//
+// Built with -DFYP_DIFF_NO_ATOMICS, the gradient's atomics are compiled out
+// (the sums stay live): chip_smoke.py times the kernel so built against the
+// kept one to read the atomics' share.  Built with -DFYP_WALK_CHECKS, the
+// walks check their state (wide.cuh).
 //
 // Built with -fmad=false (ops/kernels.py::EXTRA_FLAGS), so that no product
 // is fused into a sum and every expression rounds as in the plain PyTorch
@@ -39,8 +55,10 @@
 // C interface (loaded with ctypes by render/megakernel_diff.py::
 // diff_megakernel): zeroes the loss and d_tri (T, 3) on the stream, launches,
 // and returns cudaGetLastError() (cudaErrorInvalidValue for bounces outside
-// 1-4).
+// 1-4, or for 128 stacks of the depth that do not fit a block's shared
+// memory).
 #include "shading.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -57,7 +75,7 @@ struct Params {
   float3 sky;
   Geo geo;
   Mats mats;
-  Bvh bvh;
+  WideBvh wide;
   const float* target;  // (B, 3)
   float* loss;          // (1,)
   float* d_tri;         // (T, 3)
@@ -102,6 +120,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One channel of a triangle's gradient into d_tri
+__device__ __forceinline__ void add_grad(float* p, float v) {
+#ifdef FYP_DIFF_NO_ATOMICS
+  if (v == -1.2345e-37f) *p = v;  // never true: keeps the sum live without the atomic
+#else
+  atomicAdd(p, v);
+#endif
+}
+
 template <int NL>
 __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -121,28 +148,19 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
   // ---- forward; every thread of the block stays to the end (warp sums)
   float3 out = make_float3(0.0f, 0.0f, 0.0f), tgt = out;
   if (pix < n_pix) {
-    Tris tris{P.geo.positions, P.geo.tri_v};
-    float3 orig, dir;
-    camera_ray(P.cam, P.width, P.height, pix, orig, dir);
+    const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
+    float3 o, d;
+    camera_ray(P.cam, P.width, P.height, pix, o, d);
     tgt = ldg3(P.target, pix);
-    const Hit h0 = trace_closest(P.bvh, tris, orig, dir, kBig);
-    Surf s;
-    float3 em0 = out;
-    if (h0.tri >= 0) {
-      s = surface(P.geo, P.mats, h0, orig, dir);
-      em0 = emission_of(P.mats, s.mat);
-    }
-    if (h0.tri < 0) {
-      out = P.sky;
-    } else if (dot(em0, em0) > 0.0f) {
-      out = em0;
-    } else {
-      uint32_t key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 0u);
-      float3 thr = make_float3(1.0f, 1.0f, 1.0f);
-      float3 view = -dir;
-      int lvl_tri = h0.tri;
-#pragma unroll
-      for (int j = 0; j < NL; ++j) {
+    uint32_t key = 0u;
+    float3 thr = make_float3(1.0f, 1.0f, 1.0f);
+    float3 view = -d;
+    Surf s{};          // the surface the next level scatters at
+    int lvl_tri = -1;  // and its triangle
+#pragma unroll 1
+    for (int j = -1; j < NL; ++j) {
+      if (j >= 0) {
+        // level j scatters at s
         const float u1 = next_uniform(key);
         const float u2 = next_uniform(key);
         const float3 l = cosine_dir(s.n, u1, u2);
@@ -152,36 +170,60 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
         float f[3], df[3];
         f_and_dfdalb(s.n, view, l, s.alb, s.rough, s.metal, f, df);
         const float scale = cos_t / pdf;
+        float gj[3];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          g[j][i] = f[i] * scale;
-          dg[j][i] = df[i] * scale;
+        for (int i = 0; i < 3; ++i) gj[i] = f[i] * scale;
+#pragma unroll
+        for (int k = 0; k < NL; ++k) {
+          if (k == j) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              g[k][i] = gj[i];
+              dg[k][i] = df[i] * scale;
+            }
+            tri[k] = lvl_tri;
+          }
         }
-        tri[j] = lvl_tri;
-        thr = thr * make_float3(g[j][0], g[j][1], g[j][2]);
-
-        const float3 ray_o = s.pos + s.n * kOriginEps;
-        const Hit hh = trace_closest(P.bvh, tris, ray_o, l, kBig);
-        float3 c = make_float3(0.0f, 0.0f, 0.0f);
-        bool ends = true;
-        Surf nxt;
-        if (hh.tri < 0) {
-          c = thr * P.sky;
-        } else {
-          nxt = surface(P.geo, P.mats, hh, ray_o, l);
-          const float3 em = emission_of(P.mats, nxt.mat);
-          if (dot(em, em) > 0.0f) c = thr * em;
-          else ends = false;
-        }
-        ct[j][0] = c.x;
-        ct[j][1] = c.y;
-        ct[j][2] = c.z;
-        out = out + c;
-        if (ends) break;
-        view = -l;
-        lvl_tri = hh.tri;
-        s = nxt;
+        thr = thr * make_float3(gj[0], gj[1], gj[2]);
+        o = s.pos + s.n * kOriginEps;
+        d = l;
       }
+      const Hit h = tr.closest(o, d);
+      Surf nxt{};
+      float3 em = make_float3(0.0f, 0.0f, 0.0f);
+      if (h.tri >= 0) {
+        nxt = surface(P.geo, P.mats, h, o, d);
+        em = emission_of(P.mats, nxt.mat);
+      }
+      const bool lit = dot(em, em) > 0.0f;
+      if (j < 0) {
+        if (h.tri < 0) {
+          out = P.sky;
+          break;
+        }
+        if (lit) {
+          out = em;
+          break;
+        }
+        key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 0u);
+      } else {
+        float3 c = make_float3(0.0f, 0.0f, 0.0f);
+        if (h.tri < 0) c = thr * P.sky;
+        else if (lit) c = thr * em;
+#pragma unroll
+        for (int k = 0; k < NL; ++k) {
+          if (k == j) {
+            ct[k][0] = c.x;
+            ct[k][1] = c.y;
+            ct[k][2] = c.z;
+          }
+        }
+        out = out + c;
+        if (h.tri < 0 || lit) break;
+      }
+      view = -d;
+      lvl_tri = h.tri;
+      s = nxt;
     }
   }
 
@@ -212,23 +254,34 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
       gs[i] = g[j][i] > 0.0f ? adj[i] * suffix[i] * dg[j][i] / g[j][i] : 0.0f;
     }
     const int t = tri[j];
-    const int t_lane0 = __shfl_sync(kFull, t, 0);
-    if (__all_sync(kFull, t == t_lane0)) {
-      // the whole warp on one triangle: one sum and one atomic a channel
+    // the lanes that hold one triangle: each group of two or more sums its
+    // gradient (a masked warp sum, one group at a time) and its lowest lane
+    // adds it; a lane alone adds its own
+    const unsigned peers = __match_any_sync(kFull, t);
+    const bool alone = (peers & (peers - 1u)) == 0u;
+    unsigned groups = __ballot_sync(kFull, t >= 0 && !alone && lane == __ffs(peers) - 1);
+    while (groups != 0u) {
+      const int src = __ffs(groups) - 1;
+      groups &= groups - 1u;
+      const bool in = (peers >> src) & 1u;
+      float s[3];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) gs[i] = warp_sum(gs[i]);
-      if (lane == 0 && t >= 0) {
+      for (int i = 0; i < 3; ++i) s[i] = warp_sum(in ? gs[i] : 0.0f);
+      if (lane == src) {
 #pragma unroll
         for (int i = 0; i < 3; ++i)
-          if (gs[i] != 0.0f) atomicAdd(P.d_tri + 3 * t + i, gs[i]);
+          if (s[i] != 0.0f) add_grad(P.d_tri + 3 * t + i, s[i]);
       }
-    } else if (t >= 0) {
+    }
+    if (alone && t >= 0) {
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        if (gs[i] != 0.0f) atomicAdd(P.d_tri + 3 * t + i, gs[i]);
+        if (gs[i] != 0.0f) add_grad(P.d_tri + 3 * t + i, gs[i]);
     }
   }
 }
+
+using DiffKernel = void (*)(Params);
 
 }  // namespace
 
@@ -236,10 +289,11 @@ extern "C" int fyp_diff_megakernel(
     const void* cam, int width, int height, unsigned int frame, int bounces, float sky_r, float sky_g,
     float sky_b, const void* positions, const void* normals, const void* tri_v, const void* tri_mat, int n_tris,
     const void* albedo, const void* roughness, const void* metallic, const void* emission,
-    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
-    const void* bvh_prim_idx, int n_nodes, int leaf_size,
+    const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* target, void* loss_out, void* dtri_out, void* stream) {
-  if (bounces < 1 || bounces > 4) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wide_stack_bytes(kBlock, wide_stack_depth > 0 ? wide_stack_depth : 0);
+  if (bounces < 1 || bounces > 4 || wide_stack_depth < 1 || smem + sizeof(float) * kWarps > 232448u)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // a reused buffer would add to the last launch's sums
   cudaError_t err = cudaMemsetAsync(loss_out, 0, sizeof(float), st);
@@ -257,16 +311,15 @@ extern "C" int fyp_diff_megakernel(
   P.sky = make_float3(sky_r, sky_g, sky_b);
   P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat)};
   P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission)};
-  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
+  P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
+                   static_cast<int*>(wide_overflow), wide_stack_depth};
   P.target = F(target);
   P.loss = static_cast<float*>(loss_out);
   P.d_tri = static_cast<float*>(dtri_out);
-  const int grid = (n_pix + kBlock - 1) / kBlock;
-  switch (bounces) {
-    case 1: diff_kernel<1><<<grid, kBlock, 0, st>>>(P); break;
-    case 2: diff_kernel<2><<<grid, kBlock, 0, st>>>(P); break;
-    case 3: diff_kernel<3><<<grid, kBlock, 0, st>>>(P); break;
-    default: diff_kernel<4><<<grid, kBlock, 0, st>>>(P); break;
-  }
+  const DiffKernel k = bounces == 1 ? diff_kernel<1> : bounces == 2 ? diff_kernel<2>
+                       : bounces == 3 ? diff_kernel<3> : diff_kernel<4>;
+  err = allow_stack_smem(k, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k<<<(n_pix + kBlock - 1) / kBlock, kBlock, smem, st>>>(P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,14 +49,17 @@
 // with the divergence of a warp's 32 paths; the stage and state rows (33 + 16
 // floats a pixel) are read and written once a frame, coalesced, plus N
 // neighbour reads of 17 rows that stay in L2 at these sizes.  One thread per
-// pixel, reservoirs in registers, buffers read through __ldg.  K5 and K6 walk
-// the 4-wide BVH (wide.cuh::WideTracer: trace_closest_wide1 and
-// segment_visible_wide1, inlined, each walk's stack in dynamic shared memory)
-// and run each tile as one block of C threads or, where the tiles are too few
-// to fill the card, split over a cluster of blocks of 128 (tile.cuh); K7
-// walks the threaded BVH (traverse.cuh::ThreadedTracer), one block of C
-// threads a tile (__launch_bounds__(512) caps a thread at 128 registers;
-// ptxas reports the spills).
+// pixel, reservoirs in registers, buffers read through __ldg.  K5, K6 and K7
+// walk the 4-wide BVH (wide.cuh::WideTracer: trace_closest_wide1 and
+// segment_visible_wide1, inlined, each walk's stack in dynamic shared
+// memory).  K5 and K6 run each tile as one block of C threads or, where the
+// tiles are too few to fill the card, split over a cluster of blocks of 128
+// (tile.cuh).  K7 sums nothing over its tile (the tile enters only through
+// pix / C in spatial), so it needs no cluster: it runs blocks of 128, C / 128
+// of them a tile, which hold five blocks (20 warps) a multiprocessor at its 96
+// registers where one block of 512 is one (16); on an H100 they ran it 1.02x,
+// 1.06x and 1.43x faster than one block of C a tile at Cornell 256², stress
+// 128² and Cornell 1920x1088 (PERF.md Findings).
 //
 // Floating point: built with -fmad=false (ops/kernels.py), so no product is
 // fused into a sum and every expression rounds as the plain PyTorch version's
@@ -65,8 +68,9 @@
 //
 // C interface (loaded with ctypes by render/megakernel_restir_gi.py):
 // fyp_restir_gi launches one kernel, chosen by `kernel`, on the given stream
-// and returns the launch's error, or cudaGetLastError(); fyp_restir_gi_occupancy
-// reports K5's and K6's resident blocks and clusters.
+// (`clustered`: K5 and K6 split each tile over a cluster) and returns the
+// launch's error, or cudaGetLastError(); fyp_restir_gi_occupancy reports K5's
+// and K6's resident blocks and clusters.
 #include "shading.cuh"
 #include "tile.cuh"
 #include "wide.cuh"
@@ -123,8 +127,7 @@ struct Params {
   Geo geo;
   Mats mats;
   Tex tex;                // the textured instantiations' levels
-  Bvh bvh;                // K7
-  WideBvh wide;           // K5, K6
+  WideBvh wide;
   const float* state_in;  // K5: previous state; K6: state
   const float* stage_in;  // K5: previous stage; K7: this frame's stage
   float* state_out;       // K5, K7
@@ -474,12 +477,13 @@ __global__ void __launch_bounds__(kThreads) gi_stage1(Params P) {
   write_stage(P.stage_out, P.width * P.height, pix, o, res);
 }
 
-// K7: same-frame spatial reuse from K6's stage, the shade, the state; one
-// block of C threads a tile.
-__global__ void __launch_bounds__(512) gi_stage2(Params P) {
+// K7: same-frame spatial reuse from K6's stage, the shade, the state;
+// blocks of kTileBlock threads, C / kTileBlock of them a tile, without a
+// cluster; the walks through the wide BVH.
+__global__ void __launch_bounds__(kTileBlock) gi_stage2(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = P.width * P.height;
-  const ThreadedTracer tr{P.bvh, Tris{P.geo.positions, P.geo.tri_v}};
+  const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
   const float* sg = P.stage_in;
   Own o;
   o.pos = row3(sg, GS_POS, B, pix);
@@ -518,7 +522,7 @@ TileKernel tile_kernel_of(Kernel kernel, bool textured) {
 }
 
 // K5's (final_vis or not) or K6's instantiation for texturing and a tile split
-// over a cluster; null for K7, which runs one block a tile
+// over a cluster; null for K7, which launches without one
 TileKernel tile_kernel(int kernel, bool textured, bool clustered) {
   const Kernel k = static_cast<Kernel>(kernel);
   return clustered ? tile_kernel_of<kTileBlock>(k, textured) : tile_kernel_of<kTileMax>(k, textured);
@@ -533,10 +537,7 @@ extern "C" int fyp_restir_gi(
     const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
     const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
     int textured, const void* tex_prim, const void* tex_bounce, int tex_k, int tex_hp, int tex_wp, int tex_hb,
-    int tex_wb,
-    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first, const void* bvh_prim_idx,
-    int n_nodes, int leaf_size,
-    const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
+    int tex_wb, const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* state_in, const void* stage_in, void* state_out, void* stage_out, void* accum, void* stream) {
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
@@ -545,7 +546,7 @@ extern "C" int fyp_restir_gi(
   if (kernel < kMono || kernel > kStage2) return static_cast<int>(cudaErrorInvalidValue);
   const TileKernel tiled = tile_kernel(kernel, textured != 0, clustered != 0);
   size_t smem = 0;
-  if (tiled != nullptr && !tile_fits(lanes, clustered != 0, wide_stack_depth, &smem))
+  if (!tile_fits(lanes, tiled == nullptr || clustered != 0, wide_stack_depth, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
@@ -566,7 +567,6 @@ extern "C" int fyp_restir_gi(
   P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission), I(albedo_map)};
   P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
               tex_hb, tex_wb};
-  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
   P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
                    static_cast<int*>(wide_overflow), wide_stack_depth};
   P.state_in = F(state_in);
@@ -576,7 +576,10 @@ extern "C" int fyp_restir_gi(
   P.accum = static_cast<float*>(accum);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiled == nullptr) {
-    gi_stage2<<<n_pix / lanes, lanes, 0, s>>>(P);
+    // K7: blocks of kTileBlock threads, no cluster
+    cudaError_t e = allow_stack_smem(gi_stage2, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    gi_stage2<<<n_pix / kTileBlock, kTileBlock, smem, s>>>(P);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t e = allow_stack_smem(tiled, smem);

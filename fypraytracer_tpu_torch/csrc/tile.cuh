@@ -9,8 +9,8 @@
 // [0, B - C] as one row.  Pixel pix lies in tile pix / C at lane pix % C,
 // whatever the launch.
 //
-// K7 runs a tile as one block of C threads, K4 as C / kTileBlock blocks of
-// kTileBlock threads, which need no cluster: K4 sums nothing over its tile.
+// K4 and K7 run a tile as C / kTileBlock blocks of kTileBlock threads,
+// which need no cluster: they sum nothing over a tile.
 // K3, K5 and K6 are launched as clusters (ClusterTile, launch_tiles) in one
 // of two shapes, which the host picks by frame
 // (render/restir_common.py::tile_clustered):

@@ -1,12 +1,10 @@
-// Closest-hit traversal of the threaded BVH, one thread per ray.
+// Closest-hit traversal of the threaded BVH, one thread per ray, and the
+// vector helpers and triangle test every walk shares.
 //
-// Device code shared by trace.cu (the standalone trace kernel),
-// megakernel.cu, megakernel_diff.cu and restir_gi.cu (K7 and K8 call
-// trace_closest for their primary and continuation rays, and K7
-// segment_visible for the visibility of a ReSTIR GI reconnection; K1-K6 walk
-// the wide BVH of wide.cuh instead, K1 and K2 keeping this walk for an A/B).
-// It replaces the TPU's dense ray x triangle tile sweep
-// (fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel) with the
+// trace_closest is the walk of trace.cu's trace_threaded_kernel and of K2
+// NEE's threaded instantiation (megakernel.cu), kept for an A/B beside the
+// wide BVH of wide.cuh, which K1-K8 walk.  It replaces the TPU's dense ray x
+// triangle tile sweep (fypraytracer_tpu/ops/pallas_dense.py::_intersect_kernel) with the
 // reference's own per-ray walk (Renderer.cu:460-561), in the stackless
 // form of fypraytracer_tpu/ops/traverse.py:75-113:
 //   * nodes are in preorder; an inner node whose box is hit falls through
@@ -171,63 +169,5 @@ __device__ inline Hit trace_closest(const Bvh& bvh, const Tris& tris, float3 o, 
   if (h.tri < 0) h.t = -1.0f;
   return h;
 }
-
-// Whether the segment of length dist from o along the unit direction d reaches
-// its end: no hit with t < dist - tol and some hit with t <= dist + tol, with
-// tol = max(1e-4, 1e-3 * dist).  That is the JAX megakernels' shadow test
-// (fypraytracer_tpu/render/megakernel.py:847-866, build_shadow_trace) and the
-// wavefront's |t_closest - dist| <= tol (render/restir_gi.py).  The walk of
-// trace_closest bounded by dist + tol; it returns false at the first hit below
-// dist - tol, since nothing found later can make the segment visible.
-// ops/traverse.py::segment_visible.
-__device__ inline bool segment_visible(const Bvh& bvh, const Tris& tris, float3 o, float3 d, float dist) {
-  const float tol = fmaxf(1e-4f, __fmul_rn(dist, 1e-3f));
-  const float lo = __fsub_rn(dist, tol);
-  const float t_end = nextafterf(__fadd_rn(dist, tol), kBig);  // hits at t <= dist + tol count
-  float3 inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-  float best = t_end;
-  int node = 0;
-  while (node < bvh.n_nodes) {
-    float3 lo_b = ldg3(bvh.lo, node);
-    float3 hi_b = ldg3(bvh.hi, node);
-    float t0x = __fmul_rn(lo_b.x - o.x, inv.x), t1x = __fmul_rn(hi_b.x - o.x, inv.x);
-    float t0y = __fmul_rn(lo_b.y - o.y, inv.y), t1y = __fmul_rn(hi_b.y - o.y, inv.y);
-    float t0z = __fmul_rn(lo_b.z - o.z, inv.z), t1z = __fmul_rn(hi_b.z - o.z, inv.z);
-    float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-    float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-    bool hit_box = tmax >= fmaxf(tmin, 0.0f) && tmin <= best;
-    int first = __ldg(bvh.first + node);
-    if (hit_box && first < 0) {
-      node += 1;
-      continue;
-    }
-    if (hit_box) {
-      for (int k = 0; k < bvh.leaf_size; ++k) {
-        int id = __ldg(bvh.prim_idx + first + k);
-        if (id < 0) continue;
-        float3 p0, p1, p2;
-        triangle(tris, id, p0, p1, p2);
-        float t, u, v;
-        if (moller_trumbore(o, d, p0, p1, p2, t, u, v) && t < best) {
-          if (t < lo) return false;
-          best = t;
-        }
-      }
-    }
-    node = __ldg(bvh.miss + node);
-  }
-  return best < t_end;
-}
-
-// A kernel's walks through the threaded BVH (K7): the closest hit and the
-// segment test, as wide.cuh::WideTracer offers them through the wide BVH.
-struct ThreadedTracer {
-  Bvh bvh;
-  Tris tris;
-  __device__ __forceinline__ Hit closest(float3 o, float3 d) const { return trace_closest(bvh, tris, o, d, kBig); }
-  __device__ __forceinline__ bool visible(float3 o, float3 d, float dist) const {
-    return segment_visible(bvh, tris, o, d, dist);
-  }
-};
 
 }  // namespace fyp

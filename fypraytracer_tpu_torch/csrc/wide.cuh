@@ -2,8 +2,8 @@
 // thread, and the segment test by one thread.
 //
 // Device code of K1 (trace.cu), K2 (megakernel.cu), K3 and K4 (restir_di.cu),
-// K5 and K6 (restir_gi.cu).  It replaces, for them, the threaded walks of
-// traverse.cuh::trace_closest and segment_visible, which K7 and K8 keep.
+// K5-K7 (restir_gi.cu) and K8 (megakernel_diff.cu).  It replaces, for them,
+// the threaded walk of traverse.cuh::trace_closest.
 // The records are built on the host by accel/wide.py (scene/types.py::
 // WideBVH): a node is 8 float4, child k's (lo.xyz, hi.x) at k and its
 // (hi.yz, ref, 0) at 4 + k, so lane k of a quad fetches its child with two
@@ -45,7 +45,7 @@
 // failed check counts its code in the host's buffer (the first failure's code,
 // values and thread beside it) and the walk goes on safely; without the macro
 // the checks are not compiled.  tests/test_torch_cuda.py::
-// test_wide_walks_stay_in_range runs K3-K6 so built.
+// test_wide_walks_stay_in_range runs K3-K8 so built.
 //
 // What bounds it on an H100: the latency of dependent loads.  Against the
 // threaded walk a Cornell camera ray makes 3.6 node visits and 1.2 leaf
@@ -403,15 +403,18 @@ __device__ __forceinline__ Hit trace_closest_wide1(const WideBvh& w, const LaneS
   return h;
 }
 
-// traverse.cuh::segment_visible by one thread through the wide BVH: whether
-// the segment of length dist from o along the unit direction d reaches its
-// end (no hit with t < dist - tol, some hit with t <= dist + tol, tol =
-// max(1e-4, 1e-3 * dist)).  The walk of trace_closest_wide1 with its bound
-// best starting just above dist + tol; it returns false at the first hit
-// below dist - tol.  It gives the threaded test's answer for every segment:
-// best never falls below dist - tol, so a box entered beyond best holds no
-// hit that blocks the segment or ends it, and every box is one of the binary
-// tree's boxes bit for bit.  ops/traverse.py::segment_visible_wide.
+// The segment test by one thread through the wide BVH: whether the segment
+// of length dist from o along the unit direction d reaches its end (no hit
+// with t < dist - tol, some hit with t <= dist + tol, tol = max(1e-4, 1e-3 *
+// dist)), as the JAX megakernels' shadow test decides it
+// (fypraytracer_tpu/render/megakernel.py:847-866, build_shadow_trace).  The
+// walk of trace_closest_wide1 with its bound best starting just above dist +
+// tol; it returns false at the first hit below dist - tol.  It gives the
+// threaded walk's answer for every segment: best never falls below dist -
+// tol, so a box entered beyond best holds no hit that blocks the segment or
+// ends it, and every box is one of the binary tree's boxes bit for bit.
+// ops/traverse.py::segment_visible_wide, bit for bit the threaded
+// ops/traverse.py::segment_visible.
 __device__ __forceinline__ bool segment_visible_wide1(const WideBvh& w, const LaneStack& st, float3 o, float3 d,
                                                       float dist) {
   const float tol = fmaxf(1e-4f, __fmul_rn(dist, 1e-3f));
@@ -456,8 +459,8 @@ __device__ __forceinline__ bool segment_visible_wide1(const WideBvh& w, const La
   return best < t_end;
 }
 
-// A kernel's walks through the wide BVH, one thread a ray (K3-K6):
-// traverse.cuh::ThreadedTracer's interface.  The walks are inlined at each
+// A kernel's walks through the wide BVH, one thread a ray (K3-K8): the
+// closest hit and the segment test.  The walks are inlined at each
 // call site: K5 so built takes 126-128 registers and spills nothing under
 // __launch_bounds__(128), and K5 with the walks as __noinline__ calls, as K2
 // NEE calls its walk (megakernel.cu), faulted with an illegal address after

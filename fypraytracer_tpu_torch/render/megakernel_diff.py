@@ -7,9 +7,10 @@ The torch counterpart of ``fypraytracer_tpu/render/megakernel_diff.py``.
 ``csrc/megakernel_diff.cu`` (K8), which replaces the TPU kernel
 ``make_diff_megakernel`` → ``kernel`` (megakernel_diff.py:117, launched at
 :241): one thread per pixel runs the cosine path of one frame and one
-sample, keeps each scatter level's throughput factor g, its derivative
-dg/d(albedo) and triangle id in registers, forms the squared error against
-the target, and scans the levels in reverse.  Radiance is
+sample, its rays walked through the scene's 4-wide BVH (``Scene.wide``,
+the stacks in shared memory), keeps each scatter level's throughput factor
+g, its derivative dg/d(albedo) and triangle id in registers, forms the
+squared error against the target, and scans the levels in reverse.  Radiance is
 ``r_c = Σ_l T_l,c · e_l,c`` with ``T_l = Π_{j≤l} g_j``, so
 ``dr_c/dg_j,c = suffix_j,c / g_j,c`` (suffix: the contributions of level j
 and later); under cosine sampling the directions do not depend on albedo,
@@ -41,7 +42,13 @@ from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.texture import scene_is_textured
 from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, trace_rays
 from fypraytracer_tpu_torch.render.integrators import ORIGIN_EPS
-from fypraytracer_tpu_torch.render.restir_common import camera_matrices, hit_surface
+from fypraytracer_tpu_torch.render.restir_common import (
+    TILE_BLOCK,
+    camera_matrices,
+    hit_surface,
+    tile_walk_records,
+    wide_args,
+)
 from fypraytracer_tpu_torch.scene.types import Scene, with_materials
 
 MAX_BOUNCES = 4   # the kernel keeps every level in registers (megakernel_diff.py:114)
@@ -170,22 +177,26 @@ _ARGTYPES = (
     + [ctypes.c_float] * 3                                   # sky
     + [ctypes.c_void_p] * 4 + [ctypes.c_int]                 # geometry, triangle count
     + [ctypes.c_void_p] * 4                                  # materials
-    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2             # bvh
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int]                 # wide bvh
     + [ctypes.c_void_p] * 4)                                 # target, loss, d_tri, stream
 
 
 def diff_megakernel(scene: Scene, camera: Camera, albedo, target, frame: int, bounces: int, sky,
                     cam=None):
     """``(loss (0-d), d_tri (T, 3))`` of ``diff_plain`` through the CUDA
-    kernel ``csrc/megakernel_diff.cu`` (plain version for CPU tensors).
-    ``cam``: the (2, 4, 4) camera tensor on the card
-    (``restir_common.camera_matrices``), made here when not given."""
+    kernel ``csrc/megakernel_diff.cu`` (plain version for CPU tensors),
+    which walks the scene's wide BVH in blocks of ``TILE_BLOCK`` threads: a
+    scene without ``Scene.wide``, or whose tree needs more stack than such
+    a block holds, is refused before anything launches.  ``cam``: the (2,
+    4, 4) camera tensor on the card (``restir_common.camera_matrices``),
+    made here when not given."""
     _check_bounces(bounces)
     dev = scene.geometry.positions.device
     if dev.type == "cpu":
         return diff_plain(scene, camera, albedo, target, frame, bounces, sky)
     B = camera.width * camera.height
-    g, m, b = scene.geometry, scene.materials, scene.bvh
+    g, m = scene.geometry, scene.materials
+    wide = tile_walk_records("diff_megakernel", scene, TILE_BLOCK)
     cam = camera_matrices(camera, dev) if cam is None else cam
     albedo = albedo.detach()
     target = target.detach().reshape(B, 3)
@@ -194,8 +205,9 @@ def diff_megakernel(scene: Scene, camera: Camera, albedo, target, frame: int, bo
         raise ValueError(f"diff_megakernel: albedo must be {tuple(m.albedo.shape)}, got {tuple(albedo.shape)}")
     kernels.check_inputs(
         "diff_megakernel",
-        floats=(cam, albedo, target, g.positions, g.normals, m.roughness, m.metallic, emission, b.lo, b.hi),
-        ints=(g.tri_v, g.tri_mat, b.miss, b.first, b.prim_idx))
+        floats=(cam, albedo, target, g.positions, g.normals, m.roughness, m.metallic, emission, wide.nodes,
+                wide.tris),
+        ints=(g.tri_v, g.tri_mat, wide.overflow))
     fn = kernels.load("megakernel_diff", "fyp_diff_megakernel", _ARGTYPES)
     loss = torch.empty(1, dtype=torch.float32, device=dev)
     d_tri = torch.empty((g.tri_v.shape[0], 3), dtype=torch.float32, device=dev)
@@ -204,7 +216,7 @@ def diff_megakernel(scene: Scene, camera: Camera, albedo, target, frame: int, bo
             *(float(c) for c in sky),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), g.tri_v.shape[0],
             P(albedo), P(m.roughness), P(m.metallic), P(emission),
-            P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size,
+            *wide_args(wide),
             P(target), P(loss), P(d_tri), kernels.stream_ptr(dev))
     diff_megakernel.launches += 1
     kernels.check(rc, "diff_megakernel")

@@ -22,9 +22,10 @@ The torch counterpart of ``fypraytracer_tpu/render/megakernel_restir_gi.py``
     tiles as K5's;
   * K7 ``restir_gi_k2`` replaces ``k2a`` (:447 → :758) and ``k2b`` (:544 →
     :794): same-frame spatial reuse from K6's stage with per-neighbour
-    visibility, the shade, the state out (``mono=False``, the reference's
-    own two-stage split).  ``k2a`` only gathers neighbour rows; a GPU
-    thread reads them itself, so it folds into K7.
+    visibility (the wide segment test, as K5's), the shade, the state out
+    (``mono=False``, the reference's own two-stage split), in blocks of 128
+    threads: it sums nothing over a tile.  ``k2a`` only gathers neighbour
+    rows; a GPU thread reads them itself, so it folds into K7.
 
 The estimator is the wavefront's (``render/restir_gi.py``: radiance stored
 without the visible-point BRDF, W = wsum/(Z·p̂), sky-only first bounces
@@ -70,7 +71,7 @@ from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_k
 from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, segment_visible, trace_rays
 from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
 from fypraytracer_tpu_torch.render.restir_common import (
-    bvh_args,
+    TILE_BLOCK,
     camera_matrices,
     camera_rays,
     hit_surface,
@@ -382,24 +383,19 @@ _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctyp
              + [ctypes.c_float] * 3
              + [ctypes.c_void_p] * 10                           # geometry, materials
              + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5    # texture
-             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2       # bvh
              + [ctypes.c_void_p] * 3 + [ctypes.c_int]           # wide bvh
              + [ctypes.c_void_p] * 6)                           # buffers, stream
 
 
-def _check(name, scene, camera, tensors, shapes, tex, wide=None):
+def _check(name, scene, camera, tensors, shapes, tex, wide):
     """Raise unless the kernel's inputs lie on one CUDA device, contiguous,
     in their dtypes and shapes: ``tensors`` (``shapes``: their rows, 3 for
-    a (B, 3) image) and the scene's tables, with the threaded BVH (K7) or
-    the wide one ``wide`` (K5, K6)."""
-    g, m, b = scene.geometry, scene.materials, scene.bvh
-    walk_f, walk_i = (b.lo, b.hi), (b.miss, b.first, b.prim_idx)
-    if wide is not None:
-        walk_f, walk_i = (wide.nodes, wide.tris), (wide.overflow,)
+    a (B, 3) image) and the scene's tables with the wide BVH ``wide``."""
+    g, m = scene.geometry, scene.materials
     kernels.check_inputs(
-        name, floats=(*tensors, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, *walk_f)
-        + (() if tex is None else (tex.prim, tex.bounce)),
-        ints=(g.tri_v, g.tri_mat, m.albedo_map, *walk_i))
+        name, floats=(*tensors, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, wide.nodes,
+                      wide.tris) + (() if tex is None else (tex.prim, tex.bounce)),
+        ints=(g.tri_v, g.tri_mat, m.albedo_map, wide.overflow))
     B = camera.width * camera.height
     for t, rows in zip(tensors, shapes):
         want = (B, 3) if rows == 3 else (rows, B)
@@ -408,15 +404,15 @@ def _check(name, scene, camera, tensors, shapes, tex, wide=None):
 
 
 def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, stage_in,
-            state_out, stage_out, accum, stream, tex, wide=None, clustered=False):
+            state_out, stage_out, accum, stream, tex, wide, clustered):
     """Launch one kernel of ``fyp_restir_gi`` on ``stream`` (inputs already
     checked); buffers a kernel does not use may be None.  ``cam``: the
     camera's ``camera_matrices`` on the card, or None to make them here;
     ``ppv``: an array or a tensor on the card, None for K7.  K5 and K6 run
     their textured instantiation with the tables ``tex`` unless it is None;
-    K7 reads the staged albedo and takes None.  ``wide``: the wide BVH K5
-    and K6 walk (K7 walks the threaded one and takes None); ``clustered``:
-    K5 or K6 splits each tile over a cluster."""
+    K7 reads the staged albedo and takes None.  ``wide``: the wide BVH the
+    kernel walks; ``clustered``: K5 or K6 splits each tile over a cluster
+    (K7 always runs blocks of ``TILE_BLOCK`` threads)."""
     g, m = scene.geometry, scene.materials
     dev = g.positions.device
     P = kernels.ptr
@@ -436,7 +432,7 @@ def _launch(which, wrapper, scene, camera, frame, settings, cam, ppv, state_in, 
             int(settings.temporal_reuse), *(float(c) for c in settings.sky_color),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map),
-            *tex_args(tex), *bvh_args(scene.bvh), *wide_args(wide), opt(state_in), opt(stage_in), opt(state_out),
+            *tex_args(tex), *wide_args(wide), opt(state_in), opt(stage_in), opt(state_out),
             opt(stage_out), opt(accum), stream)
     wrapper.launches += 1
     kernels.check(rc, wrapper.__name__)
@@ -496,12 +492,16 @@ def restir_gi_k2(scene: Scene, camera: Camera, frame: int, settings: RenderSetti
                  cam: torch.Tensor | None = None) -> None:
     """Spatial reuse and shade of frame ``frame`` through the CUDA kernel K7
     (plain version for CPU tensors): adds the frame to ``accum`` (B, 3) and
-    writes ``state`` in place.  ``cam`` as for ``restir_gi_mono``."""
+    writes ``state`` in place.  ``cam`` as for ``restir_gi_mono``.  Its
+    walks go through the scene's wide BVH, in blocks of ``TILE_BLOCK``
+    threads; a tree whose stacks do not fit such a block is refused before
+    anything launches."""
     if stage.device.type == "cpu":
         return restir_gi_k2_plain(scene, camera, frame, settings, stage, state, accum)
-    _check("restir_gi_k2", scene, camera, (stage, state, accum), (GS_ROWS, GT_ROWS, 3), None)
+    wide = tile_walk_records("restir_gi_k2", scene, TILE_BLOCK)
+    _check("restir_gi_k2", scene, camera, (stage, state, accum), (GS_ROWS, GT_ROWS, 3), None, wide)
     _launch(_K7, restir_gi_k2, scene, camera, frame, settings, cam, None, None, stage, state, None,
-            accum, kernels.stream_ptr(stage.device), None)
+            accum, kernels.stream_ptr(stage.device), None, wide, False)
 
 
 restir_gi_mono.launches = 0

@@ -1,15 +1,15 @@
 """What the ReSTIR DI and GI megakernels share: tiles, reprojection,
 frame-shared neighbour offsets, the surface record and the launch helpers.
 
-A tile is ``pick_ray_lanes(B)`` consecutive pixels: one block of C threads
-of K7; ``C / TILE_BLOCK`` blocks of ``TILE_BLOCK`` threads of K4; of K3, K5
+A tile is ``pick_ray_lanes(B)`` consecutive pixels: ``C / TILE_BLOCK``
+blocks of ``TILE_BLOCK`` threads of K4 and K7, without a cluster; of K3, K5
 and K6 one block of C threads, or split over a cluster of blocks of
 ``TILE_BLOCK`` threads where the frame's tiles are too few to fill the card
 (``tile_clustered``, ``tile_launch``, ``csrc/tile.cuh``);
 ``tile_history_index`` is where a tile reads the previous frame's buffers,
 ``spatial_offsets`` the frame's neighbour offsets, and ``hit_surface`` the
 surface record of ``csrc/shading.cuh::surface`` in PyTorch.
-``tile_walk_records`` hands K3-K6 the scene's wide BVH, refusing a tree
+``tile_walk_records`` hands K3-K8 the scene's wide BVH, refusing a tree
 whose stacks would not fit in one of their blocks.  ``camera_matrices`` is
 the (2, 4, 4) camera tensor the kernels read: the frame loops make it, and
 the previous proj @ view, once a call, so that the frames launch without a
@@ -18,7 +18,6 @@ blocking copy to the card between them.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -52,7 +51,7 @@ TILE_STATIC_SMEM = 8
 
 
 def stack_fits(threads: int) -> int:
-    """The stack entries each thread of a K3-K6 block of ``threads`` gets
+    """The stack entries each thread of a K3-K8 block of ``threads`` gets
     in the block's shared memory."""
     return (BLOCK_SMEM - TILE_STATIC_SMEM) // (8 * threads)
 
@@ -101,7 +100,7 @@ def pick_tile_launch(scene: Scene, num_pixels: int, device) -> dict:
 
 
 def tile_walk_records(name: str, scene: Scene, threads: int):
-    """The scene's wide BVH for K3-K6 (``wide_records``), refused with
+    """The scene's wide BVH for K3-K8 (``wide_records``), refused with
     the reason where the stacks of one of their blocks of ``threads``
     (``stack_need`` entries of 8 bytes a thread) would not fit in its
     shared memory."""
@@ -194,15 +193,7 @@ def camera_matrices(camera: Camera, device) -> torch.Tensor:
                            device=device)
 
 
-def bvh_args(b):
-    """The BVH's arguments of a kernel's C interface."""
-    P = kernels.ptr
-    return P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size
-
-
 def wide_args(wide):
-    """The wide BVH's arguments of a kernel's C interface (nulls for None)."""
-    if wide is None:
-        return ctypes.c_void_p(None), ctypes.c_void_p(None), ctypes.c_void_p(None), 1
+    """The wide BVH's arguments of a kernel's C interface."""
     P = kernels.ptr
     return P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide)

@@ -125,6 +125,31 @@ def test_restir_di_k4_takes_the_wide_records():
     assert ENTRIES["fyp_restir_di_k4"] == want
 
 
+def test_diff_megakernel_takes_the_wide_records():
+    """K8's entry takes the wide BVH's four arguments (nodes, triangles,
+    overflow flag, stack depth) after the materials, and no threaded BVH:
+    the camera, width, height, frame and bounces, 3 sky floats, the
+    geometry (4 pointers and the triangle count), the materials (4
+    pointers), 3 pointers and an int, target, loss, d_tri and the
+    stream."""
+    want = (["pointer", "int", "int", "unsigned", "int"] + ["float"] * 3 + ["pointer"] * 4 + ["int"]
+            + ["pointer"] * 4 + ["pointer"] * 3 + ["int"] + ["pointer"] * 4)
+    assert ENTRIES["fyp_diff_megakernel"] == want
+
+
+def test_restir_gi_takes_no_threaded_bvh():
+    """The ReSTIR GI entry (K5-K7) takes the wide BVH's four arguments after
+    the texture and no threaded BVH: the kernel, camera and proj @ view,
+    width, height, frame, tile, launch, bounces and neighbours, radius and
+    history limit, temporal, 3 sky floats, 10 geometry and material
+    pointers, the texture (a flag, 2 pointers and 5 ints), 3 pointers and
+    an int, the 5 buffers and the stream."""
+    want = (["int", "pointer", "pointer", "int", "int", "unsigned", "int", "int", "int", "int", "float", "float",
+             "int"] + ["float"] * 3 + ["pointer"] * 10 + ["int"] + ["pointer"] * 2 + ["int"] * 5
+            + ["pointer"] * 3 + ["int"] + ["pointer"] * 6)
+    assert ENTRIES["fyp_restir_gi"] == want
+
+
 def test_parameter_kinds_are_read_as_declared():
     """The reader of the prototypes: pointers whatever their constness,
     ``unsigned int`` apart from ``int``; a type it does not know fails."""

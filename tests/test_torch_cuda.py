@@ -534,35 +534,50 @@ def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
     (MegakernelReSTIRGI, dict(mono=False), "stress", 128, 128, 16),
     (MegakernelReSTIRDI, {}, "cornell", 1920, 1088, 16),
     (MegakernelReSTIRDI, {}, "stress", 128, 128, 16),
+    (tmd.DiffRenderer, dict(bounces=4), "cornell", 256, 256, 16),
+    (tmd.DiffRenderer, dict(bounces=2), "stress", 128, 128, 16),
 ], ids=["gi-256", "gi-512", "gi-1080p", "gi-final_vis-1080p", "gi-stress", "gi-two-kernels-256",
-        "gi-two-kernels-1080p", "gi-two-kernels-stress", "di-1080p", "di-stress"])
+        "gi-two-kernels-1080p", "gi-two-kernels-stress", "di-1080p", "di-stress", "diff-256", "diff-stress"])
 def test_wide_walks_stay_in_range(cuda, monkeypatch, cls, mode, scene_name, w, h, frames):
-    """K5 (both visibility modes), K6 (``mono=False``), K3 and K4 built with
-    the walks' range checks (``csrc/wide.cuh``, ``FYP_WALK_CHECKS``), over
-    the frames at which K5 with ``__noinline__`` walk calls faulted (ROADMAP
-    queue 3) and on the stress scene, whose 32 tiles are split: every node index,
-    child ref, leaf slot, triangle id and stack pointer lies in the tree,
-    every ray and segment length is finite, and no walk runs away.  First a
+    """K5 (both visibility modes), K6 and K7 (``mono=False``), K3, K4 and
+    K8 (``DiffRenderer``, one launch a step) built with the walks' range
+    checks (``csrc/wide.cuh``, ``FYP_WALK_CHECKS``), over the frames at
+    which K5 with ``__noinline__`` walk calls faulted (ROADMAP queue 3) and
+    on the stress scene, whose 32 tiles are split: every node index, child
+    ref, leaf slot, triangle id and stack pointer lies in the tree, every
+    ray and segment length is finite, and no walk runs away.  First a
     control: limits of one node, which the root's children break, must be
     counted."""
-    lib = "restir_gi" if cls is MegakernelReSTIRGI else "restir_di"
+    lib = {MegakernelReSTIRGI: "restir_gi", MegakernelReSTIRDI: "restir_di"}.get(cls, "megakernel_diff")
     monkeypatch.setitem(kernels.EXTRA_FLAGS, lib, [*kernels.EXTRA_FLAGS.get(lib, ()), "-DFYP_WALK_CHECKS"])
     builder, cam = (tproc.stress if scene_name == "stress" else tproc.cornell_box)(w, h)
-    technique = SamplingTechnique.RESTIR_GI if cls is MegakernelReSTIRGI else SamplingTechnique.RESTIR_DI
-    settings = RenderSettings(technique=technique, bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08))
-    r = cls(builder.compile(), cam, settings, device=cuda, **mode)
+    if cls is tmd.DiffRenderer:
+        r = cls(builder.compile(), cam, device=cuda, **mode)
+        alb = r.scene.materials.albedo
+        tgt = torch.full((w * h, 3), 0.25, device=cuda)
+
+        def run(n):
+            for f in range(n):
+                _, loss = r.step(alb, tgt, 1 + f)
+            return loss.reshape(1, 1)
+    else:
+        technique = SamplingTechnique.RESTIR_GI if cls is MegakernelReSTIRGI else SamplingTechnique.RESTIR_DI
+        settings = RenderSettings(technique=technique, bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08))
+        r = cls(builder.compile(), cam, settings, device=cuda, **mode)
+        run = r.render_many
     nodes, slots, tris = r.scene.wide.nodes.shape[0], r.scene.wide.tris.shape[0], r.scene.geometry.tri_v.shape[0]
     rec = torch.zeros(16, dtype=torch.int32, device=cuda)
     limits = kernels.load(lib, "fyp_walk_checks", [ctypes.c_int] * 3 + [ctypes.c_void_p])
     kernels.check(limits(1, slots, tris, kernels.ptr(rec)), "fyp_walk_checks")
-    r.render_many(1)
+    run(1)
     torch.cuda.synchronize()
     assert rec[0].item() == 1 and rec[1].item() == 3 and rec[8 + 3].item() > 0
     rec.zero_()
-    r.reset()
+    if hasattr(r, "reset"):
+        r.reset()
     kernels.check(limits(nodes, slots, tris, kernels.ptr(rec)), "fyp_walk_checks")
     for _ in range(frames // 8):
-        img = r.render_many(8)
+        img = run(8)
     torch.cuda.synchronize()
     assert rec.tolist() == [0] * 16
     assert bool(torch.isfinite(img).all())
@@ -732,29 +747,57 @@ def test_textured_gi_kernels_match_plain(cuda, size, move):
 
 # ---- the stack-overflow flag ----------------------------------------------------------
 
-@pytest.mark.parametrize("cls", [Renderer, MegakernelRenderer, MegakernelReSTIRDI, MegakernelReSTIRGI])
-def test_entry_points_raise_on_stack_overflow(cuda, cls):
+@pytest.mark.parametrize("cls, mode", [(Renderer, {}), (MegakernelRenderer, {}), (MegakernelReSTIRDI, {}),
+                                       (MegakernelReSTIRGI, {}), (MegakernelReSTIRGI, dict(mono=False)),
+                                       (tmd.DiffRenderer, {})],
+                         ids=["Renderer", "MegakernelRenderer", "MegakernelReSTIRDI", "MegakernelReSTIRGI",
+                              "MegakernelReSTIRGI-two-kernels", "DiffRenderer"])
+def test_entry_points_raise_on_stack_overflow(cuda, cls, mode):
     """A wide BVH handed a ``stack_need`` below its tree's true need: the
     walks drop entries and set the flag, and the entry point's next call
     raises (it reads the flag without waiting; ``overflow.check()`` waits).
     ReSTIR DI's walks that set it are K3's and K4's, ReSTIR GI's K5's (K6's
-    with ``mono=False``; K7 walks the threaded BVH)."""
+    and K7's with ``mono=False``), ``DiffRenderer``'s K8's.  With
+    ``mono=False`` K7 alone is also run on a short stack after a clean
+    K6, and sets the flag itself."""
     import dataclasses
 
     builder, cam = tproc.cornell_box(W, H)
     scene = skewed_scene(builder.compile(), 8)
     assert scene.wide.stack_need == 149
-    settings = {MegakernelReSTIRDI: DI, MegakernelReSTIRGI: GI}.get(cls, SETTINGS)
-    r = cls(scene, cam, settings, device=cuda)
+    if cls is tmd.DiffRenderer:
+        r = cls(scene, cam, device=cuda)
+        tgt = torch.full((W * H, 3), 0.25, device=cuda)
+
+        def run():
+            r.step(r.scene.materials.albedo, tgt, 1)
+    else:
+        settings = {MegakernelReSTIRDI: DI, MegakernelReSTIRGI: GI}.get(cls, SETTINGS)
+        r = cls(scene, cam, settings, device=cuda, **mode)
+
+        def run():
+            r.render_many(1)
     # MegakernelReSTIRGI renumbers the triangles and rebuilds the records, so
     # the short stack goes in after construction; the watch reads the same flag
+    full = r.scene
     r.scene = dataclasses.replace(r.scene, wide=dataclasses.replace(r.scene.wide, stack_need=4))
-    r.render_many(1)
+    run()
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="overflow"):
-        r.render_many(1)
+        run()
     with pytest.raises(RuntimeError, match="overflow"):
         r.overflow.check()
+    if mode.get("mono") is False:
+        B = W * H
+        full.wide.overflow.zero_()
+        state = torch.zeros((tmg.GT_ROWS, B), device=cuda)
+        stage = tmg.restir_gi_k1(full, cam, 1, GI, state, cam.proj_view)
+        torch.cuda.synchronize()
+        ttrav.check_overflow(full)                       # K6 on the full stack: clean
+        tmg.restir_gi_k2(r.scene, cam, 1, GI, stage, state, torch.zeros((B, 3), device=cuda))
+        torch.cuda.synchronize()
+        with pytest.raises(RuntimeError, match="overflow"):
+            ttrav.check_overflow(full)
 
 
 # ---- the wide segment test, and K3's and K5's stack limit ----------------------------
@@ -790,15 +833,18 @@ def test_segment_kernel_matches_plain_twin(cuda, name):
 
 
 def test_k3_and_k5_refuse_an_oversize_stack(cuda):
-    """A chain BVH whose walk needs 290 stack entries: K3-K6 hold 226 a
+    """A chain BVH whose walk needs 290 stack entries: K3-K8 hold 226 a
     thread in a block of 128, and their wrappers refuse it with the reason,
-    launching nothing."""
+    launching nothing; K7 and K8 refuse a scene without the wide BVH too."""
+    import dataclasses
+
     builder, cam = tproc.cornell_box(W, H)
     scene = skewed_scene(builder.compile(), 4).to(cuda)
     em = tmr.prepare_emissive_table(scene)
     B = W * H
     state = torch.zeros((tmr.ST_ROWS, B), device=cuda)
-    wrappers = (tmr.restir_di_k3, tmr.restir_di_k4, tmg.restir_gi_mono, tmg.restir_gi_k1)
+    wrappers = (tmr.restir_di_k3, tmr.restir_di_k4, tmg.restir_gi_mono, tmg.restir_gi_k1, tmg.restir_gi_k2,
+                tmd.diff_megakernel)
     before = [w.launches for w in wrappers]
     with pytest.raises(ValueError, match="restir_di_k3: the wide BVH needs a stack of 290 entries"):
         tmr.restir_di_k3(scene, em, cam, 1, DI, state, cam.proj_view)
@@ -811,6 +857,18 @@ def test_k3_and_k5_refuse_an_oversize_stack(cuda):
                            gi[2], gi[3])
     with pytest.raises(ValueError, match="restir_gi_k1: the wide BVH needs a stack of 290 entries"):
         tmg.restir_gi_k1(scene, cam, 1, GI, gi[0], cam.proj_view, gi[1])
+    with pytest.raises(ValueError, match="restir_gi_k2: the wide BVH needs a stack of 290 entries"):
+        tmg.restir_gi_k2(scene, cam, 1, GI, gi[1], gi[0], torch.zeros((B, 3), device=cuda))
+    with pytest.raises(ValueError, match="diff_megakernel: the wide BVH needs a stack of 290 entries"):
+        tmd.diff_megakernel(scene, cam, scene.materials.albedo, torch.zeros((B, 3), device=cuda), 1, 2,
+                            (0.05, 0.06, 0.08))
+    # and a scene without the wide BVH
+    flat = dataclasses.replace(scene, wide=None)
+    with pytest.raises(ValueError, match="no wide BVH"):
+        tmg.restir_gi_k2(flat, cam, 1, GI, gi[1], gi[0], torch.zeros((B, 3), device=cuda))
+    with pytest.raises(ValueError, match="no wide BVH"):
+        tmd.diff_megakernel(flat, cam, scene.materials.albedo, torch.zeros((B, 3), device=cuda), 1, 2,
+                            (0.05, 0.06, 0.08))
     assert [w.launches for w in wrappers] == before
 
 

@@ -208,13 +208,14 @@ def test_tile_launch_puts_each_pixel_in_its_tile(width, height, C, clustered):
 
 
 @pytest.mark.parametrize("name, threads, fits", [("restir_di_k4", 128, 226), ("restir_gi_k1", 128, 226),
-                                                 ("restir_gi_k1", 512, 56)])
+                                                 ("restir_gi_k1", 512, 56), ("restir_gi_k2", 128, 226),
+                                                 ("diff_megakernel", 128, 226)])
 def test_k4_and_k6_stack_limits(name, threads, fits):
-    """K4 and K6 hold the stacks K3 and K5 hold: 226 entries a thread in a
-    block of 128 (K4's only block), 56 in a block of 512 (K6's tile one
-    block).  A tree that needs exactly that many is handed over; one that
-    needs one more is refused with the reason, naming the kernel, before
-    anything launches."""
+    """K4, K6, K7 and K8 hold the stacks K3 and K5 hold: 226 entries a
+    thread in a block of 128 (the only block of K4, K7 and K8), 56 in a
+    block of 512 (K6's tile one block).  A tree that needs exactly that
+    many is handed over; one that needs one more is refused with the
+    reason, naming the kernel, before anything launches."""
     ok = _scene("skewed8")
     at = dataclasses.replace(ok, wide=dataclasses.replace(ok.wide, stack_need=fits))
     assert rc.tile_walk_records(name, at, threads) is at.wide
@@ -243,20 +244,23 @@ def _k4_reads(B, w, C, threads, offsets):
     return pix, reads
 
 
+@pytest.mark.parametrize("kernel, stream", [("K4", 7002), ("K7", 8002)])
 @pytest.mark.parametrize("width, height, C", [(32, 32, 512), (16, 16, 256), (40, 16, 128), (48, 16, 256),
                                               (1920, 1088, 512)])
-def test_k4_blocks_of_128_read_the_plain_versions_neighbours(width, height, C):
-    """K4 in blocks of 128 (no cluster: it sums nothing over a tile)
-    covers every pixel once, each block within one tile, and reads each
-    frame-shared neighbour offset at the index ``restir_di_k4_plain``
-    reads (``stage[:, q]`` with q = clamp(tile·C + dy·W + dx, 0, B − C) +
-    pix mod C), with the same unclamped test, as its launch of one block
-    of C threads a tile did: at tiles of 512, 256 and 128 pixels."""
+def test_k4_blocks_of_128_read_the_plain_versions_neighbours(width, height, C, kernel, stream):
+    """K4 and K7 in blocks of 128 (no cluster: neither sums anything over
+    a tile) cover every pixel once, each block within one tile, and read
+    each frame-shared neighbour offset (their own stream of offsets) at the
+    index their plain versions ``restir_di_k4_plain`` and
+    ``restir_gi_k2_plain`` read (``stage[:, q]`` with q = clamp(tile·C +
+    dy·W + dx, 0, B − C) + pix mod C), with the same unclamped test, as a
+    launch of one block of C threads a tile does: at tiles of 512, 256 and
+    128 pixels."""
     B = width * height
     assert rc.pick_ray_lanes(B) == C
     lay = rc.tile_launch(B, True)
     assert (lay["threads"], lay["grid"] * lay["threads"]) == (128, B)
-    offsets = rc.spatial_offsets(3, 5, 30.0, stream=7002) + [(0, 0), (-width, 0), (0, height)]
+    offsets = rc.spatial_offsets(3, 5, 30.0, stream=stream) + [(0, 0), (-width, 0), (0, height)]
     split_pix, split = _k4_reads(B, width, C, 128, offsets)
     block_pix, block = _k4_reads(B, width, C, C, offsets)
     np.testing.assert_array_equal(split_pix, np.arange(B))
