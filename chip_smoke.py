@@ -4,8 +4,9 @@
 Drives ``fypraytracer_tpu_torch`` — and nothing of the JAX package — through
 its main paths: the Cornell box under NEE+MIS (2 bounces, 1 spp), every other
 technique 0-8, the 200,712-triangle stress scene under NEE, ReSTIR DI and
-ReSTIR GI, textured albedo, and training (inverse rendering of the Cornell
-albedos), in phases:
+ReSTIR GI, textured albedo, training (inverse rendering of the Cornell
+albedos), the multi-device layer and the app layer (the CLI and the
+interactive session), in phases:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN;
@@ -124,6 +125,21 @@ albedos), in phases:
      the fast path against ``MegakernelRenderer.render_many(64)`` in turns,
      the halo exchange's ms a frame (world 2, gloo, host-staged) and the
      NEE train step's ``all_reduce`` ms a step (world 1, NCCL);
+  6d. the app layer, driven in process (``app/cli.py::main`` with ``--device
+     cuda``, ``app/interactive.py::InteractiveSession``), each call with the
+     counters reset just before and read just after: ``render --impl
+     megakernel --frames 8`` at Cornell 256² (K2 NEE; the saved PNG scored
+     against cornell_nee.png), ``benchmark`` of the nine techniques at 64
+     frames against 256 frames of NEE at 4 spp (every row on the megakernel
+     path; every K2 sampler, K3, K4 and K5 launched, by ``launch_log``),
+     then ``--gi-fast`` (K5's final_vis instantiation); ``train --impl
+     megakernel`` (9 steps, K8, the loss falls) and ``train`` (2 NEE
+     wavefront steps, K1); a ReSTIR GI render checkpointed every 16 frames,
+     stopped after 16 and resumed to 32, against an uninterrupted 32 (the
+     accumulation, state and stage bit for bit); an interactive script
+     (K1; a material edit and a sphere added); and the stress scene built
+     by the C++ and the NumPy builders (host seconds; each NEE image
+     against stress_nee.png);
   7. timing with CUDA events: the median of 5 reps after a warm-up, of
      ``render_many(64)`` for the K1 wavefront and the K2 megakernel (every
      technique) at 256², NEE also at 1920x1088, ``MegakernelReSTIRDI`` and
@@ -170,7 +186,7 @@ the last is the kernels' summary, the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py            # all phases
-    python3 chip_smoke.py --quick    # phases 1-6: build, check, main paths
+    python3 chip_smoke.py --quick    # phases 1-6d: build, check, main paths
     python3 chip_smoke.py --ab DIR [DIR ...]  # untextured entry points, K2 and
                                      # K3-K8 a launch: each DIR's package against
                                      # this one's, in turns (ab_turn)
@@ -372,13 +388,21 @@ def score(avg, golden_name: str, expect_shape) -> dict:
     import torch
 
     from fypraytracer_tpu_torch.core.color import finalize_pixels, to_uint8_rgb
+
+    finite = bool(torch.isfinite(avg).all())
+    row = score_rgb8(to_uint8_rgb(finalize_pixels(avg, 1.0)).cpu().numpy(), golden_name, expect_shape)
+    row.update(finite=finite, ok=bool(row["ok"] and finite))
+    return row
+
+
+def score_rgb8(rgb8, golden_name: str, expect_shape) -> dict:
+    """An 8-bit image (a render's saved PNG): of the expected shape, mean8,
+    and PSNR against a golden."""
     from fypraytracer_tpu_torch.utils import metrics
     from fypraytracer_tpu_torch.utils.image import load_png
 
-    finite = bool(torch.isfinite(avg).all())
-    rgb8 = to_uint8_rgb(finalize_pixels(avg, 1.0)).cpu().numpy()
-    row = dict(shape=list(avg.shape), finite=finite, mean8=float(rgb8.mean()))
-    ok = finite and tuple(avg.shape) == tuple(expect_shape) and row["mean8"] >= MEAN_FLOOR
+    row = dict(shape=list(rgb8.shape), mean8=float(rgb8.mean()))
+    ok = tuple(rgb8.shape) == tuple(expect_shape) and row["mean8"] >= MEAN_FLOOR
     if golden_name:
         golden = load_png(os.path.join(GOLDENS, golden_name))
         row.update(golden=golden_name, psnr=metrics.psnr(metrics.mse_8bit(rgb8, golden)))
@@ -2235,6 +2259,197 @@ def phase_parallel(summary: dict) -> None:
         raise AssertionError("world size 2 disagrees with world size 1")
 
 
+# phase 6d: the app layer (app/cli.py, app/interactive.py, scene/, utils/)
+APP_SIZE = 256
+APP_TECHNIQUES = ("brute", "uniform", "cosine", "ggx", "brdf", "light", "nee", "restir-di", "restir-gi")
+# the K2 sampler each technique launches (csrc/megakernel.cu's Sampler; brute
+# force is uniform at 1 sample) and K5's instantiation ids
+_K2_SAMPLER = {"uniform": 0, "cosine": 1, "ggx": 2, "brdf": 3, "light": 4, "nee": 5}
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Record, for every launch inside the block, K2's sampler and
+    technique and K5-K7's kernel id, by wrapping the modules' private
+    ``_launch`` helpers (the wrappers' counts are theirs, untouched)."""
+    from fypraytracer_tpu_torch.render import megakernel as mk
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+
+    log = {"k2": [], "gi": []}
+    k2, gi = mk._launch, mg._launch
+
+    def k2_logged(scene, camera, frame0, n_frames, settings, sampler, *rest):
+        log["k2"].append((int(settings.technique), sampler))
+        return k2(scene, camera, frame0, n_frames, settings, sampler, *rest)
+
+    def gi_logged(which, *rest):
+        log["gi"].append(which)
+        return gi(which, *rest)
+
+    mk._launch, mg._launch = k2_logged, gi_logged
+    try:
+        yield log
+    finally:
+        mk._launch, mg._launch = k2, gi
+
+
+def run_cli(argv) -> list:
+    """``cli.main(argv + ["--device", "cuda"])`` in this process; returns
+    its JSON lines (each also printed)."""
+    import io
+
+    from fypraytracer_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([*argv, "--device", "cuda"])
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
+    for line in lines:
+        print(json.dumps({"cli": argv[0], **line}), flush=True)
+    return lines
+
+
+def phase_app() -> None:
+    """The app layer driven in process, each call with the kernels' launch
+    counters reset just before and read just after: `cli render` (K2 NEE,
+    the image scored against cornell_nee.png), `cli benchmark` of the nine
+    techniques at equal frames against 256 frames of NEE (every row on the
+    megakernel path; every K2 sampler, K3, K4 and K5 launched; then
+    `--gi-fast`: K5's final_vis instantiation), `cli train` through K8 and
+    through the K1 wavefront, a checkpointed ReSTIR GI render stopped and
+    resumed against an uninterrupted one (bit for bit), an interactive
+    script (K1, edits through SceneManager), and the stress scene built by
+    the native and the NumPy builders (host seconds; NEE images scored
+    against stress_nee.png)."""
+    import io
+    import tempfile
+
+    import torch
+
+    from fypraytracer_tpu_torch.app.interactive import InteractiveSession
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.megakernel import MegakernelRenderer, morton_permuted_scene
+    from fypraytracer_tpu_torch.scene.sceneio import builtin_scene
+    from fypraytracer_tpu_torch.utils.image import load_png
+
+    t_phase = time.perf_counter()
+    size = ["--width", str(APP_SIZE), "--height", str(APP_SIZE)]
+    failures = []
+
+    def check(case, ok, **row):
+        emit("app", case=case, **row, ok=bool(ok))
+        if not ok:
+            failures.append(case)
+
+    def called(argv):
+        """The CLI's JSON lines, the launches counted and the launch log."""
+        reset_launches()
+        with launch_log() as log:
+            lines = run_cli(argv)
+            torch.cuda.synchronize()
+        return lines, nonzero(launch_counts()), log
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # render: K2 NEE, the saved image against the golden
+        out = os.path.join(tmp, "render")
+        lines, launched, log = called(["render", "--scene", "cornell", "--technique", "nee", "--impl", "megakernel",
+                                       "--frames", "8", *size, "-o", out])
+        png = [f for f in os.listdir(out) if f.endswith(".png")][0]
+        row = score_rgb8(load_png(os.path.join(out, png)), "cornell_nee.png", (APP_SIZE, APP_SIZE, 3))
+        res = lines[-1]
+        check("render cornell nee megakernel 8 frames", row["ok"] and res["impl"] == "megakernel"
+              and res["frames"] == 8 and (6, _K2_SAMPLER["nee"]) in log["k2"], launches=launched, result=res,
+              **{k: v for k, v in row.items() if k != "ok"})
+
+        # benchmark: the nine techniques, equal frames, against 256 frames of NEE
+        out = os.path.join(tmp, "bench")
+        lines, launched, log = called(["benchmark", "--scene", "cornell", *size, "--techniques",
+                                       ",".join(APP_TECHNIQUES), "--frames", "64", "--golden-frames", "256",
+                                       "-o", out])
+        rows = [r for r in lines if "technique" in r]
+        samplers = {s for _, s in log["k2"]}
+        techs = {t for t, _ in log["k2"]}
+        ok = ([r["technique"] for r in rows] == list(APP_TECHNIQUES) and all(r["impl"] == "megakernel" for r in rows)
+              and samplers == set(_K2_SAMPLER.values()) and techs == set(range(7))
+              and all(launched.get(k, 0) > 0 for k in ("restir_di_k3", "restir_di_k4", "restir_gi_mono"))
+              and set(log["gi"]) == {mg._K5} and all(math.isfinite(r["psnr"]) for r in rows))
+        check("benchmark cornell nine techniques, 64 frames vs 256 of NEE", ok, rows=rows, launches=launched,
+              k2_samplers=sorted(samplers), gi_kernels=sorted(set(log["gi"])))
+        lines, launched, log = called(["benchmark", "--scene", "cornell", *size, "--techniques", "restir-gi",
+                                       "--gi-fast", "--frames", "64", "--golden-frames", "256"])
+        rows = [r for r in lines if "technique" in r]
+        check("benchmark cornell restir-gi --gi-fast", rows[0]["impl"] == "megakernel"
+              and set(log["gi"]) == {mg._K5_FINAL_VIS} and launched.get("restir_gi_mono", 0) > 0,
+              rows=rows, launches=launched)
+
+        # train: K8 (9 steps), then the K1 wavefront's NEE step (2 steps)
+        lines, launched, _ = called(["train", "--scene", "cornell", *size, "--impl", "megakernel", "--steps", "9"])
+        losses = [r["loss"] for r in lines if "loss" in r]
+        check("train --impl megakernel 9 steps", len(losses) == 9 and losses[-1] < losses[0]
+              and launched.get("diff_megakernel") == 9, losses=losses, result=lines[-1], launches=launched)
+        lines, launched, _ = called(["train", "--scene", "cornell", *size, "--steps", "2"])
+        losses = [r["loss"] for r in lines if "loss" in r]
+        # a NEE frame against the cosine target: frame noise dominates a
+        # step's loss, so two steps are held to finite values, not a fall
+        check("train (NEE wavefront) 2 steps", len(losses) == 2 and all(map(math.isfinite, losses))
+              and launched.get("trace_closest", 0) > 0, losses=losses, result=lines[-1], launches=launched)
+
+        # a checkpointed ReSTIR GI render: 32 frames in checkpoints of 16,
+        # stopped after the first and resumed, against an uninterrupted run
+        base = ["render", "--scene", "cornell", "--technique", "restir-gi", *size, "--checkpoint-every", "16"]
+        whole, part = os.path.join(tmp, "ck_whole"), os.path.join(tmp, "ck_part")
+        lines_w, launched_w, _ = called([*base, "--frames", "32", "--checkpoint-dir", whole,
+                                         "-o", os.path.join(tmp, "ckw")])
+        called([*base, "--frames", "16", "--checkpoint-dir", part, "-o", os.path.join(tmp, "ckp1")])
+        lines_p, launched_p, _ = called([*base, "--frames", "32", "--checkpoint-dir", part,
+                                         "-o", os.path.join(tmp, "ckp2")])
+        a, b = (torch.load(os.path.join(d, "state.pt"), weights_only=True) for d in (whole, part))
+        equal = {k: bool(torch.equal(a[k], b[k])) for k in ("accum", "mk_state", "mk_stage", "frame_index")}
+        check("render restir-gi checkpointed 16 + 16 resumed vs 32 uninterrupted", all(equal.values())
+              and lines_p[1]["resumed"] and lines_p[1]["frames_done"] == 16 and lines_p[-1]["frames"] == 32
+              and launched_w.get("restir_gi_mono") == 32 and launched_p.get("restir_gi_mono") == 16,
+              bit_equal=equal, launches_uninterrupted=launched_w, launches_resumed=launched_p,
+              impl=lines_p[-1]["impl"])
+
+        # an interactive script: K1 traces, an edit of each kind, no refusal
+        builder, cam = builtin_scene("cornell", APP_SIZE, APP_SIZE)
+        out = io.StringIO()
+        sess = InteractiveSession(builder, cam, out=out, device="cuda")
+        reset_launches()
+        sess.run(["step 4", "mat 3 albedo 0.2 0.9 0.2", "step 4", "add-sphere 0 0.3 0 0.3 0.2", "step 2",
+                  f"save {os.path.join(tmp, 'session.png')}", "info", "quit"])
+        torch.cuda.synchronize()
+        launched = nonzero(launch_counts())
+        rec = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+        steps = [r for r in rec if "frame_ms" in r]
+        check("interactive script cornell NEE", not any("error" in r for r in rec) and len(steps) == 3
+              and all(r["finite"] for r in steps) and os.path.exists(os.path.join(tmp, "session.png"))
+              and launched.get("trace_closest", 0) > 0 and rec[-1]["scene_version"] == 2,
+              records=rec, launches=launched)
+
+    # the stress scene: the native and the NumPy builders, host seconds, and
+    # each scene's NEE megakernel image against the golden (Morton order)
+    for native in (True, False):
+        builder, cam = builtin_scene("stress", 128, 128)
+        t0 = time.perf_counter()
+        host = builder.compile(native=native)
+        build_s = time.perf_counter() - t0
+        scene = morton_permuted_scene(host)[0]
+        reset_launches()
+        avg = MegakernelRenderer(scene, cam, settings_for("NEE_MIS"), device="cuda").render_many(8)
+        torch.cuda.synchronize()
+        launched = nonzero(launch_counts())
+        row = score(avg, "stress_nee.png", (128, 128, 3))
+        want = "native" if native else "numpy"
+        check(f"stress build native={native}", row["ok"] and launched.get("megakernel") == 1
+              and builder.last_builders == dict(bvh=want, light_tree=want),
+              builders=builder.last_builders, host_build_seconds=build_s, launches=launched,
+              **{k: v for k, v in row.items() if k != "ok"})
+    emit("app", case="phase", seconds=time.perf_counter() - t_phase, failures=failures, ok=not failures)
+    if failures:
+        raise AssertionError(f"the app phase failed: {failures}")
+
+
 def nonzero(launched: dict) -> dict:
     return {k: v for k, v in launched.items() if v}
 
@@ -2810,7 +3025,7 @@ def ab(others: list) -> None:
 
 
 def main() -> int:
-    quick = "--quick" in sys.argv[1:]     # phases 1-6 only, no timing
+    quick = "--quick" in sys.argv[1:]     # phases 1-6d only, no timing
     args = sys.argv[1:]
     if args[:1] == ["--ab-turn"]:
         ab_turn(args[1])
@@ -2834,6 +3049,7 @@ def main() -> int:
         phase_main(summary)
         phase_train(summary)
         phase_parallel(summary)
+        phase_app()
         if not quick:
             phase_timing()
     except Exception:

@@ -22,7 +22,12 @@ textured scenes, and training, through these entry points:
   * ``render.megakernel_diff.DiffRenderer`` — the loss of one cosine frame
     and its albedo gradient in one kernel, ``csrc/megakernel_diff.cu``;
   * ``parallel.shard.make_train_step`` — a training step by torch autograd
-    through the wavefront integrators.
+    through the wavefront integrators;
+  * ``app.cli`` (``render``, ``benchmark``, ``train``) and
+    ``app.interactive`` — the JAX package's command line and live-edit
+    session on these entry points, with scene files (``scene.sceneio``),
+    OBJ meshes, scene edits (``scene.manager``), the C++ structure
+    builders (``accel.native``) and checkpoints (``utils.checkpoint``).
 
 A material with an albedo map reads the scene's atlas
 (``ops.texture``); K2, K3, K5 and K6 are built a second time with that

@@ -258,14 +258,19 @@ class MegakernelRenderer:
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
         _sampler(settings)
         self.device = torch.device(device)
-        self.scene = scene.to(self.device)
         self.camera = camera
         self.settings = settings
-        self.frame_index = 1
         self.accum = torch.zeros((camera.height * camera.width, 3), dtype=torch.float32,
                                  device=self.device)
+        self.set_scene(scene)
+
+    def set_scene(self, scene: Scene):
+        """Render ``scene`` from now on (``SceneManager.apply``): on the
+        device, with a new overflow watch; accumulation restarts."""
+        self.scene = scene.to(self.device)
         self.overflow = OverflowWatch(self.scene)
         check_scene_tex(self.scene)
+        self.reset()
 
     def reset(self):
         self.frame_index = 1

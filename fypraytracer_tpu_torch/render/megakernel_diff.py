@@ -257,19 +257,25 @@ class DiffRenderer:
     def __init__(self, scene: Scene, camera: Camera, bounces: int = 2,
                  sky_color=(0.05, 0.06, 0.08), device="cuda"):
         _check_bounces(bounces)
+        self.device = torch.device(device)
+        self.camera = camera
+        self.bounces = bounces
+        self.sky_color = tuple(float(c) for c in sky_color)
+        self._cam = camera_matrices(camera, self.device) if self.device.type == "cuda" else None
+        self.set_scene(scene)
+
+    def set_scene(self, scene: Scene):
+        """Train on ``scene`` from now on (``SceneManager.apply``): on the
+        device, with its material ids, material count and overflow watch
+        made anew.  A textured scene raises."""
         if scene_is_textured(scene):
             raise NotImplementedError(
                 "DiffRenderer does not train textured scenes: its kernel differentiates the flat albedo, "
                 "as the JAX kernel does (megakernel_diff.py has no textured path); make_train_step trains "
                 "through the textured wavefront")
-        self.device = torch.device(device)
         self.scene = scene.to(self.device)
-        self.camera = camera
-        self.bounces = bounces
-        self.sky_color = tuple(float(c) for c in sky_color)
         self.tri_mat = self.scene.geometry.tri_mat.long()
         self.n_mats = self.scene.materials.albedo.shape[0]
-        self._cam = camera_matrices(camera, self.device) if self.device.type == "cuda" else None
         self.overflow = OverflowWatch(self.scene)
 
     def loss_and_grad(self, albedo, target_hdr, frame: int):

@@ -443,17 +443,23 @@ class MegakernelReSTIRDI:
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
         self.device = torch.device(device)
-        self.scene = scene.to(self.device)
         self.camera = camera
         self.settings = settings
+        B = camera.width * camera.height
+        pick_ray_lanes(B)
+        self.state = torch.zeros((ST_ROWS, B), dtype=torch.float32, device=self.device)
+        self.accum = torch.zeros((B, 3), dtype=torch.float32, device=self.device)
+        self.set_scene(scene)
+
+    def set_scene(self, scene: Scene):
+        """Render ``scene`` from now on (``SceneManager.apply``): on the
+        device, with its emissive table and overflow watch made anew; the
+        reservoirs and accumulation restart."""
+        self.scene = scene.to(self.device)
         self.emitters = prepare_emissive_table(self.scene)
         self.overflow = OverflowWatch(self.scene)
         check_scene_tex(self.scene)
-        B = camera.width * camera.height
-        pick_ray_lanes(B)
-        self.frame_index = 1
-        self.state = torch.zeros((ST_ROWS, B), dtype=torch.float32, device=self.device)
-        self.accum = torch.zeros((B, 3), dtype=torch.float32, device=self.device)
+        self.reset()
 
     def reset(self):
         self.frame_index = 1

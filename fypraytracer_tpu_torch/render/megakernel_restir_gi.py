@@ -582,19 +582,25 @@ class MegakernelReSTIRGI:
         if final_vis and not mono:
             raise ValueError("final_vis is a mode of the mono kernel; mono=False traces per neighbour")
         self.device = torch.device(device)
-        self.scene = morton_permuted_scene(scene.to("cpu"))[0].to(self.device)
         self.camera = camera
         self.settings = settings
         self.mono = mono
         self.final_vis = final_vis
         B = camera.width * camera.height
         pick_ray_lanes(B)
-        self.frame_index = 1
         self.state = torch.zeros((GT_ROWS, B), dtype=torch.float32, device=self.device)
         self.stage = torch.zeros((GS_ROWS, B), dtype=torch.float32, device=self.device)
         self.accum = torch.zeros((B, 3), dtype=torch.float32, device=self.device)
+        self.set_scene(scene)
+
+    def set_scene(self, scene: Scene):
+        """Render ``scene`` from now on (``SceneManager.apply``): renumbered
+        in Morton order and put on the device, with a new overflow watch;
+        the reservoirs, stage and accumulation restart."""
+        self.scene = morton_permuted_scene(scene.to("cpu"))[0].to(self.device)
         self.overflow = OverflowWatch(self.scene)
         check_scene_tex(self.scene)
+        self.reset()
 
     def reset(self):
         self.frame_index = 1

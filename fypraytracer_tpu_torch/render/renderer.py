@@ -100,15 +100,20 @@ class Renderer:
 
     def __init__(self, scene: Scene, camera: Camera, settings: RenderSettings, device="cuda"):
         self.device = torch.device(device)
-        self.scene = scene.to(self.device)
         self.camera = camera
         self.settings = settings
-        self.frame_index = 1
         self.accum = torch.zeros((camera.height, camera.width, 3), dtype=torch.float32,
                                  device=self.device)
-        self.aux_state = self._init_aux_state()
+        self.set_scene(scene)
+
+    def set_scene(self, scene: Scene):
+        """Render ``scene`` from now on (an edited scene,
+        ``scene/manager.py::SceneManager.apply``): the scene is put on the
+        device, its overflow watch made anew, and accumulation restarts."""
+        self.scene = scene.to(self.device)
         self.overflow = OverflowWatch(self.scene)
         check_scene_tex(self.scene)
+        self.reset()
 
     def _is_stateful(self) -> bool:
         return self.settings.technique in (SamplingTechnique.RESTIR_DI, SamplingTechnique.RESTIR_GI)

@@ -4,8 +4,10 @@ Plays the role of ``Scene::AddNewMeshToScene`` + ``SceneToGPU``
 (Scene.cpp:9-92, Scene_GPU.cpp:6-81): the scene is flattened once into
 dense arrays, and ``Scene.to(device)`` uploads them.
 
-A copy of ``fypraytracer_tpu/scene/build.py`` along its NumPy path only
-(the JAX package's ``compile(native=False)``): no C++ builders, no JAX.
+A copy of ``fypraytracer_tpu/scene/build.py``.  ``compile`` builds with
+the NumPy builders by default (the JAX package's ``compile(native=False)``);
+``native=True`` takes the C++ builders of ``accel/native.py`` and falls
+back to NumPy where they are unavailable, as the JAX package does.
 
 Transform baking matches Scene.cpp:32-51: world = T · yawPitchRoll(y,x,z)
 · S applied to positions.  Deviation (documented fix of a reference quirk):
@@ -91,6 +93,7 @@ class SceneBuilder:
         self._mat = dict(albedo=[], roughness=[], metallic=[],
                          emission_color=[], emission_power=[], albedo_map=[])
         self.textures: list[np.ndarray] = []
+        self.last_builders: dict = {}     # which builders the last compile ran
 
     # -- authoring ---------------------------------------------------------
 
@@ -128,9 +131,16 @@ class SceneBuilder:
 
     # -- compilation -------------------------------------------------------
 
-    def compile(self, leaf_size: int = 4, light_tree: bool = True) -> Scene:
-        """Bake transforms, flatten SoA, build BVH/light tree/atlas with the
-        NumPy builders (the JAX package's ``compile(native=False)``)."""
+    def compile(self, leaf_size: int = 4, light_tree: bool = True, native: bool = False) -> Scene:
+        """Bake transforms, flatten SoA, build BVH/light tree/atlas, and the
+        kernels' wide BVH (``Scene.wide``) and texture levels (``Scene.tex``).
+
+        ``native=False`` (the default) builds with the NumPy builders, the
+        JAX package's ``compile(native=False)``; ``native=True`` prefers the
+        C++ builders (``accel/native.py``) and falls back to NumPy where
+        g++ or the library is unavailable.  ``last_builders`` records which
+        builder made the BVH and the light tree.
+        """
         all_pos, all_nrm, all_uv, all_tri, all_mat = [], [], [], [], []
         mesh_ranges = []
         v_off = 0
@@ -180,7 +190,13 @@ class SceneBuilder:
         tri_lo = np.minimum(np.minimum(p0, p1), p2)
         tri_hi = np.maximum(np.maximum(p0, p1), p2)
 
-        flat_bvh = bvh_mod.build_scene_bvh(tri_lo, tri_hi, mesh_ranges, leaf_size)
+        flat_bvh = None
+        if native and len(tri_v) > 0:
+            from fypraytracer_tpu_torch.accel import native as native_mod
+            flat_bvh = native_mod.build_scene_bvh_native(tri_lo, tri_hi, mesh_ranges, leaf_size)
+        self.last_builders = dict(bvh="numpy" if flat_bvh is None else "native", light_tree="none")
+        if flat_bvh is None:
+            flat_bvh = bvh_mod.build_scene_bvh(tri_lo, tri_hi, mesh_ranges, leaf_size)
 
         # emissive triangle list (InitSceneEmissiveTriangles, Scene.cpp:209-221)
         emission = materials.emission_color * materials.emission_power[:, None]
@@ -188,9 +204,8 @@ class SceneBuilder:
         emissive_tris = np.nonzero(emissive_mat[tri_mat])[0].astype(np.int32)
 
         if light_tree and len(emissive_tris) > 0:
-            lt = lt_mod.build_scene_light_tree(
-                positions, tri_v, tri_mat,
-                np.asarray(emission, np.float32), mesh_ranges)
+            lt, self.last_builders["light_tree"] = build_light_tree(positions, tri_v, tri_mat, emission,
+                                                                     mesh_ranges, native)
         else:
             lt = empty_light_tree(len(tri_v))
 
@@ -201,6 +216,18 @@ class SceneBuilder:
         return Scene(geometry=geometry, materials=materials, bvh=flat_bvh,
                      light_tree=lt, emissive_tris=emissive_tris, textures=atlas,
                      wide=build_wide(flat_bvh, geometry), tex=make_kernel_tex(materials, atlas))
+
+
+def build_light_tree(positions, tri_v, tri_mat, emission, mesh_ranges, native: bool):
+    """``(light tree, "native" | "numpy")`` over the emissive triangles: the
+    C++ builder where ``native`` and it is available, else NumPy's."""
+    emission = np.asarray(emission, np.float32)
+    if native:
+        from fypraytracer_tpu_torch.accel import native as native_mod
+        lt = native_mod.build_light_tree_native(positions, tri_v, tri_mat, emission, mesh_ranges)
+        if lt is not None:
+            return lt, "native"
+    return lt_mod.build_scene_light_tree(positions, tri_v, tri_mat, emission, mesh_ranges), "numpy"
 
 
 def empty_light_tree(num_tris: int) -> LightTreeArrays:

@@ -1,14 +1,18 @@
 """Procedural geometry and the Cornell box.
 
-A copy of the parts of ``fypraytracer_tpu/scene/procedural.py`` that need
-no asset from outside the repository: ``quad``, ``box``, ``uv_sphere``
-(Mesh.cpp:7-95 semantics), ``cornell_box`` (the structural analog of the
-reference's hard-coded room, WalnutApp.cpp:43-521), the 200,712-triangle
-``stress`` scene and ``single_triangle``.  The ``room`` scene reads the
-reference's OBJ and PNG files and is not copied.
+A copy of ``fypraytracer_tpu/scene/procedural.py``: ``quad``, ``box``,
+``uv_sphere`` (Mesh.cpp:7-95 semantics), ``cornell_box`` (the structural
+analog of the reference's hard-coded room, WalnutApp.cpp:43-521), the
+200,712-triangle ``stress`` scene, ``single_triangle``, and ``room``, the
+reference's authored scene.  ``room`` reads the reference's OBJ and PNG
+files, which the repository does not hold: ``_find_asset`` looks for them
+in ``$FYP_ASSETS`` and ``<repo>/assets`` only, and raises where they are
+missing.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -202,4 +206,93 @@ def single_triangle():
     normals = np.tile(np.float32([0, 0, 1]), (3, 1))
     b.add_mesh(positions, tri_v, normals, material=mat)
     cam = Camera(position=(0, 0, 3), forward=(0, 0, -1), width=64, height=64)
+    return b, cam
+
+
+def _asset_dirs() -> list[str]:
+    """Where ``room``'s assets are looked for: ``$FYP_ASSETS``, then
+    ``<repo>/assets``."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    return [d for d in (os.environ.get("FYP_ASSETS", ""), os.path.join(repo, "assets")) if d]
+
+
+def _find_asset(name: str) -> str:
+    for d in _asset_dirs():
+        if os.path.exists(os.path.join(d, name)):
+            return os.path.join(d, name)
+    raise FileNotFoundError(
+        f"asset {name!r} not found; searched {_asset_dirs()} (set FYP_ASSETS to the directory "
+        "holding the reference's '3D Models/Test' assets)")
+
+
+def room(width: int = 256, height: int = 256):
+    """The reference's authored benchmark scene (WalnutApp.cpp:43-521;
+    fypraytracer_tpu/scene/procedural.py:144-218): a 7.5-unit room (white
+    floor/ceiling, red front +Z, magenta back -Z, blue left -X, green right
+    +X), a textured banana (banana.obj + bananaDiffuse.png,
+    WalnutApp.cpp:128-166) and toaster (toaster.obj + toasterBaseColor.png,
+    :169-207), and 5 emissive ceiling planes (power 40, :485-520).  Camera
+    start pose per WalnutApp.cpp:519-520.
+
+    Returns ``(SceneBuilder, Camera)``; raises ``FileNotFoundError`` naming
+    ``FYP_ASSETS`` where an asset is missing.
+    """
+    from fypraytracer_tpu_torch.scene.objloader import load_obj
+    from fypraytracer_tpu_torch.utils.image import load_image
+
+    b = SceneBuilder()
+    # materials 0-8 in the reference's emplacement order (WalnutApp.cpp:46-91)
+    magenta = b.add_material(albedo=(1, 0, 1), roughness=1.0)
+    b.add_material(albedo=(0.2, 0.3, 1.0), roughness=0.75, metallic=0.2)  # unused sphere mat
+    emissive = b.add_material(albedo=(1, 1, 1), emission_color=(1, 1, 1), emission_power=40.0)
+    red = b.add_material(albedo=(1, 0, 0), roughness=1.0)
+    green = b.add_material(albedo=(0, 1, 0), roughness=1.0)
+    white = b.add_material(albedo=(1, 1, 1), roughness=1.0)
+    blue = b.add_material(albedo=(0, 0, 1), roughness=1.0)
+    banana_tex = b.add_texture(load_image(_find_asset("bananaDiffuse.png")).astype(np.float32) / 255.0)
+    banana_mat = b.add_material(roughness=1.0, metallic=0.0, albedo_map=banana_tex)
+    toaster_tex = b.add_texture(load_image(_find_asset("toasterBaseColor.png")).astype(np.float32) / 255.0)
+    toaster_mat = b.add_material(roughness=0.15, metallic=0.85, albedo_map=toaster_tex)
+
+    b.add_mesh(*load_obj(_find_asset("banana.obj")), material=banana_mat, position=(0, -3, 0), rotation=(90, 0, 0))
+    b.add_mesh(*load_obj(_find_asset("toaster.obj")), material=toaster_mat, position=(-1.9, -3.0, 0),
+               scale=(0.5, 0.5, 0.5))
+
+    # room: six separate one-face meshes on a unit cube with inward normals
+    # (WalnutApp.cpp:209-243 vertex table; faces :245-484)
+    P = np.float32  # noqa: N806 - terse local alias for the vertex table
+    faces = {
+        # name: (4 corner positions, inward normal, material)
+        "bottom": ([(-.5, -.5, -.5), (.5, -.5, -.5), (.5, -.5, .5), (-.5, -.5, .5)], (0, 1, 0), white),
+        "top": ([(-.5, .5, -.5), (.5, .5, -.5), (.5, .5, .5), (-.5, .5, .5)], (0, -1, 0), white),
+        "front": ([(-.5, -.5, .5), (.5, -.5, .5), (.5, .5, .5), (-.5, .5, .5)], (0, 0, -1), red),
+        "back": ([(-.5, -.5, -.5), (.5, -.5, -.5), (.5, .5, -.5), (-.5, .5, -.5)], (0, 0, 1), magenta),
+        "left": ([(-.5, -.5, -.5), (-.5, -.5, .5), (-.5, .5, .5), (-.5, .5, -.5)], (1, 0, 0), blue),
+        "right": ([(.5, -.5, -.5), (.5, -.5, .5), (.5, .5, .5), (.5, .5, -.5)], (-1, 0, 0), green),
+    }
+    # per-face triangle indices as authored (winding varies per face)
+    tris = {
+        "bottom": [(0, 1, 2), (0, 2, 3)],
+        "top": [(0, 2, 1), (0, 3, 2)],
+        "front": [(0, 1, 2), (0, 2, 3)],
+        "back": [(0, 2, 1), (0, 3, 2)],
+        "left": [(0, 1, 2), (0, 2, 3)],
+        "right": [(0, 2, 1), (0, 3, 2)],
+    }
+    uv4 = np.float32([(0, 0), (1, 0), (1, 1), (0, 1)])
+    for name, (corners, nrm, mat) in faces.items():
+        b.add_mesh(P(corners), np.int32(tris[name]), normals=np.tile(P(nrm), (4, 1)), uvs=uv4, material=mat,
+                   position=(0, -1, 0), scale=(7.5, 7.5, 7.5))
+
+    # 5 ceiling light planes (i = -2..2), rotated 180° about X so the +Y
+    # quad normal points down (WalnutApp.cpp:485-520)
+    plane_p = P([(-.5, 0, -.5), (.5, 0, -.5), (.5, 0, .5), (-.5, 0, .5)])
+    plane_t = np.int32([(0, 1, 2), (0, 2, 3)])
+    plane_n = np.tile(P((0, 1, 0)), (4, 1))
+    for i in range(-2, 3):
+        b.add_mesh(plane_p, plane_t, normals=plane_n, uvs=uv4, material=emissive, position=(i * 1.5, 2.7499, 0),
+                   rotation=(180, 0, 0))
+
+    cam = Camera(position=(1.752, -0.845, -2.812), forward=(-0.6, -0.451, 0.661), vfov_deg=45.0,
+                 width=width, height=height)
     return b, cam

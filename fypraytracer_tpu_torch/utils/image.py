@@ -1,9 +1,10 @@
 """Image IO — PNG and BMP readers/writers in NumPy.
 
-A copy of ``fypraytracer_tpu/utils/image.py`` without its C++ PNG
-unfilter (``accel/native.py``, which imports JAX): scanlines are
-reconstructed in NumPy.  Enough to read the committed goldens
-(``benchmarks/goldens/*.png``) and write renders.
+A copy of ``fypraytracer_tpu/utils/image.py``: scanlines are
+reconstructed by the C++ unfilter of ``accel/native.py`` where it builds,
+else in NumPy, as the JAX package does.  Enough to read the committed
+goldens (``benchmarks/goldens/*.png``), the room's textures, and write
+renders.
 """
 
 from __future__ import annotations
@@ -51,10 +52,10 @@ def load_bmp(path: str) -> np.ndarray:
 
 def _png_unfilter_numpy(raw: np.ndarray, height: int, stride: int,
                         bpp: int) -> np.ndarray:
-    """NumPy scanline reconstruction (same semantics as
-    native/builders.cpp::png_unfilter).  None/Up rows are vectorized; Sub
-    rows use a per-channel cumsum; Average/Paeth rows use a per-byte loop
-    (correct but slow)."""
+    """NumPy scanline reconstruction, the fallback of the native unfilter
+    (same semantics as native/builders.cpp::png_unfilter).  None/Up rows
+    are vectorized; Sub rows use a per-channel cumsum; Average/Paeth rows
+    use a per-byte loop (correct but slow)."""
     rows = raw.reshape(height, stride + 1)
     out = np.zeros((height, stride), np.uint8)
     for y in range(height):
@@ -91,8 +92,8 @@ def load_png(path: str) -> np.ndarray:
     """Decode an 8-bit non-interlaced PNG to (H, W, C) uint8.
 
     Framework-owned decoder (stb_image parity for the reference's texture
-    loading, Texture.cu:8-40): chunk parse + stdlib zlib inflate, scanline
-    unfiltering in NumPy.  Supports color
+    loading, Texture.cu:8-40): chunk parse + stdlib zlib inflate here,
+    scanline unfiltering in native C++ (NumPy fallback).  Supports color
     types 0 (gray), 2 (RGB), 3 (palette), 4 (gray+alpha), 6 (RGBA) at bit
     depth 8 — covers the reference's assets (RGB + RGBA, 2048²).
     """
@@ -126,7 +127,11 @@ def load_png(path: str) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(bytes(idat)), np.uint8)
     if len(raw) != h * (stride + 1):
         raise ValueError("PNG IDAT size mismatch")
-    out = _png_unfilter_numpy(raw, h, stride, channels)
+    from fypraytracer_tpu_torch.accel.native import png_unfilter_native
+
+    out = png_unfilter_native(raw, h, stride, channels)
+    if out is None:
+        out = _png_unfilter_numpy(raw, h, stride, channels)
     img = out.reshape(h, w, channels)
     if ctype == 3:
         if palette is None:

@@ -496,13 +496,21 @@ def test_restir_gi_kernels_match_plain_over_frames(cuda, mode, size):
     mk.overflow.check()
 
 
+# the technique each entry point of the long-run tests renders
+_TECHNIQUE_OF = {MegakernelReSTIRGI: SamplingTechnique.RESTIR_GI, MegakernelReSTIRDI: SamplingTechnique.RESTIR_DI,
+                 MegakernelRenderer: SamplingTechnique.NEE_MIS}
+
+
 @pytest.mark.parametrize("cls, mode, w, h, frames", [
     (MegakernelReSTIRGI, {}, 256, 256, 448), (MegakernelReSTIRGI, {}, 512, 512, 136),
     (MegakernelReSTIRGI, {}, 1920, 1088, 16),
     (MegakernelReSTIRGI, dict(mono=False), 256, 256, 448), (MegakernelReSTIRGI, dict(mono=False), 512, 512, 136),
     (MegakernelReSTIRGI, dict(mono=False), 1920, 1088, 16),
     (MegakernelReSTIRDI, {}, 1920, 1088, 320),
-], ids=["256", "512", "1080p", "two-kernels-256", "two-kernels-512", "two-kernels-1080p", "di-1080p"])
+    (MegakernelRenderer, {}, 256, 256, 448), (MegakernelRenderer, {}, 512, 512, 136),
+    (MegakernelRenderer, {}, 1920, 1088, 16),
+], ids=["256", "512", "1080p", "two-kernels-256", "two-kernels-512", "two-kernels-1080p", "di-1080p",
+        "k2-nee-256", "k2-nee-512", "k2-nee-1080p"])
 def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
     """``MegakernelReSTIRGI`` (K5, per-neighbour visibility; K6+K7 with
     ``mono=False``) over many frames, eight a call: K5 with its walks as
@@ -510,9 +518,11 @@ def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
     frames (at frame 441, 129 and 9), and the kept kernels, whose walks are
     inlined, must run them clean, finite and without a stack overflow
     (ROADMAP queue 3); ``MegakernelReSTIRDI`` (K3+K4) too, over 320 frames
-    at 1920x1088."""
+    at 1920x1088; and ``MegakernelRenderer`` NEE (K2, four lanes a pixel
+    at eight frames a call), whose walk is still a ``__noinline__`` call,
+    over the frames and shapes at which K5's calls faulted."""
     builder, cam = tproc.cornell_box(w, h)
-    technique = SamplingTechnique.RESTIR_GI if cls is MegakernelReSTIRGI else SamplingTechnique.RESTIR_DI
+    technique = _TECHNIQUE_OF[cls]
     settings = RenderSettings(technique=technique, bounces=2, samples=1,
                               sky_color=(0.05, 0.06, 0.08))     # the defaults: 5 neighbours, radius 30
     r = cls(builder.compile(), cam, settings, device=cuda, **mode)
@@ -536,19 +546,25 @@ def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
     (MegakernelReSTIRDI, {}, "stress", 128, 128, 16),
     (tmd.DiffRenderer, dict(bounces=4), "cornell", 256, 256, 16),
     (tmd.DiffRenderer, dict(bounces=2), "stress", 128, 128, 16),
+    (MegakernelRenderer, {}, "cornell", 256, 256, 448),
+    (MegakernelRenderer, {}, "cornell", 512, 512, 136),
+    (MegakernelRenderer, {}, "cornell", 1920, 1088, 16),
 ], ids=["gi-256", "gi-512", "gi-1080p", "gi-final_vis-1080p", "gi-stress", "gi-two-kernels-256",
-        "gi-two-kernels-1080p", "gi-two-kernels-stress", "di-1080p", "di-stress", "diff-256", "diff-stress"])
+        "gi-two-kernels-1080p", "gi-two-kernels-stress", "di-1080p", "di-stress", "diff-256", "diff-stress",
+        "k2-nee-256", "k2-nee-512", "k2-nee-1080p"])
 def test_wide_walks_stay_in_range(cuda, monkeypatch, cls, mode, scene_name, w, h, frames):
-    """K5 (both visibility modes), K6 and K7 (``mono=False``), K3, K4 and
-    K8 (``DiffRenderer``, one launch a step) built with the walks' range
-    checks (``csrc/wide.cuh``, ``FYP_WALK_CHECKS``), over the frames at
-    which K5 with ``__noinline__`` walk calls faulted (ROADMAP queue 3) and
-    on the stress scene, whose 32 tiles are split: every node index, child
-    ref, leaf slot, triangle id and stack pointer lies in the tree, every
-    ray and segment length is finite, and no walk runs away.  First a
-    control: limits of one node, which the root's children break, must be
-    counted."""
-    lib = {MegakernelReSTIRGI: "restir_gi", MegakernelReSTIRDI: "restir_di"}.get(cls, "megakernel_diff")
+    """K5 (both visibility modes), K6 and K7 (``mono=False``), K3, K4, K8
+    (``DiffRenderer``, one launch a step) and K2 NEE (``MegakernelRenderer``,
+    four lanes a pixel at eight frames a call, its walk a ``__noinline__``
+    call) built with the walks' range checks (``csrc/wide.cuh``,
+    ``FYP_WALK_CHECKS``), over the frames at which K5 with ``__noinline__``
+    walk calls faulted (ROADMAP queue 3) and on the stress scene, whose 32
+    tiles are split: every node index, child ref, leaf slot, triangle id
+    and stack pointer lies in the tree, every ray and segment length is
+    finite, and no walk runs away.  First a control: limits of one node,
+    which the root's children break, must be counted."""
+    lib = {MegakernelReSTIRGI: "restir_gi", MegakernelReSTIRDI: "restir_di",
+           MegakernelRenderer: "megakernel"}.get(cls, "megakernel_diff")
     monkeypatch.setitem(kernels.EXTRA_FLAGS, lib, [*kernels.EXTRA_FLAGS.get(lib, ()), "-DFYP_WALK_CHECKS"])
     builder, cam = (tproc.stress if scene_name == "stress" else tproc.cornell_box)(w, h)
     if cls is tmd.DiffRenderer:
@@ -561,8 +577,7 @@ def test_wide_walks_stay_in_range(cuda, monkeypatch, cls, mode, scene_name, w, h
                 _, loss = r.step(alb, tgt, 1 + f)
             return loss.reshape(1, 1)
     else:
-        technique = SamplingTechnique.RESTIR_GI if cls is MegakernelReSTIRGI else SamplingTechnique.RESTIR_DI
-        settings = RenderSettings(technique=technique, bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08))
+        settings = RenderSettings(technique=_TECHNIQUE_OF[cls], bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08))
         r = cls(builder.compile(), cam, settings, device=cuda, **mode)
         run = r.render_many
     nodes, slots, tris = r.scene.wide.nodes.shape[0], r.scene.wide.tris.shape[0], r.scene.geometry.tri_v.shape[0]
