@@ -12,18 +12,21 @@ interactive session), in phases:
      TF32 is switched off for matmuls and cuDNN;
   2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
      nvcc per source, started together, with K8 again without its
-     gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c); ptxas's
-     registers and spills of every kernel, the untextured and the textured
-     instantiations and K8's bounce counts by name;
+     gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c) and K2
+     again with its section clocks (``-DFYP_K2_CLOCKS``, for phase 4b);
+     ptxas's registers and spills of every kernel, the untextured and the
+     textured instantiations and K8's bounce counts by name; every K2
+     instantiation's registers, spills (none allowed) and resident blocks a
+     multiprocessor with Cornell's and the stress scene's stacks
+     (``k2_build``);
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
      wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
      random rays (a quad a ray) and on the 1920x1088 camera's rays (one
      thread a ray); then both its walks of the wide BVH (``lanes=4``,
-     ``lanes=1``) against the threaded walk (``trace_closest_threaded``),
-     bit for bit and timed in turns (threaded, quad, one thread, one
-     thread, quad, threaded) on 65,536 camera rays, 65,536 random rays and
-     the 512² and 1920x1088 cameras' rays, with the node and leaf visits a
-     ray of both plain walks;
+     ``lanes=1``) against the plain walk (``trace_rays``), bit for bit, and
+     timed in turns (quad, one thread, one thread, quad) on 65,536 camera
+     rays, 65,536 random rays and the 512² and 1920x1088 cameras' rays,
+     with the node and leaf visits a ray of both plain walks;
   3b. the wide segment test that K5 walks (``trace_segments``) against its
      plain twin ``segment_visible_wide`` and the threaded ``segment_visible``,
      bit for bit, on 65,536 segments ending at, within, past and short of
@@ -34,16 +37,18 @@ interactive session), in phases:
      stress scene at 128², 8 frames; then at 64², 4 frames, NEE with 1
      bounce and with 2 spp, the other samplers, and light sampling at 4 spp
      without spheres and sky (the DI unbiasedness check's settings);
-  4b. K2 timed in turns through its wrappers: under NEE the threaded walk
-     (``megakernel_threaded``) and the wide walk with 1, 2 and 4 threads a
-     pixel (``megakernel(..., lanes=)``) at Cornell 256² (1, 2, 8 and 64
-     frames), 512² (8 frames), 1920x1088 (1, 2 and 8 frames) and stress
-     128² (8 frames); every other sampler with 1 and 4 threads a pixel at
-     Cornell 256², 8 frames; with each kernel's resident blocks a
+  4b. K2 timed in turns through its wrapper with 1, 2 and 4 threads a
+     pixel (``megakernel(..., lanes=)``): under NEE at Cornell 256² (1, 2,
+     8 and 64 frames), 512² (8 frames), 1920x1088 (1, 2 and 8 frames) and
+     stress 128² (8 frames); every other sampler with 1 and 4 threads a
+     pixel at Cornell 256², 8 frames; with each kernel's resident blocks a
      multiprocessor (the CUDA runtime's occupancy) and the pixels that
      differ from the first kernel's (more than one thread a pixel adds
      the frames in another order); the walks' stack-overflow flag must
-     stay clear;
+     stay clear; then where K2 NEE's time goes (``k2_attribution``: each
+     section's share of its threads' cycles, by the clocked build, at
+     Cornell 256² over 64 frames, stress 128² and Cornell 1920x1088 over
+     8, and the clocks' cost in turns);
   5. K3 ``restir_di_k3`` (the wide walk; each tile one block, or split over
      a cluster of blocks of 128 where the tiles are too few to fill the
      card) and K4 ``restir_di_k4`` (the wide walk, blocks of 128) each
@@ -177,9 +182,12 @@ pixels that shade, since only they read it) and its outputs; a textured
 instantiation adds its texel reads, 4 texels of 12 bytes a fetch times the
 fetches its plain version counts (at most the texture tables once).
 
-``--ab`` times K2 NEE, K3-K8 and the entry points of other checkouts against
-this one in turns (e.g. the commit before a change), compares their ReSTIR
-outputs bit for bit and holds K8's loss and gradient to phase 5c's gates.
+``--ab`` times K2 (``K2_AB``: NEE at Cornell 256², stress 128² and
+1920x1088, every other sampler at 256²), K3-K8 and the entry points of
+other checkouts against this one in turns (e.g. the commit before a
+change), with K2 NEE's ``k2_attribution`` in each tree whose K2 has the
+section clocks, compares their ReSTIR outputs bit for bit and holds K8's
+loss and gradient to phase 5c's gates.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -329,16 +337,15 @@ def settings_for(technique: str, **kw):
 
 def port_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from fypraytracer_tpu_torch.ops.traverse import trace_closest, trace_closest_threaded, trace_segments
+    from fypraytracer_tpu_torch.ops.traverse import trace_closest, trace_segments
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
     from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
-    from fypraytracer_tpu_torch.render.megakernel import megakernel, megakernel_threaded
+    from fypraytracer_tpu_torch.render.megakernel import megakernel
     from fypraytracer_tpu_torch.render.megakernel_diff import diff_megakernel
 
     return dict(trace_closest=trace_closest, megakernel=megakernel, restir_di_k3=mr.restir_di_k3,
                 restir_di_k4=mr.restir_di_k4, restir_gi_mono=mg.restir_gi_mono,
                 restir_gi_k1=mg.restir_gi_k1, restir_gi_k2=mg.restir_gi_k2, diff_megakernel=diff_megakernel,
-                trace_closest_threaded=trace_closest_threaded, megakernel_threaded=megakernel_threaded,
                 trace_segments=trace_segments)
 
 
@@ -435,18 +442,22 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     names = ("trace", "megakernel", "restir_di", "restir_gi", "megakernel_diff")
-    # K8 without its gradient's atomics (k8_attribution), built beside the
-    # others by a process of its own: the flags are the build's global state
-    variant = subprocess.Popen([sys.executable, "-c", "from fypraytracer_tpu_torch.ops import kernels; "
-                                f"kernels.EXTRA_FLAGS['megakernel_diff'] += ['{K8_NO_ATOMICS}']; "
-                                "kernels.build('megakernel_diff')"], cwd=REPO)
+    # K8 without its gradient's atomics (k8_attribution) and K2 with its
+    # section clocks (k2_attribution), built beside the others, each by a
+    # process of its own: the flags are the build's global state
+    variants = {(lib, flag): subprocess.Popen(
+        [sys.executable, "-c", "from fypraytracer_tpu_torch.ops import kernels; "
+         f"kernels.EXTRA_FLAGS['{lib}'] = kernels.EXTRA_FLAGS.get('{lib}', []) + ['{flag}']; "
+         f"kernels.build('{lib}')"], cwd=REPO)
+        for lib, flag in (("megakernel_diff", K8_NO_ATOMICS), ("megakernel", K2_CLOCKS))}
     try:
         with ThreadPoolExecutor(len(names)) as pool:
             list(pool.map(kernels.build, names))      # raises if any build failed
     finally:
-        variant_rc = variant.wait(timeout=900)
-    if variant_rc != 0:
-        raise RuntimeError(f"the build of megakernel_diff with {K8_NO_ATOMICS} failed")
+        variant_rc = {key: proc.wait(timeout=900) for key, proc in variants.items()}
+    for (lib, flag), rc in variant_rc.items():
+        if rc != 0:
+            raise RuntimeError(f"the build of {lib} with {flag} failed")
     secs = time.perf_counter() - t0
     ptxas = {}
     for name, info in kernels.build_info.items():
@@ -458,6 +469,28 @@ def phase_build() -> None:
         print(f"[ptxas] {kernel}: {row}", flush=True)
     emit("build", seconds=secs, libs={k: os.path.basename(v["path"]) for k, v in kernels.build_info.items()},
          ptxas=ptxas)
+    k2_build(ptxas)
+
+
+def k2_build(ptxas: dict) -> None:
+    """Every instantiation of K2 (each sampler, untextured and textured):
+    its registers and spill bytes from phase 2's ptxas report and its
+    resident blocks a multiprocessor with the stacks of Cornell and of the
+    stress scene (``fyp_megakernel_occupancy``); raises if one spills."""
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    depths = {"cornell": cornell_box(256, 256)[0].compile().wide.stack_need,
+              "stress": stress_scene(128, 128)[0].wide.stack_need}
+    rows = {}
+    for sampler in _SAMPLER_NAMES.values():
+        for textured in (False, True):
+            name = f"frames_kernel[{sampler}{',textured' if textured else ''}]"
+            rows[name] = dict(ptxas.get(name, {}), blocks_per_sm={
+                k: k2_occupancy(sampler, 1, textured, d) for k, d in depths.items()}, stack_depth=depths)
+    emit("k2_build", instantiations=rows)
+    spilled = {k: v for k, v in rows.items() if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    if spilled:
+        raise AssertionError(f"K2 instantiations spill (or report no spill line): {spilled}")
 
 
 # the template arguments of a kernel in its mangled name: frames_kernel<5, true>
@@ -489,9 +522,9 @@ def ptxas_report(log: str) -> dict:
     for mangled, row in out.items():
         if "registers" not in row:
             continue                                     # a device function's frame, not a kernel
-        base = next((k for k in ("frames_threaded_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono",
-                                 "gi_stage1", "gi_stage2", "diff_kernel", "trace_lane_kernel", "trace_closest_kernel",
-                                 "trace_threaded_kernel", "segment_kernel") if k in mangled), mangled)
+        base = next((k for k in ("frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1", "gi_stage2",
+                                 "diff_kernel", "trace_lane_kernel", "trace_closest_kernel", "segment_kernel")
+                     if k in mangled), mangled)
         args = re.findall(r"L([ib])(\d+)E", mangled[mangled.find(base) + len(base):])
         last_bool = max((i for i, (kind, _) in enumerate(args) if kind == "b"), default=-1)
         tags = []
@@ -542,8 +575,7 @@ def phase_k1(summary: dict) -> None:
 
     from fypraytracer_tpu_torch.core.camera import generate_rays
     from fypraytracer_tpu_torch.ops import traverse
-    from fypraytracer_tpu_torch.ops.traverse import check_overflow, trace_closest, trace_closest_threaded, \
-        trace_rays, trace_rays_wide
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow, trace_closest, trace_rays, trace_rays_wide
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
     builder, cam = cornell_box(256, 256)
@@ -589,35 +621,33 @@ def phase_k1(summary: dict) -> None:
          plain_ms_per_call=plain_ms)
 
     # the wrapper's two walks of the wide BVH (a quad a ray, one thread a
-    # ray) against the threaded walk, in turns, on 65,536 camera rays,
-    # 65,536 random rays and the 512² and 1920x1088 cameras' rays; all must
-    # give the same hits bit for bit
-    walks = {"threaded": lambda ro, rd: trace_closest_threaded(scene.bvh, scene.geometry, ro, rd),
-             "quad": lambda ro, rd: trace_closest(scene, ro, rd, lanes=4),
+    # ray) against the plain walk of the threaded BVH, bit for bit, and
+    # against each other in turns, on 65,536 camera rays, 65,536 random rays
+    # and the 512² and 1920x1088 cameras' rays
+    walks = {"quad": lambda ro, rd: trace_closest(scene, ro, rd, lanes=4),
              "lane": lambda ro, rd: trace_closest(scene, ro, rd, lanes=1)}
     for name, (ro, rd) in {"camera 256x256": (o_cam, d_cam), "random 65536": (o_rnd, d_rnd),
                            "camera 512x512": (o_512, d_512), "camera 1920x1088": (o_hd, d_hd)}.items():
         hits = {k: fn(ro, rd) for k, fn in walks.items()}
-        differ = {k: sum(int((hits[k][f].view(torch.int32) != hits["threaded"][f].view(torch.int32)).sum())
-                         for f in hits[k]) for k in ("quad", "lane")}
         counts = {"nodes": 0, "tris": 0}
         wide_counts: dict = {}
-        trace_rays(scene.bvh, scene.geometry, ro, rd, counts=counts)
+        plain = trace_rays(scene.bvh, scene.geometry, ro, rd, counts=counts)
         trace_rays_wide(scene.wide, ro, rd, counts=wide_counts)
+        differ = {k: sum(int((hits[k][f].view(torch.int32) != plain[f].view(torch.int32)).sum())
+                         for f in hits[k]) for k in walks}
         n = ro.shape[0]
         times = in_turns({k: functools.partial(fn, ro, rd) for k, fn in walks.items()},
-                         ("threaded", "quad", "lane", "lane", "quad", "threaded"), 20)
-        row = dict(rays=n, differing_values=differ, **{f"{k}_ms": v for k, v in times.items()},
-                   speedup={k: statistics.median(times["threaded"]) / statistics.median(times[k])
-                            for k in ("quad", "lane")},
+                         ("quad", "lane", "lane", "quad"), 20)
+        row = dict(rays=n, differing_values_vs_plain=differ, **{f"{k}_ms": v for k, v in times.items()},
+                   lane_over_quad=statistics.median(times["lane"]) / statistics.median(times["quad"]),
                    binary_nodes_per_ray=counts["nodes"] / n, binary_tris_per_ray=int(counts["tris"]) / n,
                    wide_nodes_per_ray=wide_counts.get("nodes", 0) / n,
                    wide_leaves_per_ray=wide_counts.get("leaves", 0) / n, ok=not any(differ.values()))
-        emit("k1_wide_vs_threaded", batch=name, default_lanes=traverse.k1_lanes(n, ro.device), **row)
+        emit("k1_walks", batch=name, default_lanes=traverse.k1_lanes(n, ro.device), **row)
         if name == "camera 256x256":
             summary["trace_closest"].update({f"{k}_ms": statistics.median(v) for k, v in times.items()})
         if any(differ.values()):
-            raise AssertionError(f"K1's wide walks and threaded walk differ on {name}: {differ}")
+            raise AssertionError(f"K1's wide walks and the plain walk differ on {name}: {differ}")
     check_overflow(scene)
 
 
@@ -691,33 +721,39 @@ def tile_occupancy(kernel: str, C: int, depth: int, clustered: bool, textured: b
                 clusters_on_card=clusters.value)
 
 
-def k2_blocks_per_sm(scene, settings, lanes, textured=False) -> int:
-    """The blocks of K2's kernel for this sampler and lane count (0: the
-    threaded walk), untextured or textured, that one multiprocessor holds
-    at once, by the CUDA runtime (``fyp_megakernel_occupancy``), with the
-    scene's stacks."""
+def k2_occupancy(sampler: str, lanes: int, textured: bool, depth: int) -> int:
+    """The blocks of K2's kernel for a sampler (by name) and lane count,
+    untextured or textured, that one multiprocessor holds at once with
+    stacks of ``depth`` entries, by the CUDA runtime
+    (``fyp_megakernel_occupancy``)."""
     import ctypes
 
     from fypraytracer_tpu_torch.ops import kernels
-    from fypraytracer_tpu_torch.ops.traverse import stack_depth
     from fypraytracer_tpu_torch.render import megakernel as mk
 
     fn = kernels.load("megakernel", "fyp_megakernel_occupancy", [ctypes.c_int] * 4 + [ctypes.c_void_p])
     blocks = ctypes.c_int(0)
-    kernels.check(fn(mk._SAMPLER_ID[mk._sampler(settings)], lanes, int(textured), stack_depth(scene.wide),
-                     ctypes.byref(blocks)), "fyp_megakernel_occupancy")
+    kernels.check(fn(mk._SAMPLER_ID[sampler], lanes, int(textured), max(depth, 1), ctypes.byref(blocks)),
+                  "fyp_megakernel_occupancy")
     return blocks.value
 
 
+def k2_blocks_per_sm(scene, settings, lanes, textured=False) -> int:
+    """``k2_occupancy`` of the settings' sampler with the scene's stacks."""
+    from fypraytracer_tpu_torch.render import megakernel as mk
+
+    return k2_occupancy(mk._sampler(settings), lanes, textured, scene.wide.stack_need)
+
+
 def phase_k2_walks(summary: dict) -> None:
-    """K2 in turns through its wrappers: under NEE the threaded walk
-    (``megakernel_threaded``) and the wide walk with 1, 2 and 4 threads a
-    pixel (``megakernel(..., lanes=)``) at Cornell 256² (1, 2, 8 and 64
-    frames), 512² (8 frames), 1920x1088 (1, 2 and 8 frames) and the stress
-    scene at 128² (8 frames); the other samplers with 1 and 4 threads a
-    pixel at Cornell 256², 8 frames.  Reports the lanes ``k2_lanes`` picks,
-    each kernel's resident blocks a multiprocessor, the pixels that differ
-    from the first kernel's image and the largest relative difference."""
+    """K2 in turns through its wrapper with 1, 2 and 4 threads a pixel
+    (``megakernel(..., lanes=)``): under NEE at Cornell 256² (1, 2, 8 and
+    64 frames), 512² (8 frames), 1920x1088 (1, 2 and 8 frames) and the
+    stress scene at 128² (8 frames); the other samplers with 1 and 4
+    threads a pixel at Cornell 256², 8 frames.  Reports the lanes
+    ``k2_lanes`` picks, each kernel's resident blocks a multiprocessor, the
+    pixels that differ from the first kernel's image and the largest
+    relative difference; then ``k2_attribution``."""
     import torch
 
     from fypraytracer_tpu_torch.ops.traverse import check_overflow
@@ -725,11 +761,9 @@ def phase_k2_walks(summary: dict) -> None:
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
     def variant(name, scene, cam, frames, st):
-        if name == "threaded":
-            return lambda: mk.megakernel_threaded(scene, cam, 1, frames, st)
         return lambda: mk.megakernel(scene, cam, 1, frames, st, lanes=int(name[-1]))
 
-    nee = ("threaded", "lanes1", "lanes2", "lanes4")
+    nee = ("lanes1", "lanes2", "lanes4")
     cases = [("NEE_MIS", "cornell", 256, 256, f, 10 if f <= 8 else 5, nee) for f in (1, 2, 8, 64)]
     cases += [("NEE_MIS", "cornell", 512, 512, 8, 10, nee)]
     cases += [("NEE_MIS", "cornell", 1920, 1088, f, 5, nee) for f in (1, 2, 8)]
@@ -751,15 +785,70 @@ def phase_k2_walks(summary: dict) -> None:
         times = in_turns(runs, names + names[::-1], calls)
         emit("k2_walks", technique=tech, scene=scene_name, size=f"{w}x{h}", frames=frames,
              default_lanes=mk.k2_lanes(frames),
-             blocks_per_sm={k: k2_blocks_per_sm(scene, st, 0 if k == "threaded" else int(k[-1])) for k in names},
+             blocks_per_sm={k: k2_blocks_per_sm(scene, st, int(k[-1])) for k in names},
              differing_pixels_vs_first=differ, max_rel_diff_vs_first=max_rel,
              **{f"{k}_ms": v for k, v in times.items()},
              speedup_vs_first={k: statistics.median(times[names[0]]) / statistics.median(times[k])
                                for k in names[1:]})
         if (scene_name, w, frames) == ("cornell", 256, 8):
             summary[K2_NAMES[tech]].update({f"{k}_ms": statistics.median(v) for k, v in times.items()},
-                                           differing_pixels_between_walks=differ)
+                                           differing_pixels_between_lanes=differ)
         check_overflow(scene)
+    summary["megakernel[nee]"]["section_shares"] = {k: v["shares"] for k, v in k2_attribution().items()}
+
+
+def k2_attribution() -> dict:
+    """Where K2 NEE's time goes: the kernel built with its section clocks
+    (``-DFYP_K2_CLOCKS``; phase 2 builds it) at each of
+    ``K2_ATTRIBUTION``, one launch, the lanes ``k2_lanes`` picks.  Each
+    section's share of the threads' summed cycles (the walks by ray kind,
+    the light sample and, for the rest, surface fetch, shading and
+    scatter), and what the clocks cost: the kept kernel's device ms
+    against the clocked one's, in turns (kept, clocked, clocked, kept).
+    One line a shape; returns {shape: row}."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel as mk
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    kept = list(kernels.EXTRA_FLAGS.get("megakernel", []))
+    clocked = kept + [K2_CLOCKS]
+    st = settings_for("NEE_MIS")
+    out = {}
+    for name, w, h, frames, calls in K2_ATTRIBUTION:
+        if name == "stress":
+            scene, cam = stress_scene(w, h)
+        else:
+            builder, cam = cornell_box(w, h)
+            scene = builder.compile().to("cuda")
+
+        def run(flags):
+            with mock.patch.dict(kernels.EXTRA_FLAGS, {"megakernel": flags}):
+                mk.megakernel(scene, cam, 1, frames, st)
+
+        sums = torch.zeros(len(K2_SECTIONS), dtype=torch.int64, device="cuda")
+        with mock.patch.dict(kernels.EXTRA_FLAGS, {"megakernel": clocked}):
+            read = kernels.load("megakernel", "fyp_megakernel_clocks", [ctypes.c_void_p, ctypes.c_void_p])
+            stream = kernels.stream_ptr(sums.device)
+            kernels.check(read(kernels.ptr(sums), stream), "fyp_megakernel_clocks")     # clears the sums
+            run(clocked)
+            kernels.check(read(kernels.ptr(sums), stream), "fyp_megakernel_clocks")
+        cycles = dict(zip(K2_SECTIONS, sums.tolist()))
+        shares = {k: v / cycles["total"] for k, v in cycles.items() if k != "total"}
+        shares["surface_shading_scatter"] = 1.0 - sum(shares.values())
+        turns = in_turns({"kept": functools.partial(run, kept), "clocked": functools.partial(run, clocked)},
+                         ("kept", "clocked", "clocked", "kept"), calls, launches=lambda: mk.megakernel.launches)
+        key = f"{name} {w}x{h} {frames} frames"
+        out[key] = dict(lanes=mk.k2_lanes(frames), shares=shares, cycles=cycles,
+                        ms={k: statistics.median(v) for k, v in turns.items()}, turns_ms=turns)
+        emit("k2_attribution", shape=key, **out[key])
+        check_overflow(scene)
+    return out
 
 
 def phase_k2(summary: dict) -> None:
@@ -1147,6 +1236,12 @@ def phase_restir_gi(summary: dict) -> None:
 DIFF_SIZE = 256
 # K8 built with its gradient's atomics compiled out (csrc/megakernel_diff.cu)
 K8_NO_ATOMICS = "-DFYP_DIFF_NO_ATOMICS"
+# K2 built with its section clocks (csrc/megakernel.cu::Clocks), and the
+# sections in the order of its Section enum
+K2_CLOCKS = "-DFYP_K2_CLOCKS"
+K2_SECTIONS = ("total", "walk_primary", "walk_shadow", "walk_bounce", "light")
+# k2_attribution's launches: NEE at (scene, width, height, frames, calls)
+K2_ATTRIBUTION = (("cornell", 256, 256, 64, 10), ("stress", 128, 128, 8, 10), ("cornell", 1920, 1088, 8, 5))
 
 
 def ulps(a, b):
@@ -2481,9 +2576,10 @@ def parallel_timing() -> dict:
 
 
 # the __global__ names of csrc/*.cu, to count the port's kernels in a trace
+# (and K2's threaded walk, frames_threaded_kernel, which an older checkout
+# still has under --ab)
 PORT_KERNELS = ("trace_closest_kernel", "frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage1",
-                "gi_stage2", "diff_kernel", "trace_threaded_kernel", "frames_threaded_kernel", "trace_lane_kernel",
-                "segment_kernel")
+                "gi_stage2", "diff_kernel", "trace_lane_kernel", "segment_kernel", "frames_threaded_kernel")
 
 
 def device_busy(fn, launches) -> dict:
@@ -2752,20 +2848,43 @@ def phase_timing_train() -> None:
              kernels_per_step=prof["n_kernels"] / n if seen else None, top_kernels_ms=prof["top"])
 
 
+# K2's launches that ab_turn times in each tree: (technique, scene, width,
+# height, frames, calls); NEE at Cornell 256² (8 and 64 frames), stress 128²
+# and 1920x1088, every other sampler at Cornell 256² (brute force is
+# uniform's kernel at one sample)
+K2_AB = ([("NEE_MIS", "cornell", 256, 256, 8, 20), ("NEE_MIS", "cornell", 256, 256, 64, 10),
+          ("NEE_MIS", "stress", 128, 128, 8, 20), ("NEE_MIS", "cornell", 1920, 1088, 8, 5)]
+         + [(tech, "cornell", 256, 256, 8, 20) for tech in ("UNIFORM", "COSINE", "GGX", "BRDF", "LIGHT_SOURCE")])
+
+
 def k2_by_shape() -> dict:
-    """K2 NEE's device ms a launch of the whole image (8 frames, the lanes
-    ``k2_lanes`` picks) at Cornell 256² and 1920x1088, as ``ab_turn``
-    times it in each tree (``kernel_ms``)."""
+    """K2's device ms a launch of the whole image (the lanes ``k2_lanes``
+    picks) at each of ``K2_AB``, as ``ab_turn`` times it in each tree
+    (``kernel_ms``); in a tree that still has K2's threaded walk
+    (``megakernel_threaded``, since removed), that kernel too under NEE at
+    1920x1088, 8 frames."""
+    from fypraytracer_tpu_torch.render import megakernel as mk
     from fypraytracer_tpu_torch.render.megakernel import megakernel
     from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
     out = {}
-    for w, h, calls in ((256, 256, 20), (1920, 1088, 5)):
-        builder, cam = cornell_box(w, h)
-        scene = builder.compile().to("cuda")
-        st = settings_for("NEE_MIS")
-        megakernel(scene, cam, 1, 8, st)                    # warm-up
-        out[f"cornell {w}x{h} 8 frames"] = kernel_ms(lambda: megakernel(scene, cam, 1, 8, st), calls)
+    if hasattr(mk, "megakernel_threaded"):
+        builder, cam = cornell_box(1920, 1088)
+        scene, st = builder.compile().to("cuda"), settings_for("NEE_MIS")
+        mk.megakernel_threaded(scene, cam, 1, 8, st)        # warm-up
+        out["NEE_MIS threaded cornell 1920x1088 8 frames"] = kernel_ms(
+            lambda: mk.megakernel_threaded(scene, cam, 1, 8, st), 5,
+            launches=lambda: mk.megakernel_threaded.launches)
+    for tech, name, w, h, frames, calls in K2_AB:
+        if name == "stress":
+            scene, cam = stress_scene(w, h)
+        else:
+            builder, cam = cornell_box(w, h)
+            scene = builder.compile().to("cuda")
+        st = settings_for(tech)
+        megakernel(scene, cam, 1, frames, st)               # warm-up
+        out[f"{tech} {name} {w}x{h} {frames} frames"] = kernel_ms(lambda: megakernel(scene, cam, 1, frames, st),
+                                                                   calls)
     return dict(ms_by_shape=out)
 
 
@@ -2890,7 +3009,12 @@ def ab_turn(tree: str) -> None:
     bits = restir_bits()
     progress("K2 and K3-K8 by shape")
     di, gi = settings_for("RESTIR_DI"), settings_for("RESTIR_GI")
-    tile = {"k2": k2_by_shape(), "k3": by_shape("k3", di), "k4": by_shape("k4", di),
+    k2 = k2_by_shape()
+    with open(os.path.join(tree, "fypraytracer_tpu_torch", "csrc", "megakernel.cu")) as f:
+        if K2_CLOCKS[2:] in f.read():                   # the tree's K2 has its section clocks
+            progress("K2 attribution")
+            k2["attribution"] = {k: v["shares"] for k, v in k2_attribution().items()}
+    tile = {"k2": k2, "k3": by_shape("k3", di), "k4": by_shape("k4", di),
             "k5": by_shape("k5", gi), "k6": by_shape("k6", gi, designs=own),
             "k7": by_shape("k7", gi, designs=own), "k8": k8_by_shape(outputs=True)}
     out = {}
@@ -2935,7 +3059,7 @@ def ab_turn(tree: str) -> None:
     ptxas = {}
     for lib in ("megakernel", "restir_di", "restir_gi", "megakernel_diff"):
         ptxas.update({k: v for k, v in ptxas_report(kernels.build_info[lib]["log"]).items()
-                      if k.startswith(("frames_kernel[nee]", "k3_candidates", "k4_shade", "gi_mono", "gi_stage",
+                      if k.startswith(("frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage",
                                        "diff_kernel"))})
     print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas, bits=bits)), flush=True)
 
@@ -2950,8 +3074,9 @@ def ab(others: list) -> None:
     and range over its reps, change / each side, and each turn's median
     device and host ms in the order of the turns; one line a shape of K2
     and K3-K8 with each side's device ms a launch; one line with each
-    side's registers, spills, occupancy and launches by shape; one line a
-    K8 output with each turn's loss and d_tri off the change's first
+    side's K2 section shares (None for a tree whose K2 has no clocks); one
+    line with each side's registers, spills, occupancy and launches by
+    shape; one line a K8 output with each turn's loss and d_tri off the change's first
     (``ab_k8_gates``); and one line a ReSTIR output whose digest any turn
     of any side gives otherwise than the change's first (``ab_bits``), with
     a count of those that agree."""
@@ -2990,11 +3115,18 @@ def ab(others: list) -> None:
              reps=reps)
     tile_kernels = ("k2", "k3", "k4", "k5", "k6", "k7", "k8")
     for kernel in tile_kernels:
-        for shape in runs["change"][0]["tile_kernels"][kernel]["ms_by_shape"]:
-            ms = {label: [t["tile_kernels"][kernel]["ms_by_shape"][shape] for t in runs[label]] for label in labels}
+        # every side's shapes, the change's first (a side may time a kernel the change no longer has)
+        shapes = list(runs["change"][0]["tile_kernels"][kernel]["ms_by_shape"])
+        shapes += [k for label in labels for k in runs[label][0]["tile_kernels"][kernel]["ms_by_shape"] if k not in shapes]
+        for shape in shapes:
+            ms = {label: [t["tile_kernels"][kernel]["ms_by_shape"][shape] for t in runs[label]] for label in labels
+                  if shape in runs[label][0]["tile_kernels"][kernel]["ms_by_shape"]}
             med = {label: statistics.median(v) for label, v in ms.items()}
             emit("ab_kernel", kernel=kernel, shape=shape, median_ms=med, turn_ms=ms,
-                 change_over={label: med["change"] / med[label] for label in labels if label != "change"})
+                 change_over={label: med["change"] / med[label] for label in med if label != "change"}
+                 if "change" in med else None)
+    emit("ab_k2_attribution", shares={label: [t["tile_kernels"]["k2"].get("attribution") for t in runs[label]]
+                                       for label in labels})
     emit("ab_kernel_build", ptxas={label: runs[label][0]["ptxas"] for label in labels},
          occupancy={label: {k: runs[label][0]["tile_kernels"][k].get("occupancy_by_shape") for k in tile_kernels[1:]}
                     for label in labels},

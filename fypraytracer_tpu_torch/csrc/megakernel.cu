@@ -10,20 +10,16 @@
 // the host: render/megakernel.py::k2_lanes) own one pixel: each traces the
 // pixel's primary ray and then runs every lanes-th frame (lane k frames k,
 // k + lanes, ...) with the sample loop inside, tracing each ray alone through
-// the 4-wide BVH (wide.cuh, trace_closest_wide1; NEE calls it, the other
-// samplers inline it); the lanes add their sums by shuffles and lane 0 writes
-// the pixel (frames_kernel).  It works from the scene's SoA arrays and the
-// wide BVH's records, not from the TPU's packed P/AT/L tables, which existed
-// for one-hot MXU fetches.  The frame loop is a template over the walk: for
-// NEE it is also built with one thread a pixel and the threaded walk of
-// traverse.cuh (frames_threaded_kernel), so that chip_smoke.py can time both
-// in turns (fyp_megakernel's lanes argument 0).
+// the 4-wide BVH (wide.cuh, trace_closest_wide1); the lanes add their sums by
+// shuffles and lane 0 writes the pixel (frames_kernel).  It works from the
+// scene's SoA arrays and the wide BVH's records, not from the TPU's packed
+// P/AT/L tables, which existed for one-hot MXU fetches.
 // Each sampler is built untextured and textured (frames_kernel's T): the
 // textured build fetches a mapped material's albedo from the atlas
 // (shading.cuh::tex_surface, the JAX kernel's build_tex_lookup, :1526, built
 // at :1837-1841), the primary hit from the primary level, every hit after a
 // scatter from the bounce level; the untextured build compiles to the code it
-// had before textures.  The threaded walk is built untextured only.
+// had before textures.
 //
 // Semantics kept from the JAX kernel (and from render/integrators.py, whose
 // frame the PyTorch plain version sums):
@@ -46,21 +42,55 @@
 //     is clamped at 1e-12, pdf_brdf at 1e-12; the continuation's MIS takes
 //     cos_y2, area2 and pmf2 at the actual hit; bounces == 1 is plain light
 //     sampling with no MIS weight.
+// A path's contributions are added to its frame's sum as they come, as the
+// plain version adds them; for one sample a pixel that is the path's own sum.
 //
 // What bounds it on an H100: the traversal's dependent loads (wide.cuh),
 // multiplied by the traces per frame (1 + 2 * bounces for NEE, bounces for the
-// hemisphere family, 1 for LIGHT), plus for NEE and LIGHT the light-tree
-// descent, whose importance evaluation (8 box corners per child) is the main
-// arithmetic.  Output is one float3 store per pixel per launch, so
-// device-memory traffic is the scene's, which stays in L2 for Cornell.  Four
-// threads a pixel launch 262,144 threads at 256², against 65,536 when one
-// thread ran a pixel's frames, without shading anything twice (a quad that
-// walked each ray together shaded each path four times and lost, PERF.md
-// Findings); the wide BVH cuts a Cornell ray's dependent visits from 18.4
-// nodes and 4.1 triangles to 3.6 nodes and 1.2 leaves.  More than one lane
-// adds a pixel's frames in another order than one thread would, so its sums
-// differ from one lane's in the last bits.  Path regeneration and ray sorting
-// are later work.
+// hemisphere family, 1 for LIGHT), and the shading arithmetic around them
+// (for NEE and LIGHT the light-tree descent, whose importance evaluation, 8
+// box corners per child, is the main part), whose IEEE divisions and roots
+// make the code long; and so the threads a multiprocessor holds, which keep
+// those loads in flight.  Output is one float3 store per pixel per launch,
+// so device-memory traffic is the scene's, which stays in L2 for Cornell.
+// What the design does about it (each choice measured, PERF.md Findings):
+//   * one walk site: every trace of a lane, the primary hit, NEE's shadow
+//     and continuation rays and the hemisphere family's bounces, goes
+//     through the one inlined trace_closest_wide1 at the top of the frame
+//     loop, which is not unrolled; the walk's code is emitted once, and
+//     nothing is saved around a call;
+//   * the same walk slots in every thread: a path runs a fixed sequence of
+//     slots (frames below), so a warp's threads trace, shade and begin paths
+//     together; a thread that began its next path as soon as its last one
+//     ended would split its warp between the shading sites, each run in
+//     turn;
+//   * little state across the walk: a light sample's contribution is
+//     computed before its shadow ray is traced (and NEE's continuation
+//     scatter with it, the draws in the same order), so a shadow walk
+//     carries that contribution and the light's id, not the surface; the
+//     primary hit's surface and view stay in shared memory (KeptSurf);
+//   * launch bounds at the most blocks a multiprocessor for which ptxas
+//     spills nothing (min_blocks, chip_smoke.py phase 2); the stacks, 8 bytes
+//     x stack depth x 128 threads of shared memory a block, and the kept
+//     surfaces cap a deep tree's blocks too (stress: 5);
+//   * NEE's shadow ray only asks whether the light's triangle is its closest
+//     hit, so its walk is bounded by t_max = dist + tol, tol = max(1e-4,
+//     1e-3 dist) (segment_visible_wide1's tolerance), and prunes every box
+//     past the light: every hit nearer than t_max, ties at one t to the
+//     lowest id, is found as the unbounded walk finds it, and where the
+//     unbounded walk's closest hit lies past t_max it is not the light
+//     (whose hit lies below t_max: tests/test_torch_k2_shadow.py) and the
+//     bounded walk returns -1, so both fail the identity check.  LIGHT keeps
+//     the unbounded walk: it adds the sky when the shadow ray escapes.
+// Four threads a pixel launch 262,144 threads at 256², against 65,536 when one
+// thread ran a pixel's frames; the wide BVH cuts a Cornell ray's dependent
+// visits from 18.4 nodes and 4.1 triangles to 3.6 nodes and 1.2 leaves.  More
+// than one lane adds a pixel's frames in another order than one thread would,
+// so its sums differ from one lane's in the last bits.
+//
+// Built with -DFYP_K2_CLOCKS, each thread counts the cycles of its sections
+// (Clocks below) for chip_smoke.py::k2_attribution; built with
+// -DFYP_WALK_CHECKS, the walks check their state (wide.cuh).
 //
 // The pixel slab (the JAX kernel's chunk entry, render(..., pix0=) at
 // :2372-2420, read at :1792 and :1952-1953): a launch renders the n_pix
@@ -75,11 +105,12 @@
 //                            pix0 .. pix0 + n_pix - 1 summed over n_frames,
 //                            returns cudaGetLastError() after the
 //                            asynchronous launch (cudaErrorInvalidValue for an
-//                            unknown sampler or lane count, the threaded
-//                            walk, lanes 0, with another sampler than NEE,
-//                            or a slab outside the image);
+//                            unknown sampler or lane count, or a slab outside
+//                            the image);
 //   fyp_megakernel_occupancy the blocks of the same kernel a multiprocessor
-//                            holds at once, by the CUDA runtime.
+//                            holds at once, by the CUDA runtime;
+//   fyp_megakernel_clocks    (built with -DFYP_K2_CLOCKS) the sections'
+//                            cycles summed since its last call.
 #include "shading.cuh"
 #include "wide.cuh"
 
@@ -89,7 +120,13 @@ using namespace fyp;
 
 enum Sampler { UNIFORM = 0, COSINE = 1, GGX = 2, BRDF = 3, LIGHT = 4, NEE = 5 };
 
-constexpr int kBlock = 128;  // threads; ptxas gives 72-96 registers a thread, no tighter bound pays
+constexpr int kBlock = 128;  // threads
+// The blocks of 128 a multiprocessor must hold at once (__launch_bounds__),
+// which caps a thread at 65,536 / (min_blocks * 128) registers: the most
+// blocks at which ptxas spills nothing (NEE 96 registers at 5, the others
+// 79-80 at 6, on an H100; k2_variants.py, PERF.md)
+template <int S>
+constexpr int min_blocks() { return S == NEE ? 5 : 6; }
 
 struct Params {
   const float* cam;  // (2, 4, 4): inv_projection, inv_view, row-major
@@ -102,39 +139,109 @@ struct Params {
   Geo geo;
   Mats mats;
   Tex tex;  // the textured instantiations' levels
-  Bvh bvh;
   WideBvh wide;
   LightTree lt;
 };
 
-// The closest hit of a ray, t < kBig: by one thread through the wide BVH ...
-struct LaneWalk {
-  WideBvh w;
-  LaneStack st;
-  __device__ __forceinline__ Hit operator()(float3 o, float3 d) const {
-    return trace_closest_wide1(w, st, o, d, kBig);
+// The ray kinds of the one walk site
+enum Kind { kPrimary = 0, kShadow = 1, kBounce = 2 };
+
+// Cycles a thread spends in each section of K2, built with -DFYP_K2_CLOCKS
+// (chip_smoke.py::k2_attribution): the whole frame loop, the walks by ray
+// kind (primary, shadow, continuation) and the light sample (pick_light,
+// the point on the light, emitter_pmf); the rest is surface fetch, shading
+// and scatter.  Each warp adds its threads' sums into k2_clocks, which the C
+// entry fyp_megakernel_clocks hands over and clears.  Without the macro
+// every call below compiles to nothing.
+enum Section { kTotal = 0, kWalkPrimary = 1, kWalkShadow = 2, kWalkBounce = 3, kLight = 4, kSections = 5 };
+#ifdef FYP_K2_CLOCKS
+__device__ unsigned long long k2_clocks[kSections];
+struct Clocks {
+  long long c[kSections] = {};
+  __device__ __forceinline__ long long now() const { return clock64(); }
+  __device__ __forceinline__ void add(Section s, long long t0) { c[s] += clock64() - t0; }
+  __device__ __forceinline__ void walk(int kind, long long t0) {
+    const long long dt = clock64() - t0;
+    c[kWalkPrimary] += kind == kPrimary ? dt : 0;
+    c[kWalkShadow] += kind == kShadow ? dt : 0;
+    c[kWalkBounce] += kind == kBounce ? dt : 0;
+  }
+  // every thread of the warp calls it
+  __device__ void flush() {
+#pragma unroll
+    for (int s = 0; s < kSections; ++s) {
+      long long v = c[s];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if ((threadIdx.x & 31) == 0) atomicAdd(k2_clocks + s, static_cast<unsigned long long>(v));
+    }
+  }
+};
+#else
+struct Clocks {
+  __device__ __forceinline__ long long now() const { return 0; }
+  __device__ __forceinline__ void add(Section, long long) {}
+  __device__ __forceinline__ void walk(int, long long) {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
+// The state of a path between two traces of the walk site.  A sampler sets
+// only its own fields; the others are never used and take no registers.
+struct Path {
+  uint32_t key;
+  int b;       // NEE: the vertex; the hemisphere family: the bounce ray
+  float3 thr;  // throughput
+  // a shadow ray in flight (NEE, LIGHT): the radiance it adds when its
+  // closest hit is triangle `want` (-2 when it adds none)
+  float3 lit;
+  int want;
+  // NEE's continuation, scattered before the shadow ray: traced when its
+  // pdf > 0, from the shadow ray's origin along `dir`; its pdf and the
+  // vertex's position weigh an emitter it hits (MIS)
+  float3 dir;
+  float pdf;
+  float3 pos;
+};
+
+// The primary hit's surface and the direction it is seen along, kept in
+// shared memory after the walks' stacks: a column of kBlock-strided floats
+// a thread (no bank conflicts), read at each path's start and holding no
+// register across the walk
+struct KeptSurf {
+  float* c;
+  static constexpr int kFloats = 14;  // pos, n, alb, rough, metal, view
+  __device__ __forceinline__ float& at(int k) const { return c[k * kBlock]; }
+  __device__ __forceinline__ void store(const Surf& s, float3 view) const {
+    at(0) = s.pos.x, at(1) = s.pos.y, at(2) = s.pos.z;
+    at(3) = s.n.x, at(4) = s.n.y, at(5) = s.n.z;
+    at(6) = s.alb.x, at(7) = s.alb.y, at(8) = s.alb.z;
+    at(9) = s.rough, at(10) = s.metal;
+    at(11) = view.x, at(12) = view.y, at(13) = view.z;
+  }
+  __device__ __forceinline__ Surf load(float3& view) const {
+    Surf s;
+    s.pos = make_float3(at(0), at(1), at(2));
+    s.n = make_float3(at(3), at(4), at(5));
+    s.alb = make_float3(at(6), at(7), at(8));
+    s.rough = at(9);
+    s.metal = at(10);
+    s.mat = -1;
+    view = make_float3(at(11), at(12), at(13));
+    return s;
   }
 };
 
-// ... the same, as a call: the walk then has the registers to itself, and
-// the path's live state is saved around the call instead (NEE, whose path
-// holds the most state: measured faster so at Cornell 256², slower at
-// stress 128², PERF.md Findings)
-__device__ __noinline__ Hit trace_closest_wide1_call(const WideBvh& w, const LaneStack& st, float3 o, float3 d) {
-  return trace_closest_wide1(w, st, o, d, kBig);
+// The thread's KeptSurf column: after the stacks of the block's kBlock walks
+__device__ __forceinline__ KeptSurf kept_column(int stack_depth) {
+  return KeptSurf{wide_stack + 2 * kBlock * stack_depth + threadIdx.x};
 }
 
-struct LaneCallWalk {
-  WideBvh w;
-  LaneStack st;
-  __device__ __forceinline__ Hit operator()(float3 o, float3 d) const { return trace_closest_wide1_call(w, st, o, d); }
-};
-
-// ... or by one thread through the threaded BVH
-struct ThreadedWalk {
-  Bvh bvh;
-  Tris tris;
-  __device__ __forceinline__ Hit operator()(float3 o, float3 d) const { return trace_closest(bvh, tris, o, d, kBig); }
+// The next ray of the walk site, and its kind
+struct Ray {
+  float3 o, d;
+  float t_max;
+  int kind;
 };
 
 // integrators.py::_scatter: a direction at surface s seen along view, and its pdf
@@ -172,179 +279,226 @@ __device__ __forceinline__ void light_point(const Params& P, int tid, float u1, 
   area = 0.5f * sqrtf(dot(cr, cr));
 }
 
-// integrators.py::radiance_hemisphere, one sample of one frame
-template <int S, bool T, class Walk>
-__device__ __forceinline__ float3 hemisphere_path(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
-                                                  float3 dir) {
-  float3 rad = make_float3(0.0f, 0.0f, 0.0f);
-  float3 view = -dir;
+// The hemisphere family's scatter at s seen along view
+// (integrators.py::radiance_hemisphere): the throughput through it and its
+// bounce ray; false when pdf <= 0 ends the path
+template <int S>
+__device__ __forceinline__ bool hemisphere_scatter(Path& p, const Surf& s, float3 view, Ray& r) {
   float3 l;
-  float pdf = scatter<S>(key, prim, view, l);
-  float3 f = cook_torrance(prim.n, view, l, prim.alb, prim.metal, prim.rough);
-  float3 thr = f * fmaxf(dot(l, prim.n), 0.0f) / pdf;
-  if (!(pdf > 0.0f)) return rad;
-  float3 ray_o = prim.pos + prim.n * kOriginEps;
-  float3 ray_d = l;
-  for (int b = 0; b < P.bounces; ++b) {
-    Hit hh = walk(ray_o, ray_d);
-    if (hh.tri < 0) return rad + thr * P.sky;
-    Surf s = tex_surface<T>(P.geo, P.mats, P.tex, hh, ray_o, ray_d, true);
-    float3 em = emission_of(P.mats, s.mat);
-    if (dot(em, em) > 0.0f) return rad + thr * em;
-    view = -ray_d;
-    pdf = scatter<S>(key, s, view, l);
-    f = cook_torrance(s.n, view, l, s.alb, s.metal, s.rough);
-    thr = thr * f * fmaxf(dot(l, s.n), 0.0f) / pdf;
-    if (!(pdf > 0.0f)) return rad;
-    ray_o = s.pos + s.n * kOriginEps;
-    ray_d = l;
-  }
-  return rad;
+  const float pdf = scatter<S>(p.key, s, view, l);
+  const float3 f = cook_torrance(s.n, view, l, s.alb, s.metal, s.rough);
+  p.thr = p.thr * f * fmaxf(dot(l, s.n), 0.0f) / pdf;
+  if (!(pdf > 0.0f)) return false;
+  r = Ray{s.pos + s.n * kOriginEps, l, kBig, kBounce};
+  return true;
 }
 
-// integrators.py::radiance_light_source, one sample of one frame
-template <class Walk>
-__device__ __forceinline__ float3 light_sample(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
-                                               float3 dir) {
-  float u_pick = next_uniform(key);
-  float u1 = next_uniform(key);
-  float u2 = next_uniform(key);
+// A vertex of NEE at s seen along view (integrators.py::radiance_nee_mis,
+// :279-345): the light sample and what its shadow ray adds if the light is
+// its closest hit, then (with more than one bounce) the mixture continuation
+// and the throughput through it; the shadow ray, bounded by the light, next
+__device__ __forceinline__ void nee_vertex(const Params& P, Clocks& clk, Path& p, const Surf& s, float3 view,
+                                           Ray& r) {
+  const bool single = P.bounces == 1;
+  const float u_pick = next_uniform(p.key);
+  const float lu1 = next_uniform(p.key);
+  const float lu2 = next_uniform(p.key);
   float pmf;
-  int lt_tri = pick_light(P.lt, prim.pos, u_pick, pmf);
+  const long long t0 = clk.now();
+  const int lt_tri = pick_light(P.lt, s.pos, u_pick, pmf);
+  float3 point, ln;
+  float area;
+  light_point(P, max(lt_tri, 0), lu1, lu2, point, ln, area);
+  clk.add(kLight, t0);
+  const float3 tl = point - s.pos;
+  const float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
+  const float3 l_dir = tl / dist;
+  p.want = -2;
+  if (lt_tri >= 0 && pmf > 0.0f) {
+    const float3 fd = cook_torrance(s.n, view, l_dir, s.alb, s.metal, s.rough);
+    const float cos_x = fmaxf(dot(l_dir, s.n), 0.0f);
+    const float cos_y = fmaxf(dot(-l_dir, ln), 1e-12f);
+    const float pdf_direct = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist / cos_y;
+    float w_direct = 1.0f;
+    if (!single) {
+      const float pdf_brdf_l = mixture_pdf(s.n, view, l_dir, s.alb, s.metal, s.rough);
+      w_direct = pdf_direct / fmaxf(pdf_brdf_l + pdf_direct, 1e-12f);
+    }
+    const float dscale = w_direct / fmaxf(pdf_direct, 1e-20f) * cos_x;
+    const float3 l_em = emission_of(P.mats, __ldg(P.geo.tri_mat + lt_tri));
+    p.lit = p.thr * ((dscale * fd) * l_em);
+    p.want = lt_tri;
+  }
+  p.pdf = 0.0f;
+  if (!single) {
+    float3 l;
+    const float pdf_brdf = scatter<NEE>(p.key, s, view, l);
+    const float3 fc = cook_torrance(s.n, view, l, s.alb, s.metal, s.rough);
+    const float cos_t = fmaxf(dot(l, s.n), 0.0f);
+    p.thr = p.thr * fc * cos_t / fmaxf(pdf_brdf, 1e-12f);
+    p.dir = l;
+    p.pdf = pdf_brdf;
+    p.pos = s.pos;
+  }
+  const float tol = fmaxf(1e-4f, __fmul_rn(dist, 1e-3f));
+  r = Ray{s.pos + s.n * kOriginEps, l_dir, __fadd_rn(dist, tol), kShadow};
+}
+
+// LIGHT's light sample at the primary hit s seen along view
+// (integrators.py::radiance_light_source): what its shadow ray adds if the
+// light is its closest hit (the sky is added if it escapes), and the ray
+__device__ __forceinline__ void light_vertex(const Params& P, Clocks& clk, Path& p, const Surf& s, float3 view,
+                                             Ray& r) {
+  const float u_pick = next_uniform(p.key);
+  const float u1 = next_uniform(p.key);
+  const float u2 = next_uniform(p.key);
+  float pmf;
+  const long long t0 = clk.now();
+  const int lt_tri = pick_light(P.lt, s.pos, u_pick, pmf);
   float3 point, ln;
   float area;
   light_point(P, max(lt_tri, 0), u1, u2, point, ln, area);
-  float3 tl = point - prim.pos;
-  float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
-  float3 l_dir = tl / dist;
-  float3 fd = cook_torrance(prim.n, -dir, l_dir, prim.alb, prim.metal, prim.rough);
-  float cos_x = fmaxf(dot(l_dir, prim.n), 0.0f);
-  float cos_y = fmaxf(dot(-l_dir, ln), 0.0f);
-  float pdf = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist;
-  float3 contrib = fd * (cos_x * cos_y / fmaxf(pdf, 1e-20f));
-  Hit sh = walk(prim.pos + prim.n * kOriginEps, l_dir);
-  float3 rad = make_float3(0.0f, 0.0f, 0.0f);
-  if (lt_tri >= 0 && sh.tri == lt_tri && pmf > 0.0f)
-    rad = contrib * emission_of(P.mats, __ldg(P.geo.tri_mat + lt_tri));
-  if (sh.tri < 0) rad = rad + contrib * P.sky;
-  return rad;
-}
-
-// integrators.py::radiance_nee_mis, one sample of one frame
-template <bool T, class Walk>
-__device__ __forceinline__ float3 nee_path(const Params& P, const Walk& walk, uint32_t key, const Surf& prim,
-                                           float3 dir) {
-  const bool single = P.bounces == 1;
-  float3 rad = make_float3(0.0f, 0.0f, 0.0f);
-  float3 thr = make_float3(1.0f, 1.0f, 1.0f);
-  Surf surf = prim;
-  float3 ray_d = dir;
-
-  for (int b = 0; b < P.bounces; ++b) {
-    const float3 view = -ray_d;
-
-    // ---- direct light sample + shadow ray (integrators.py:279-305)
-    float u_pick = next_uniform(key);
-    float lu1 = next_uniform(key);
-    float lu2 = next_uniform(key);
-    float pmf;
-    int lt_tri = pick_light(P.lt, surf.pos, u_pick, pmf);
-    {
-      float3 point, ln;
-      float area;
-      light_point(P, max(lt_tri, 0), lu1, lu2, point, ln, area);
-      float3 tl = point - surf.pos;
-      float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
-      float3 l_dir = tl / dist;
-      Hit sh = walk(surf.pos + surf.n * kOriginEps, l_dir);
-      if (lt_tri >= 0 && sh.tri == lt_tri && pmf > 0.0f) {
-        float3 fd = cook_torrance(surf.n, view, l_dir, surf.alb, surf.metal, surf.rough);
-        float cos_x = fmaxf(dot(l_dir, surf.n), 0.0f);
-        float cos_y = fmaxf(dot(-l_dir, ln), 1e-12f);
-        float pdf_direct = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist / cos_y;
-        float w_direct = 1.0f;
-        if (!single) {
-          float pdf_brdf_l = mixture_pdf(surf.n, view, l_dir, surf.alb, surf.metal, surf.rough);
-          w_direct = pdf_direct / fmaxf(pdf_brdf_l + pdf_direct, 1e-12f);
-        }
-        float dscale = w_direct / fmaxf(pdf_direct, 1e-20f) * cos_x;
-        float3 l_em = emission_of(P.mats, __ldg(P.geo.tri_mat + lt_tri));
-        rad = rad + thr * ((dscale * fd) * l_em);
-      }
-    }
-    if (single) break;
-
-    // ---- BRDF continuation (integrators.py:310-345)
-    float3 l;
-    float pdf_brdf = scatter<NEE>(key, surf, view, l);
-    float3 fc = cook_torrance(surf.n, view, l, surf.alb, surf.metal, surf.rough);
-    float cos_t = fmaxf(dot(l, surf.n), 0.0f);
-    thr = thr * fc * cos_t / fmaxf(pdf_brdf, 1e-12f);
-    if (!(pdf_brdf > 0.0f)) break;
-
-    float3 ray_o = surf.pos + surf.n * kOriginEps;
-    ray_d = l;
-    Hit hh = walk(ray_o, ray_d);
-    if (hh.tri < 0) {
-      rad = rad + thr * P.sky;
-      break;
-    }
-    Surf next = tex_surface<T>(P.geo, P.mats, P.tex, hh, ray_o, ray_d, true);
-    float3 em = emission_of(P.mats, next.mat);
-    if (dot(em, em) > 0.0f) {
-      // MIS with the light pdf at the actual hit point
-      float cos_y2 = fmaxf(dot(-ray_d, next.n), 1e-12f);
-      float3 q0, q1, q2;
-      triangle(Tris{P.geo.positions, P.geo.tri_v}, hh.tri, q0, q1, q2);
-      float3 cr2 = cross(q1 - q0, q2 - q0);
-      float area2 = 0.5f * sqrtf(fmaxf(dot(cr2, cr2), 1e-20f));
-      float dist2 = fmaxf(hh.t, 0.0f);
-      float pmf2 = emitter_pmf(P.lt, hh.tri, surf.pos);
-      float pdf_direct2 = pmf2 * (1.0f / area2) * dist2 * dist2 / cos_y2;
-      float w_brdf = pdf_brdf / fmaxf(pdf_brdf + pdf_direct2, 1e-12f);
-      rad = rad + thr * em * w_brdf;
-      break;
-    }
-    surf = next;
-  }
-  return rad;
+  clk.add(kLight, t0);
+  const float3 tl = point - s.pos;
+  const float dist = sqrtf(fmaxf(dot(tl, tl), 1e-20f));
+  const float3 l_dir = tl / dist;
+  const float3 fd = cook_torrance(s.n, view, l_dir, s.alb, s.metal, s.rough);
+  const float cos_x = fmaxf(dot(l_dir, s.n), 0.0f);
+  const float cos_y = fmaxf(dot(-l_dir, ln), 0.0f);
+  const float pdf = pmf * (1.0f / fmaxf(area, 1e-20f)) * dist * dist;
+  p.lit = fd * (cos_x * cos_y / fmaxf(pdf, 1e-20f));
+  p.want = lt_tri >= 0 && pmf > 0.0f ? lt_tri : -2;
+  r = Ray{s.pos + s.n * kOriginEps, l_dir, kBig, kShadow};
 }
 
 // The HDR of pixel pix summed over frames f_first, f_first + f_step, ...
-// (below n_frames), traced by walk; textured when T.  A primary miss or
-// emitter gives n_frames times its radiance, whatever the frames, and sets
-// *whole.
-template <int S, bool T, class Walk>
-__device__ __forceinline__ float3 frames(const Params& P, const Walk& walk, int pix, int f_first, int f_step,
-                                         bool& whole) {
-  float3 orig, dir;
-  camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-
-  // ---- primary hit, traced once and reused by every frame
-  const float nf = static_cast<float>(P.n_frames);
-  const Hit h0 = walk(orig, dir);
-  const Surf prim = h0.tri < 0 ? Surf{} : tex_surface<T>(P.geo, P.mats, P.tex, h0, orig, dir, false);
-  const float3 em0 = h0.tri < 0 ? P.sky : emission_of(P.mats, prim.mat);
-  whole = h0.tri < 0 || dot(em0, em0) > 0.0f;
-  if (whole) return make_float3(nf * em0.x, nf * em0.y, nf * em0.z);
+// (below n_frames); textured when T.  A primary miss or emitter gives
+// n_frames times its radiance, whatever the frames, and sets *whole.
+//
+// One iteration of the loop is one walk slot: the primary ray once, then
+// for each path the same slots in every thread (NEE: a shadow and a
+// continuation ray a bounce, one shadow ray at one bounce; the hemisphere
+// family: a bounce ray a bounce; LIGHT: the shadow ray), so the threads of
+// a warp trace, shade and begin paths together: a thread whose path ends
+// early sits out its remaining slots, as it would wait at the end of a
+// structured path loop.  The loop holds one walk site, one site that
+// fetches a bounce hit's surface and one that shades a vertex (a light
+// sample or a scatter, at the primary hit or at a bounce hit); the primary
+// hit's surface and view are read back from shared memory (prim) at each
+// path's start.
+template <int S, bool T>
+__device__ __forceinline__ float3 frames(const Params& P, const LaneStack& st, const KeptSurf& prim, Clocks& clk,
+                                         int pix, int f_first, int f_step, bool& whole) {
+  const long long t_all = clk.now();
+  Ray r;
+  camera_ray(P.cam, P.width, P.height, pix, r.o, r.d);
+  r.t_max = kBig;
+  r.kind = kPrimary;
+  const int n_slots = S == LIGHT ? 1 : S == NEE ? (P.bounces == 1 ? 1 : 2 * P.bounces) : P.bounces;
+  Path p;
+  int slot = -1;       // the path's walk slot; -1: the primary ray
+  bool live = true;    // a ray to trace in this slot
   const uint32_t pix_key = pcg(static_cast<uint32_t>(pix));
+  int f = f_first, s = 0;
   float3 acc = make_float3(0.0f, 0.0f, 0.0f);
-  for (int f = f_first; f < P.n_frames; f += f_step) {
-    const uint32_t key_f = fold(pix_key, P.frame0 + static_cast<uint32_t>(f));
-    float3 rad = make_float3(0.0f, 0.0f, 0.0f);
-    for (int s = 0; s < P.samples; ++s) {
-      const uint32_t key = fold(fold(key_f, static_cast<uint32_t>(s)), 0u);
-      if (S == NEE) {
-        rad = rad + nee_path<T>(P, walk, key, prim, dir);
-      } else if (S == LIGHT) {
-        rad = rad + light_sample(P, walk, key, prim, dir);
+  float3 rad = acc;    // the frame's sum over its samples so far
+#pragma unroll 1
+  for (;;) {
+    Hit h;
+    h.tri = -1;
+    if (live) {
+      const long long t0 = clk.now();
+      h = trace_closest_wide1(P.wide, st, r.o, r.d, r.t_max);
+      clk.walk(r.kind, t0);
+    }
+    Surf sf;           // the surface of the vertex to shade, if any,
+    float3 view;       // seen along view
+    bool vertex = false;
+    if (slot < 0) {
+      const float3 em0 = h.tri < 0 ? P.sky : emission_of(P.mats, __ldg(P.geo.tri_mat + h.tri));
+      whole = h.tri < 0 || dot(em0, em0) > 0.0f;
+      if (whole) {
+        const float nf = static_cast<float>(P.n_frames);
+        clk.add(kTotal, t_all);
+        return make_float3(nf * em0.x, nf * em0.y, nf * em0.z);
+      }
+      prim.store(tex_surface<T>(P.geo, P.mats, P.tex, h, r.o, r.d, false), -r.d);
+    } else if (live && r.kind == kShadow) {
+      if constexpr (S == LIGHT) {
+        float3 add = make_float3(0.0f, 0.0f, 0.0f);
+        if (h.tri == p.want) add = p.lit * emission_of(P.mats, __ldg(P.geo.tri_mat + p.want));
+        if (h.tri < 0) add = add + p.lit * P.sky;
+        rad = rad + add;
+        live = false;
       } else {
-        rad = rad + hemisphere_path<S, T>(P, walk, key, prim, dir);
+        if (h.tri == p.want) rad = rad + p.lit;
+        live = p.pdf > 0.0f;  // NEE's continuation, from the shadow ray's origin
+        r.d = p.dir;
+        r.t_max = kBig;
+        r.kind = kBounce;
+      }
+    } else if (live) {
+      // a bounce ray's hit
+      if (h.tri < 0) {
+        rad = rad + p.thr * P.sky;
+        live = false;
+      } else {
+        sf = tex_surface<T>(P.geo, P.mats, P.tex, h, r.o, r.d, true);
+        const float3 em = emission_of(P.mats, sf.mat);
+        if (dot(em, em) > 0.0f) {
+          if constexpr (S == NEE) {
+            // MIS with the light pdf at the actual hit point
+            const float cos_y2 = fmaxf(dot(-r.d, sf.n), 1e-12f);
+            float3 q0, q1, q2;
+            triangle(Tris{P.geo.positions, P.geo.tri_v}, h.tri, q0, q1, q2);
+            const float3 cr2 = cross(q1 - q0, q2 - q0);
+            const float area2 = 0.5f * sqrtf(fmaxf(dot(cr2, cr2), 1e-20f));
+            const float dist2 = fmaxf(h.t, 0.0f);
+            const long long t0 = clk.now();
+            const float pmf2 = emitter_pmf(P.lt, h.tri, p.pos);
+            clk.add(kLight, t0);
+            const float pdf_direct2 = pmf2 * (1.0f / area2) * dist2 * dist2 / cos_y2;
+            const float w_brdf = p.pdf / fmaxf(p.pdf + pdf_direct2, 1e-12f);
+            rad = rad + p.thr * em * w_brdf;
+          } else {
+            rad = rad + p.thr * em;
+          }
+          live = false;
+        } else {
+          live = vertex = ++p.b < P.bounces;
+          view = -r.d;
+        }
       }
     }
-    acc = acc + rad / static_cast<float>(P.samples);
+    // after the primary ray, and after a path's last slot, the next path
+    if (++slot == 0 || slot >= n_slots) {
+      if (slot > 0 && ++s == P.samples) {
+        acc = acc + rad / static_cast<float>(P.samples);
+        rad = make_float3(0.0f, 0.0f, 0.0f);
+        s = 0;
+        f += f_step;
+      }
+      if (f >= P.n_frames) {
+        clk.add(kTotal, t_all);
+        return acc;
+      }
+      p.key = fold(fold(fold(pix_key, P.frame0 + static_cast<uint32_t>(f)), static_cast<uint32_t>(s)), 0u);
+      p.thr = make_float3(1.0f, 1.0f, 1.0f);
+      p.b = 0;
+      slot = 0;
+      live = vertex = S == LIGHT || P.bounces >= 1;
+      sf = prim.load(view);
+    }
+    if (vertex) {
+      if constexpr (S == NEE) {
+        nee_vertex(P, clk, p, sf, view, r);
+      } else if constexpr (S == LIGHT) {
+        light_vertex(P, clk, p, sf, view, r);
+      } else {
+        live = hemisphere_scatter<S>(p, sf, view, r);
+      }
+    }
   }
-  return acc;
 }
 
 __device__ __forceinline__ void store(float* __restrict__ out, int pix, float3 v) {
@@ -353,50 +507,32 @@ __device__ __forceinline__ void store(float* __restrict__ out, int pix, float3 v
   out[3 * pix + 2] = v.z;
 }
 
-// `lanes` threads a pixel, lane k with frames k, k + lanes, ... and the wide
-// walk by the thread; the lanes add their sums by xor shuffles, for four
-// (l0 + l1) + (l2 + l3)
-template <int S, bool T, class Walk>
-__device__ __forceinline__ void lane_frames(const Params& P, const Walk& walk, int local,
-                                            float* __restrict__ out) {
-  const int lanes = P.lanes;
-  const int lane = threadIdx.x & (lanes - 1);
-  const unsigned mask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
-  bool whole;  // the same in the pixel's lanes: one primary ray
-  float3 acc = frames<S, T>(P, walk, P.pix0 + local, lane, lanes, whole);
-  if (whole && lane != 0) acc = make_float3(0.0f, 0.0f, 0.0f);  // n_frames times its radiance, once
-  for (int off = 1; off < lanes; off <<= 1) {
-    acc.x += __shfl_xor_sync(mask, acc.x, off, lanes);
-    acc.y += __shfl_xor_sync(mask, acc.y, off, lanes);
-    acc.z += __shfl_xor_sync(mask, acc.z, off, lanes);
-  }
-  if (lane == 0) store(out, local, acc);
-}
-
 // T: textured (the albedo fetch of shading.cuh::tex_surface); the untextured
-// instantiations compile to the code they had before textures
+// instantiations compile to the code they had before textures.
+// `lanes` threads a pixel, lane k with frames k, k + lanes, ...; the lanes
+// add their sums by xor shuffles, for four (l0 + l1) + (l2 + l3).
 // Pixel `local` of the slab is global pixel P.pix0 + local: its ray and every
 // key are the global pixel's, so slabs join into the whole image bit for bit
 template <int S, bool T>
-__global__ void __launch_bounds__(kBlock) frames_kernel(Params P, float* __restrict__ out) {
-  const int local = (blockIdx.x * kBlock + threadIdx.x) / P.lanes;
-  if (local >= P.n_pix) return;  // the ragged edge leaves a pixel's lanes whole
-  const LaneStack st = lane_stack(P.wide.stack_depth);
-  if constexpr (S == NEE) {
-    lane_frames<S, T>(P, LaneCallWalk{P.wide, st}, local, out);
-  } else {
-    lane_frames<S, T>(P, LaneWalk{P.wide, st}, local, out);
+__global__ void __launch_bounds__(kBlock, min_blocks<S>()) frames_kernel(Params P, float* __restrict__ out) {
+  const int lanes = P.lanes;
+  const int local = (blockIdx.x * kBlock + threadIdx.x) / lanes;
+  Clocks clk;
+  if (local < P.n_pix) {  // the ragged edge leaves a pixel's lanes whole
+    const int lane = threadIdx.x & (lanes - 1);
+    const unsigned mask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+    bool whole;  // the same in the pixel's lanes: one primary ray
+    float3 acc = frames<S, T>(P, lane_stack(P.wide.stack_depth), kept_column(P.wide.stack_depth), clk,
+                              P.pix0 + local, lane, lanes, whole);
+    if (whole && lane != 0) acc = make_float3(0.0f, 0.0f, 0.0f);  // n_frames times its radiance, once
+    for (int off = 1; off < lanes; off <<= 1) {
+      acc.x += __shfl_xor_sync(mask, acc.x, off, lanes);
+      acc.y += __shfl_xor_sync(mask, acc.y, off, lanes);
+      acc.z += __shfl_xor_sync(mask, acc.z, off, lanes);
+    }
+    if (lane == 0) store(out, local, acc);
   }
-}
-
-// one thread a pixel, the threaded walk (untextured only)
-template <int S>
-__global__ void __launch_bounds__(kBlock) frames_threaded_kernel(Params P, float* __restrict__ out) {
-  const int local = blockIdx.x * kBlock + threadIdx.x;
-  if (local >= P.n_pix) return;
-  bool whole;
-  store(out, local,
-        frames<S, false>(P, ThreadedWalk{P.bvh, Tris{P.geo.positions, P.geo.tri_v}}, P.pix0 + local, 0, 1, whole));
+  clk.flush();
 }
 
 using Kernel = void (*)(Params, float*);
@@ -414,16 +550,17 @@ Kernel sampler_kernel(int sampler) {
   }
 }
 
-// The kernel of a sampler, lane count (0: the threaded walk, NEE and
-// untextured only) and texturing, or null
+// A block's dynamic shared memory: the stacks of its walks, then each
+// thread's KeptSurf column
+size_t smem_of(int stack_depth) {
+  return wide_stack_bytes(kBlock, stack_depth) + sizeof(float) * kBlock * KeptSurf::kFloats;
+}
+
+// The kernel of a sampler, lane count and texturing, or null
 Kernel kernel_of(int sampler, int lanes, bool textured) {
-  if (lanes == 0) return sampler == NEE && !textured ? frames_threaded_kernel<NEE> : nullptr;
   if (lanes != 1 && lanes != 2 && lanes != 4) return nullptr;
   return textured ? sampler_kernel<true>(sampler) : sampler_kernel<false>(sampler);
 }
-
-// Dynamic shared memory of a block: a stack for each thread of the wide walk
-size_t smem_of(int lanes, int stack_depth) { return lanes == 0 ? 0 : wide_stack_bytes(kBlock, stack_depth); }
 
 }  // namespace
 
@@ -435,8 +572,6 @@ extern "C" int fyp_megakernel(
     const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
     int textured, const void* tex_prim, const void* tex_bounce, int tex_k, int tex_hp, int tex_wp, int tex_hb,
     int tex_wb,
-    const void* bvh_lo, const void* bvh_hi, const void* bvh_miss, const void* bvh_first,
-    const void* bvh_prim_idx, int n_nodes, int leaf_size,
     const void* wide_nodes, const void* wide_tris, void* wide_overflow, int wide_stack_depth,
     const void* lt_energy, const void* lt_axis, const void* lt_cos_o, const void* lt_sin_o,
     const void* lt_cos_e, const void* lt_sin_e, const void* lt_box_lo, const void* lt_box_hi,
@@ -461,22 +596,21 @@ extern "C" int fyp_megakernel(
   P.n_frames = n_frames;
   P.bounces = bounces;
   P.samples = samples;
-  P.lanes = max(lanes, 1);
+  P.lanes = lanes;
   P.sky = make_float3(sky_r, sky_g, sky_b);
   P.geo = Geo{F(positions), F(normals), I(tri_v), I(tri_mat), F(uvs)};
   P.mats = Mats{F(albedo), F(roughness), F(metallic), F(emission), I(albedo_map)};
   P.tex = Tex{static_cast<const float4*>(tex_prim), static_cast<const float4*>(tex_bounce), tex_k, tex_hp, tex_wp,
               tex_hb, tex_wb};
-  P.bvh = Bvh{F(bvh_lo), F(bvh_hi), I(bvh_miss), I(bvh_first), I(bvh_prim_idx), n_nodes, leaf_size};
   P.wide = WideBvh{static_cast<const float4*>(wide_nodes), static_cast<const float4*>(wide_tris),
                    static_cast<int*>(wide_overflow), wide_stack_depth};
   P.lt = LightTree{F(lt_energy), F(lt_axis), F(lt_cos_o), F(lt_sin_o), F(lt_cos_e), F(lt_sin_e),
                    F(lt_box_lo), F(lt_box_hi), I(lt_left), I(lt_right), I(lt_tri), I(lt_parent),
                    I(lt_leaf_of_tri), lt_max_depth};
-  const size_t smem = smem_of(lanes, wide_stack_depth);
+  const size_t smem = smem_of(wide_stack_depth);
   const cudaError_t e = allow_stack_smem(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = static_cast<int>((static_cast<long long>(P.lanes) * n_pix + kBlock - 1) / kBlock);
+  const int grid = static_cast<int>((static_cast<long long>(lanes) * n_pix + kBlock - 1) / kBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   k<<<grid, kBlock, smem, st>>>(P, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -486,8 +620,22 @@ extern "C" int fyp_megakernel_occupancy(int sampler, int lanes, int textured, in
                                         int* blocks_per_sm) {
   const Kernel k = kernel_of(sampler, lanes, textured != 0);
   if (k == nullptr || wide_stack_depth < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_of(lanes, wide_stack_depth);
+  const size_t smem = smem_of(wide_stack_depth);
   cudaError_t e = allow_stack_smem(k, smem);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k, kBlock, smem);
   return static_cast<int>(e);
 }
+
+#ifdef FYP_K2_CLOCKS
+// The cycles of each section (Section) summed over every thread of every
+// launch since the last call, as kSections unsigned 64-bit ints copied to
+// out (on the card), and the sums cleared, on the stream.
+extern "C" int fyp_megakernel_clocks(void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemcpyFromSymbolAsync(out, k2_clocks, sizeof(k2_clocks), 0, cudaMemcpyDeviceToDevice, st);
+  void* sums = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&sums, k2_clocks);
+  if (e == cudaSuccess) e = cudaMemsetAsync(sums, 0, sizeof(k2_clocks), st);
+  return static_cast<int>(e);
+}
+#endif

@@ -230,7 +230,12 @@ __device__ inline float importance(const LightTree& lt, int node, float3 p) {
   float3 c = 0.5f * (lo + hi);
   float3 axis = normalize(c - p);
   float cos_u = 1.0f;
-#pragma unroll
+  // not unrolled: K2, the one kernel that walks the light tree, inlines this
+  // at four sites (two children, in pick_light and emitter_pmf), and eight
+  // corners a site of normalize's three IEEE divisions made its NEE kernel
+  // larger, with more registers live; one corner an iteration cut K2 NEE's
+  // time by a fifth or more on an H100 (k2_variants.py, PERF.md)
+#pragma unroll 1
   for (int i = 0; i < 8; ++i) {
     float3 corner = make_float3((i & 4) ? hi.x : lo.x, (i & 2) ? hi.y : lo.y, (i & 1) ? hi.z : lo.z);
     float cc = clampf(dot(axis, normalize(corner - p)), -1.0f, 1.0f);

@@ -14,10 +14,6 @@
 // entry returns cudaGetLastError() after the launch; the launch is
 // asynchronous on the given stream and allocates nothing.
 //   fyp_trace_closest          the wide walks (K1), lanes 4 or 1;
-//   fyp_trace_closest_threaded the threaded walk of traverse.cuh, one thread
-//                              a ray, kept so that the walks can be timed in
-//                              turns while K4 and K6-K8 still walk the
-//                              threaded BVH;
 //   fyp_segment_visible        wide.cuh::segment_visible_wide1 (the segment
 //                              test of K5's walks), one thread a segment, so
 //                              that it can be held against its plain version
@@ -65,24 +61,6 @@ __global__ void __launch_bounds__(kBlock) trace_lane_kernel(fyp::WideBvh w, cons
   out_v[i] = h.v;
 }
 
-__global__ void __launch_bounds__(kBlock) trace_threaded_kernel(fyp::Bvh bvh, fyp::Tris tris,
-                                                                const float* __restrict__ origins,
-                                                                const float* __restrict__ directions,
-                                                                const float* __restrict__ t_max, int n_rays,
-                                                                int* __restrict__ out_tri, float* __restrict__ out_t,
-                                                                float* __restrict__ out_u, float* __restrict__ out_v) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n_rays) return;
-  const float3 o = fyp::ldg3(origins, i);
-  const float3 d = fyp::ldg3(directions, i);
-  const float tm = t_max ? __ldg(t_max + i) : fyp::kBig;
-  const fyp::Hit h = fyp::trace_closest(bvh, tris, o, d, tm);
-  out_tri[i] = h.tri;
-  out_t[i] = h.t;
-  out_u[i] = h.u;
-  out_v[i] = h.v;
-}
-
 __global__ void __launch_bounds__(kBlock) segment_kernel(fyp::WideBvh w, const float* __restrict__ origins,
                                                          const float* __restrict__ directions,
                                                          const float* __restrict__ dist, int n,
@@ -111,25 +89,6 @@ extern "C" int fyp_trace_closest(const void* nodes, const void* tris, void* over
   const int grid = static_cast<int>((static_cast<long long>(lanes) * n_rays + kBlock - 1) / kBlock);
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       w, static_cast<const float*>(origins), static_cast<const float*>(directions),
-      static_cast<const float*>(t_max), n_rays, static_cast<int*>(out_tri), static_cast<float*>(out_t),
-      static_cast<float*>(out_u), static_cast<float*>(out_v));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fyp_trace_closest_threaded(const void* bvh_lo, const void* bvh_hi, const void* bvh_miss,
-                                          const void* bvh_first, const void* bvh_prim_idx, int n_nodes,
-                                          int leaf_size, const void* positions, const void* tri_v,
-                                          const void* origins, const void* directions, const void* t_max,
-                                          int n_rays, void* out_tri, void* out_t, void* out_u, void* out_v,
-                                          void* stream) {
-  if (n_rays <= 0) return 0;
-  const fyp::Bvh bvh{static_cast<const float*>(bvh_lo), static_cast<const float*>(bvh_hi),
-                     static_cast<const int*>(bvh_miss), static_cast<const int*>(bvh_first),
-                     static_cast<const int*>(bvh_prim_idx), n_nodes, leaf_size};
-  const fyp::Tris tris{static_cast<const float*>(positions), static_cast<const int*>(tri_v)};
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  trace_threaded_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      bvh, tris, static_cast<const float*>(origins), static_cast<const float*>(directions),
       static_cast<const float*>(t_max), n_rays, static_cast<int*>(out_tri), static_cast<float*>(out_t),
       static_cast<float*>(out_u), static_cast<float*>(out_v));
   return static_cast<int>(cudaGetLastError());

@@ -3,7 +3,8 @@
 //
 // Device code of K1 (trace.cu), K2 (megakernel.cu), K3 and K4 (restir_di.cu),
 // K5-K7 (restir_gi.cu) and K8 (megakernel_diff.cu).  It replaces, for them,
-// the threaded walk of traverse.cuh::trace_closest.
+// the stackless walk of the threaded binary BVH, which is now the plain
+// PyTorch walk alone (ops/traverse.py::trace_rays).
 // The records are built on the host by accel/wide.py (scene/types.py::
 // WideBVH): a node is 8 float4, child k's (lo.xyz, hi.x) at k and its
 // (hi.yz, ref, 0) at 4 + k, so lane k of a quad fetches its child with two
@@ -11,13 +12,13 @@
 // triangle is 3 float4 in leaf-slot order, (p0, id), (e1, 0), (e2, 0).
 //
 // trace_closest_wide: the walk of one ray by a quad (lanes 4q .. 4q + 3):
-//   * inner node: lane k tests child k's box with traverse.cuh's slab test
-//     (__fmul_rn, entered at t <= t_best counts); the quad ranks the hit
+//   * inner node: lane k tests child k's box with the slab test of
+//     ops/intersect.py::ray_aabb (__fmul_rn, entered at t <= t_best counts); the quad ranks the hit
 //     children by entry t (ties to the lower child) with four shuffles,
 //     takes the nearest next and pushes the others, farthest first, onto
 //     the quad's stack in shared memory;
-//   * leaf: lane k tests slot k with traverse.cuh's uncontracted
-//     Moller-Trumbore on the stored edges, and the quad keeps the least
+//   * leaf: lane k tests slot k with an uncontracted Moller-Trumbore on the
+//     stored edges (moller_trumbore_edges), and the quad keeps the least
 //     (t, id) by two xor shuffles, so an exact tie goes to the lowest id;
 //   * pop: an entry whose entry t is no longer <= t_best is skipped.
 // Every value that steers the walk is the same in the quad's four lanes, so
@@ -25,8 +26,8 @@
 // other quads of the warp walk other rays.
 // trace_closest_wide1: the same visits in the same order by one thread,
 // which tests the four children itself.  Both give the closest hit with ties
-// to the lowest id, as the threaded walk finds it (ops/traverse.py::
-// trace_rays_wide is this walk in PyTorch).  segment_visible_wide1: the
+// to the lowest id, as the plain walk of the threaded BVH finds it
+// (ops/traverse.py::trace_rays; trace_rays_wide is this walk in PyTorch).  segment_visible_wide1: the
 // one-thread walk bounded by a segment's end, with an early exit
 // (ops/traverse.py::segment_visible_wide).
 //
@@ -168,7 +169,8 @@ __device__ __forceinline__ unsigned quad_ballot(const Quad& q, bool pred) {
   return (__ballot_sync(q.mask, pred) >> q.base) & 0xFu;
 }
 
-// traverse.cuh::moller_trumbore given the edges e1 = p1 - p0, e2 = p2 - p0
+// ops/intersect.py::moller_trumbore given the edges e1 = p1 - p0, e2 = p2 - p0,
+// uncontracted
 __device__ __forceinline__ bool moller_trumbore_edges(float3 o, float3 d, float3 p0, float3 e1, float3 e2,
                                                       float& t, float& u, float& v) {
   float3 pvec = cross(d, e2);
@@ -462,9 +464,9 @@ __device__ __forceinline__ bool segment_visible_wide1(const WideBvh& w, const La
 // A kernel's walks through the wide BVH, one thread a ray (K3-K8): the
 // closest hit and the segment test.  The walks are inlined at each
 // call site: K5 so built takes 126-128 registers and spills nothing under
-// __launch_bounds__(128), and K5 with the walks as __noinline__ calls, as K2
-// NEE calls its walk (megakernel.cu), faulted with an illegal address after
-// tens to hundreds of frames, at the same frame each time; built with the
+// __launch_bounds__(128), and K5 with the walks as __noinline__ calls
+// faulted with an illegal address after tens to hundreds of frames, at the
+// same frame each time; built with the
 // range checks (FYP_WALK_CHECKS), both kinds run those frames clean with
 // every check passing, so the fault lies in the code built for the calls,
 // not in the walk's state (ROADMAP queue 3).

@@ -18,16 +18,14 @@ kernel ``csrc/trace.cu`` (K1), which replaces the TPU kernel
 wide BVH with ``k1_lanes`` threads a ray.  It takes the plain walk for CPU
 tensors only; for CUDA tensors it launches the kernel or raises (also on
 a scene without its wide BVH).  ``trace_closest.launches`` counts its
-kernel launches.  ``trace_closest_threaded`` launches the threaded walk
-instead, one thread a ray: K1's design before the wide BVH, kept to be
-timed beside it.
+kernel launches.
 
-Both return ``dict(tri (B,) i32 (-1 miss), t (B,) f32 (-1 miss), u, v)``,
+It returns ``dict(tri (B,) i32 (-1 miss), t (B,) f32 (-1 miss), u, v)``,
 with t/u/v from Möller–Trumbore, as the JAX tracers do.
 
-``segment_visible`` is the plain version of the device function of the same
-name in ``csrc/traverse.cuh``: the visibility test of a segment that ReSTIR
-GI's reconnections use.  ``segment_visible_wide`` is the same test walked in
+``segment_visible`` is the plain visibility test of a segment through the
+threaded BVH, which the plain versions of the ReSTIR GI kernels' (K5, K7)
+reconnections use.  ``segment_visible_wide`` is the same test walked in
 the order of ``csrc/wide.cuh::segment_visible_wide1`` (K5's), and
 ``trace_segments`` launches that device function on a batch of segments
 (``csrc/trace.cu::fyp_segment_visible``), so that the card can hold it
@@ -251,9 +249,8 @@ def segment_visible(bvh: FlatBVH, geometry: Geometry, origins, directions, dist)
     some hit has t ≤ dist + tol, tol = max(1e-4, 1e-3·dist): the JAX
     megakernels' shadow test (megakernel.py:847-866), which is the
     wavefront's |t_closest − dist| ≤ tol.  A closest-hit walk bounded by
-    dist + tol that stops at the first hit below dist − tol, as
-    ``csrc/traverse.cuh::segment_visible`` walks.  A boolean: the inputs
-    are detached."""
+    dist + tol that stops at the first hit below dist − tol.  A boolean:
+    the inputs are detached."""
     origins, directions, dist = origins.detach(), directions.detach(), dist.detach()
     lo, t_max = _segment_ends(dist)
     h = trace_rays(bvh, geometry, origins, directions, t_max=t_max, stop_below=lo)
@@ -391,9 +388,6 @@ def k1_lanes(n_rays: int, device) -> int:
     return 4 if 4 * n_rays <= _resident_threads(index) else 1
 
 
-_THREADED_ARGTYPES = [_P] * 5 + [ctypes.c_int] * 2 + [_P] * 5 + [ctypes.c_int] + [_P] * 5
-
-
 def trace_closest(scene, origins, directions, t_max=None, lanes=None):
     """Closest hit through the CUDA kernel ``csrc/trace.cu``, ``lanes``
     threads (4 or 1; by default ``k1_lanes``) walking each ray through the
@@ -427,34 +421,6 @@ def _launch_trace(wide, origins, directions, tm, stream, lanes):
 
 
 trace_closest.launches = 0
-
-
-def trace_closest_threaded(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None):
-    """``trace_closest`` through the threaded walk, one thread a ray
-    (``csrc/trace.cu::fyp_trace_closest_threaded``; ``trace_rays`` for CPU
-    tensors).  K1's design before the wide BVH, kept to be timed beside it
-    while K3-K8 still walk the threaded BVH."""
-    if origins.device.type == "cpu":
-        return trace_rays(bvh, geometry, origins, directions, t_max)
-    origins, directions, tm = _rays("trace_closest_threaded", origins, directions, t_max)
-    kernels.check_inputs("trace_closest_threaded",
-                         floats=(origins, directions, geometry.positions, bvh.lo, bvh.hi)
-                         + (() if tm is None else (tm,)),
-                         ints=(geometry.tri_v, bvh.miss, bvh.first, bvh.prim_idx))
-    fn = kernels.load("trace", "fyp_trace_closest_threaded", _THREADED_ARGTYPES)
-    B = origins.shape[0]
-    out = _outputs(B, origins.device)
-    P = kernels.ptr
-    rc = fn(P(bvh.lo), P(bvh.hi), P(bvh.miss), P(bvh.first), P(bvh.prim_idx),
-            bvh.lo.shape[0], bvh.leaf_size, P(geometry.positions), P(geometry.tri_v),
-            P(origins), P(directions), _P(None) if tm is None else P(tm), B,
-            P(out["tri"]), P(out["t"]), P(out["u"]), P(out["v"]), kernels.stream_ptr(origins.device))
-    trace_closest_threaded.launches += 1
-    kernels.check(rc, "trace_closest_threaded")
-    return out
-
-
-trace_closest_threaded.launches = 0
 
 
 _SEGMENT_ARGTYPES = [_P] * 6 + [ctypes.c_int, _P, ctypes.c_int, _P]

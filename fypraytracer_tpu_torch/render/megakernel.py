@@ -8,15 +8,12 @@ which replaces the TPU kernel ``make_megakernel`` (megakernel.py:1788,
 launched at :2404): ``k2_lanes`` threads a pixel (up to four) each trace
 the primary hit and run every lanes-th frame's paths, every ray walking
 the scene's wide BVH (``Scene.wide``) alone, and add their sums.
-``megakernel_threaded`` launches the NEE kernel with the threaded walk
-instead, one thread a pixel (K2's design before the wide BVH), kept to be
-timed beside it; it is built untextured, and a textured scene raises.
 Every sampler is also built textured: a scene whose materials map an
 albedo launches that instantiation with the scene's kernel levels
 (``Scene.tex``: mip 0 box-filtered to at most 256², and the bounce level),
 which the scene builders make with the scene.
 
-Both take a pixel slab (``pix0``, ``n_pix``), the TPU kernel's chunk
+It takes a pixel slab (``pix0``, ``n_pix``), the TPU kernel's chunk
 entry (:2372-2420): ``parallel/shard.py::sharded_megakernel_render`` gives
 each rank its slab, and slabs join into the whole image bit for bit.
 
@@ -50,6 +47,7 @@ from fypraytracer_tpu_torch.ops import kernels
 from fypraytracer_tpu_torch.ops.texture import check_scene_tex, tex_args, with_kernel_atlas
 from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, stack_depth, trace_rays, wide_records
 from fypraytracer_tpu_torch.render.renderer import pixels_hdr
+from fypraytracer_tpu_torch.render.restir_common import BLOCK_SMEM
 from fypraytracer_tpu_torch.scene.types import Scene
 
 # megakernel.py:2566; the int is csrc/megakernel.cu's Sampler
@@ -63,17 +61,30 @@ SAMPLER_OF = {
     SamplingTechnique.NEE_MIS: "nee",
 }
 _SAMPLER_ID = {"uniform": 0, "cosine": 1, "ggx": 2, "brdf": 3, "light": 4, "nee": 5}
-# csrc/megakernel.cu's lanes argument for the threaded walk, one thread a
-# pixel (NEE only)
-THREADED = 0
+# csrc/megakernel.cu: a block of K2_BLOCK threads holds their walks' stacks
+# (8 bytes an entry) and each thread's kept primary surface and view
+# (KeptSurf, 14 floats) in its shared memory, so a stack holds at most
+# K2_MAX_STACK entries (220)
+K2_BLOCK = 128
+K2_MAX_STACK = (BLOCK_SMEM - 4 * K2_BLOCK * 14) // (8 * K2_BLOCK)
+
+
+def k2_walk_records(scene: Scene):
+    """The scene's wide BVH for K2 (``wide_records``), refused with the
+    reason where a block's stacks would not fit beside its kept surfaces."""
+    if scene.wide is not None and scene.wide.stack_need > K2_MAX_STACK:
+        raise ValueError(f"megakernel: the wide BVH needs a stack of {scene.wide.stack_need} entries a thread, "
+                         f"and a block of {K2_BLOCK} threads holds {K2_MAX_STACK} beside its kept surfaces")
+    return wide_records(scene)
 
 
 def k2_lanes(n_frames: int) -> int:
     """K2's threads a pixel (csrc/megakernel.cu), each with its share of
     the frames: four, or for a launch of fewer frames 2 or 1, so that no
-    lane idles.  Measured so at every size on an H100 (PERF.md): at
-    Cornell 1920x1088, 8 frames, four lanes beat one, and at one frame one
-    lane beats four by 2.7x."""
+    lane idles.  Measured so at every size on an H100, again after K2's
+    one-walk-site redesign (chip_smoke.py's k2_walks, PERF.md): at Cornell
+    1920x1088, 8 frames, four lanes beat one and two, and at one frame one
+    lane beats four by 2.9x."""
     return 4 if n_frames >= 4 else 2 if n_frames >= 2 else 1
 
 
@@ -156,7 +167,6 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 5          # geometry
     + [ctypes.c_void_p] * 5          # materials
     + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5         # texture
-    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2            # bvh
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]                # wide bvh
     + [ctypes.c_void_p] * 13 + [ctypes.c_int]               # light tree
     + [ctypes.c_void_p] * 2)         # out, stream
@@ -181,8 +191,7 @@ def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
         lanes = k2_lanes(n_frames)
     if lanes not in (1, 2, 4):
         raise ValueError(f"megakernel: lanes must be 1, 2 or 4, got {lanes}")
-    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, "megakernel",
-                  scene.tex, pix0, n_pix)
+    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, pix0, n_pix)
     megakernel.launches += 1
     return out
 
@@ -190,44 +199,24 @@ def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
 megakernel.launches = 0
 
 
-def megakernel_threaded(scene: Scene, camera: Camera, frame0: int, n_frames: int,
-                        settings: RenderSettings) -> torch.Tensor:
-    """``megakernel`` under NEE through the threaded walk, one thread a pixel
-    (plain version for CPU tensors).  Built untextured: a textured scene
-    raises."""
-    if _sampler(settings) != "nee":
-        raise NotImplementedError("the threaded walk is built for NEE only")
-    if scene.geometry.positions.device.type == "cpu":
-        return megakernel_plain(scene, camera, frame0, n_frames, settings)
-    if scene.tex is not None:
-        raise NotImplementedError("the threaded walk is built untextured; megakernel renders textured scenes")
-    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID["nee"], THREADED, "megakernel_threaded",
-                  None, 0, camera.width * camera.height)
-    megakernel_threaded.launches += 1
-    return out
-
-
-megakernel_threaded.launches = 0
-
-
-def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name, tex, pix0, n_pix):
+def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, pix0, n_pix):
     """Check the inputs, allocate the output and launch ``fyp_megakernel``
     on the slab of ``n_pix`` pixels at ``pix0`` with ``lanes`` threads a
-    pixel (``THREADED``: the threaded walk) on the current stream; textured
-    with the tables ``tex`` unless it is None."""
-    g, m, b, lt = scene.geometry, scene.materials, scene.bvh, scene.light_tree
-    wide = wide_records(scene)
+    pixel on the current stream; textured with the scene's levels
+    (``Scene.tex``) unless they are None."""
+    g, m, lt, tex = scene.geometry, scene.materials, scene.light_tree, scene.tex
+    wide = k2_walk_records(scene)
     dev = g.positions.device
     cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
                           device=dev)
     emission = m.emission().contiguous()
     kernels.check_inputs(
-        name,
+        "megakernel",
         floats=(cam, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, emission,
-                b.lo, b.hi, wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi)
+                wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi)
         + (() if tex is None else (tex.prim, tex.bounce)),
-        ints=(g.tri_v, g.tri_mat, m.albedo_map, b.miss, b.first, b.prim_idx, wide.overflow,
-              lt.left, lt.right, lt.tri, lt.parent, lt.leaf_of_tri))
+        ints=(g.tri_v, g.tri_mat, m.albedo_map, wide.overflow, lt.left, lt.right, lt.tri, lt.parent,
+              lt.leaf_of_tri))
     # brute force traces exactly 1 path a frame whatever the sample count
     # (megakernel.py:2603, Renderer.cu:565-701)
     samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
@@ -238,12 +227,11 @@ def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, name, tex
             settings.bounces, samples, *(float(c) for c in settings.sky_color),
             P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
             P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
-            P(b.lo), P(b.hi), P(b.miss), P(b.first), P(b.prim_idx), b.lo.shape[0], b.leaf_size,
             P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
             P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
             P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
             P(out), kernels.stream_ptr(dev))
-    kernels.check(rc, name)
+    kernels.check(rc, "megakernel")
     return out
 
 

@@ -150,6 +150,28 @@ def test_restir_gi_takes_no_threaded_bvh():
     assert ENTRIES["fyp_restir_gi"] == want
 
 
+def test_megakernel_takes_no_threaded_bvh():
+    """K2's entry takes the wide BVH's four arguments (nodes, triangles,
+    overflow flag, stack depth) after the texture, and no threaded BVH:
+    the sampler and lanes, camera, width, height, slab start and size,
+    frame, frames, bounces and samples, 3 sky floats, 10 geometry and
+    material pointers, the texture (a flag, 2 pointers and 5 ints), 3
+    pointers and an int, the light tree (13 pointers and its depth), out
+    and the stream."""
+    want = (["int", "int", "pointer", "int", "int", "int", "int", "unsigned", "int", "int", "int"] + ["float"] * 3
+            + ["pointer"] * 10 + ["int"] + ["pointer"] * 2 + ["int"] * 5 + ["pointer"] * 3 + ["int"]
+            + ["pointer"] * 13 + ["int"] + ["pointer"] * 2)
+    assert ENTRIES["fyp_megakernel"] == want
+
+
+def test_megakernel_clocks_entry_is_bound_by_the_smoke_test():
+    """K2's section clocks (built with ``-DFYP_K2_CLOCKS``) hand over their
+    sums through an entry that takes the output and the stream, and
+    ``chip_smoke.py::k2_attribution`` binds it."""
+    assert ENTRIES["fyp_megakernel_clocks"] == ["pointer", "pointer"]
+    assert [w.split(":")[0] for name, _, w in BINDINGS if name == "fyp_megakernel_clocks"] == ["chip_smoke.py"]
+
+
 def test_parameter_kinds_are_read_as_declared():
     """The reader of the prototypes: pointers whatever their constness,
     ``unsigned int`` apart from ``int``; a type it does not know fails."""

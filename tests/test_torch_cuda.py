@@ -7,9 +7,10 @@ imports nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Gates: K1 ids equal on >= 99.99% of rays and |Δt| <= 1e-5 where both hit,
-and its walks of the wide BVH equal to the threaded walk bit for bit; K2
-NEE with one thread a pixel the same against its threaded walk; the wide
-segment test (``trace_segments``) equal to its plain twin bit for bit; K5
+and its walks of the wide BVH equal to the plain walk of the threaded BVH
+(``trace_rays``) bit for bit; K2 NEE with one and four threads a pixel
+under the parity gates below and within 1e-6 relative of each other; the
+wide segment test (``trace_segments``) equal to its plain twin bit for bit; K5
 (a tile a cluster of blocks, the walks through the wide BVH) equal to its
 plain version bit for bit, and its stage equal to K6's bit for bit, at
 tiles of 512, 256 and 128 pixels, on square and other frames and on the
@@ -126,16 +127,16 @@ def test_trace_closest_kernel_matches_plain_walk(cuda, n_random, with_t_max):
 @pytest.mark.parametrize("lanes", [4, 1], ids=["quad", "one thread"])
 def test_trace_closest_wide_equals_threaded(cuda, lanes):
     """The walks of the wide BVH (a quad a ray, one thread a ray) and the
-    threaded walk give the same hits, bit for bit (all rank exact ties to
-    the lowest id)."""
+    plain walk of the threaded BVH (``trace_rays``) give the same hits, bit
+    for bit (all rank exact ties to the lowest id)."""
     builder, cam = tproc.cornell_box(64, 64)
     scene = builder.compile().to(cuda)
     o, d = _k1_rays(cuda, cam, 4096)
-    before = (ttrav.trace_closest.launches, ttrav.trace_closest_threaded.launches)
+    before = ttrav.trace_closest.launches
     wide = ttrav.trace_closest(scene, o, d, lanes=lanes)
-    threaded = ttrav.trace_closest_threaded(scene.bvh, scene.geometry, o, d)
+    threaded = ttrav.trace_rays(scene.bvh, scene.geometry, o, d)
     torch.cuda.synchronize()
-    assert (ttrav.trace_closest.launches, ttrav.trace_closest_threaded.launches) == (before[0] + 1, before[1] + 1)
+    assert ttrav.trace_closest.launches == before + 1
     for k in ("tri", "t", "u", "v"):
         off = (wide[k].view(torch.int32) != threaded[k].view(torch.int32)).nonzero().flatten()
         assert off.numel() == 0, f"{k} differs at rays {off[:16].tolist()}"
@@ -198,36 +199,35 @@ def test_megakernel_walks_match_the_plain_version(cuda, lanes, tech):
 
 
 def test_megakernel_nee_wide_equals_threaded(cuda):
-    """K2 under NEE through the wide BVH against the same kernel with the
-    threaded walk, one thread a pixel: the same paths, so the same image.
-    One thread a pixel sums the frames in the same order and matches it
-    bit for bit (any pixel that differs is named); ``megakernel`` here
-    splits the frames over four threads and adds their sums in another
-    order, within 1e-6 relative."""
+    """K2 under NEE through the wide BVH against its plain version, whose
+    walk is the threaded BVH's (``megakernel_plain``): the same paths, so
+    the same image under the parity gates, with four threads a pixel and
+    with one; the four add a pixel's frames in another order than the one
+    does, within 1e-6 relative."""
     scene, cam = _scene()
     scene = scene.to(cuda)
     assert tmk.k2_lanes(4) == 4
-    before = (tmk.megakernel.launches, tmk.megakernel_threaded.launches)
+    before = tmk.megakernel.launches
     wide = tmk.megakernel(scene, cam, 1, 4, SETTINGS)
-    threaded = tmk.megakernel_threaded(scene, cam, 1, 4, SETTINGS)
     one = tmk.megakernel(scene, cam, 1, 4, SETTINGS, lanes=1)
+    ref = tmk.megakernel_plain(scene, cam, 1, 4, SETTINGS)
     torch.cuda.synchronize()
-    assert (tmk.megakernel.launches, tmk.megakernel_threaded.launches) == (before[0] + 2, before[1] + 1)
-    assert ((wide - threaded).abs() <= 1e-6 * threaded.abs().clamp_min(1e-3)).all()
-    off = (one != threaded).any(dim=1).nonzero().flatten()
-    assert off.numel() == 0, f"pixels {off[:16].tolist()} differ by up to {(one - threaded).abs().max().item()}"
-    with pytest.raises(NotImplementedError):
-        tmk.megakernel_threaded(scene, cam, 1, 1, SETTINGS.replace(technique=SamplingTechnique.COSINE))
+    assert tmk.megakernel.launches == before + 2
+    _gates(wide.cpu().numpy(), ref.cpu().numpy())
+    _gates(one.cpu().numpy(), ref.cpu().numpy())
+    assert ((wide - one).abs() <= 1e-6 * one.abs().clamp_min(1e-3)).all()
     with pytest.raises(ValueError, match="lanes"):
         tmk.megakernel(scene, cam, 1, 1, SETTINGS, lanes=3)
 
 
 def test_megakernel_nee_four_lanes_at_1080p(cuda):
     """K2 NEE with four threads a pixel at Cornell 1920x1088, 4 frames: the
-    launch that faulted with an illegal address when the kernel was built
-    with ``__launch_bounds__(128, 7)`` or ``(128, 6)`` (ROADMAP queue 3).
-    It runs clean, adds the frames as one thread a pixel does (to float
-    rounding), and leaves the overflow flag clear."""
+    launch that faulted with an illegal address when the kernel, its NEE
+    walk then a ``__noinline__`` call, was built with
+    ``__launch_bounds__(128, 7)`` or ``(128, 6)`` (ROADMAP queue 3); the
+    kernel now has one inlined walk site under such a bound.  It runs
+    clean, adds the frames as one thread a pixel does (to float rounding),
+    and leaves the overflow flag clear."""
     builder, cam = tproc.cornell_box(1920, 1088)
     scene = builder.compile().to(cuda)
     four = tmk.megakernel(scene, cam, 1, 4, SETTINGS, lanes=4)
@@ -519,8 +519,8 @@ def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
     inlined, must run them clean, finite and without a stack overflow
     (ROADMAP queue 3); ``MegakernelReSTIRDI`` (K3+K4) too, over 320 frames
     at 1920x1088; and ``MegakernelRenderer`` NEE (K2, four lanes a pixel
-    at eight frames a call), whose walk is still a ``__noinline__`` call,
-    over the frames and shapes at which K5's calls faulted."""
+    at eight frames a call, one inlined walk site under a capped launch
+    bound), over the frames and shapes at which K5's calls faulted."""
     builder, cam = tproc.cornell_box(w, h)
     technique = _TECHNIQUE_OF[cls]
     settings = RenderSettings(technique=technique, bounces=2, samples=1,
@@ -555,8 +555,8 @@ def test_restir_gi_runs_clean_over_many_frames(cuda, cls, mode, w, h, frames):
 def test_wide_walks_stay_in_range(cuda, monkeypatch, cls, mode, scene_name, w, h, frames):
     """K5 (both visibility modes), K6 and K7 (``mono=False``), K3, K4, K8
     (``DiffRenderer``, one launch a step) and K2 NEE (``MegakernelRenderer``,
-    four lanes a pixel at eight frames a call, its walk a ``__noinline__``
-    call) built with the walks' range checks (``csrc/wide.cuh``,
+    four lanes a pixel at eight frames a call) built with the walks' range
+    checks (``csrc/wide.cuh``,
     ``FYP_WALK_CHECKS``), over the frames at which K5 with ``__noinline__``
     walk calls faulted (ROADMAP queue 3) and on the stress scene, whose 32
     tiles are split: every node index, child ref, leaf slot, triangle id
@@ -699,8 +699,6 @@ def test_textured_megakernel_matches_its_plain_version(cuda, tech):
     torch.cuda.synchronize()
     assert tmk.megakernel.launches == before + 1
     _gates(got.cpu().numpy().reshape(H, W, 3), ref.cpu().numpy().reshape(H, W, 3))
-    with pytest.raises(NotImplementedError, match="untextured"):
-        tmk.megakernel_threaded(scene, cam, 1, 4, SETTINGS)
 
 
 @MOVES

@@ -7,7 +7,7 @@ Cornell box, on a stress scene in Morton order and on a chain BVH
 (tests/torch_skewed_bvh.py), also for segments whose ends sit exactly at
 dist ± tol, and the JAX wavefront's test |t_closest − dist| ≤ tol
 (fypraytracer_tpu/render/restir_gi.py:336-343) on the same segments
-through the JAX walk.  K3-K6 refuse a tree whose stacks would not fit
+through the JAX walk.  K2-K6 refuse a tree whose stacks would not fit
 in one of their blocks; the split launch (``restir_common.tile_launch``)
 puts every pixel in its tile at its lane, and K4's blocks of 128 read their
 spatial neighbours where its plain version does.  The kernels' own checks
@@ -152,8 +152,8 @@ def test_k3_and_k5_refuse_an_oversize_stack():
     sums (8 bytes) in its 232,448 bytes of shared memory: 226 entries a
     stack; a block of 512, 56.  A chain BVH needing 290 is refused with the
     reason by the wrappers' own check, and so would one needing 227, which
-    the one-thread walks of K1 and K2 take; one needing 149 is handed to
-    blocks of 128, and refused for blocks of 512."""
+    the one-thread walk of K1 takes; one needing 149 is handed to blocks of
+    128, and refused for blocks of 512."""
     assert (rc.stack_fits(128), rc.stack_fits(512)) == (226, 56)
     deep = _scene("skewed4")
     assert deep.wide.stack_need > MAX_STACK
@@ -169,6 +169,27 @@ def test_k3_and_k5_refuse_an_oversize_stack():
     assert rc.tile_walk_records("restir_gi_mono", ok, 128) is ok.wide
     with pytest.raises(ValueError, match="a block of 512 threads holds 56"):
         rc.tile_walk_records("restir_di_k3", ok, 512)
+
+
+def test_k2_refuses_an_oversize_stack():
+    """A block of 128 threads of K2 holds 128 stacks and each thread's kept
+    primary surface and view (csrc/megakernel.cu::KeptSurf, 14 floats) in
+    its 232,448 bytes of shared memory: 220 entries a stack.  A tree
+    needing more is refused with the reason before any launch; the chain
+    BVH needing 149, and one needing 220, are handed over."""
+    from fypraytracer_tpu_torch.render import megakernel as mk
+
+    assert mk.K2_MAX_STACK == 220
+    deep = _scene("skewed4")
+    for need in (221, MAX_STACK, deep.wide.stack_need):
+        over = dataclasses.replace(deep, wide=dataclasses.replace(deep.wide, stack_need=need))
+        with pytest.raises(ValueError, match=rf"megakernel: the wide BVH needs a stack of {need} entries a thread, "
+                                             r"and a block of 128 threads holds 220 beside its kept surfaces"):
+            mk.k2_walk_records(over)
+    at = dataclasses.replace(deep, wide=dataclasses.replace(deep.wide, stack_need=220))
+    assert mk.k2_walk_records(at) is at.wide
+    ok = _scene("skewed8")
+    assert mk.k2_walk_records(ok) is ok.wide
 
 
 @pytest.mark.parametrize("num_pixels, stack_need, clustered", [
