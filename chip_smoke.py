@@ -12,13 +12,14 @@ interactive session), in phases:
      TF32 is switched off for matmuls and cuDNN;
   2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
      nvcc per source, started together, with K8 again without its
-     gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c) and K2
-     again with its section clocks (``-DFYP_K2_CLOCKS``, for phase 4b);
-     ptxas's registers and spills of every kernel, the untextured and the
-     textured instantiations and K8's bounce counts by name; every K2
-     instantiation's registers, spills (none allowed) and resident blocks a
-     multiprocessor with Cornell's and the stress scene's stacks
-     (``k2_build``);
+     gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c), K2
+     again with its section clocks (``-DFYP_K2_CLOCKS``, for phase 4b) and
+     K5-K6 with theirs (``-DFYP_GI_CLOCKS``, for phase 5b); ptxas's
+     registers and spills of every kernel, the untextured and the textured
+     instantiations and K8's bounce counts by name; every K2 instantiation's
+     registers, spills (none allowed) and resident blocks a multiprocessor
+     with Cornell's and the stress scene's stacks (``k2_build``), and the
+     same of every K5 and K6 instantiation (``gi_build``);
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
      wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
      random rays (a quad a ray) and on the 1920x1088 camera's rays (one
@@ -68,8 +69,10 @@ interactive session), in phases:
      against ``restir_gi_megakernel_plain`` at Cornell 256², 8 frames, and
      stress 128², 4 frames; K5 ``final_vis`` and the K6+K7 loop at Cornell
      64², 4 + 4 frames with a camera move; then K5 (both modes), K6 and K7
-     timed at the shapes of phase 5 with their occupancy, K6's two launches
-     also at 32-128 tiles (``BETWEEN``);
+     timed at the shapes of phase 5 with their occupancy, K5's and K6's two
+     launches also at 32-128 tiles (``BETWEEN``); then where K5's and K6's time goes
+     (``gi_attribution``: each section's share of the threads' cycles by
+     the clocked build at the three shapes, and the clocks' cost in turns);
   5c. K8 ``diff_megakernel`` (the fused loss and albedo gradient) against its
      plain version ``diff_plain`` on the same inputs (Cornell 256², 2 bounces,
      frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
@@ -186,8 +189,9 @@ fetches its plain version counts (at most the texture tables once).
 1920x1088, every other sampler at 256²), K3-K8 and the entry points of
 other checkouts against this one in turns (e.g. the commit before a
 change), with K2 NEE's ``k2_attribution`` in each tree whose K2 has the
-section clocks, compares their ReSTIR outputs bit for bit and holds K8's
-loss and gradient to phase 5c's gates.
+section clocks and K5's and K6's ``gi_attribution`` in each tree whose
+restir_gi.cu has them, compares their ReSTIR outputs bit for bit
+(``restir_bits``) and holds K8's loss and gradient to phase 5c's gates.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -442,14 +446,15 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     names = ("trace", "megakernel", "restir_di", "restir_gi", "megakernel_diff")
-    # K8 without its gradient's atomics (k8_attribution) and K2 with its
-    # section clocks (k2_attribution), built beside the others, each by a
-    # process of its own: the flags are the build's global state
+    # K8 without its gradient's atomics (k8_attribution), K2 with its section
+    # clocks (k2_attribution) and K5-K6 with theirs (gi_attribution), built
+    # beside the others, each by a process of its own: the flags are the
+    # build's global state
     variants = {(lib, flag): subprocess.Popen(
         [sys.executable, "-c", "from fypraytracer_tpu_torch.ops import kernels; "
          f"kernels.EXTRA_FLAGS['{lib}'] = kernels.EXTRA_FLAGS.get('{lib}', []) + ['{flag}']; "
          f"kernels.build('{lib}')"], cwd=REPO)
-        for lib, flag in (("megakernel_diff", K8_NO_ATOMICS), ("megakernel", K2_CLOCKS))}
+        for lib, flag in (("megakernel_diff", K8_NO_ATOMICS), ("megakernel", K2_CLOCKS), ("restir_gi", GI_CLOCKS))}
     try:
         with ThreadPoolExecutor(len(names)) as pool:
             list(pool.map(kernels.build, names))      # raises if any build failed
@@ -470,6 +475,7 @@ def phase_build() -> None:
     emit("build", seconds=secs, libs={k: os.path.basename(v["path"]) for k, v in kernels.build_info.items()},
          ptxas=ptxas)
     k2_build(ptxas)
+    gi_build(ptxas)
 
 
 def k2_build(ptxas: dict) -> None:
@@ -477,10 +483,7 @@ def k2_build(ptxas: dict) -> None:
     its registers and spill bytes from phase 2's ptxas report and its
     resident blocks a multiprocessor with the stacks of Cornell and of the
     stress scene (``fyp_megakernel_occupancy``); raises if one spills."""
-    from fypraytracer_tpu_torch.scene.procedural import cornell_box
-
-    depths = {"cornell": cornell_box(256, 256)[0].compile().wide.stack_need,
-              "stress": stress_scene(128, 128)[0].wide.stack_need}
+    depths = tile_stacks()
     rows = {}
     for sampler in _SAMPLER_NAMES.values():
         for textured in (False, True):
@@ -491,6 +494,49 @@ def k2_build(ptxas: dict) -> None:
     spilled = {k: v for k, v in rows.items() if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
     if spilled:
         raise AssertionError(f"K2 instantiations spill (or report no spill line): {spilled}")
+
+
+def tile_stacks() -> dict:
+    """The stack entries of Cornell's and of the stress scene's wide BVH."""
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    return {"cornell": cornell_box(256, 256)[0].compile().wide.stack_need,
+            "stress": stress_scene(128, 128)[0].wide.stack_need}
+
+
+def gi_blocks_per_sm() -> dict:
+    """Every K5 and K6 instantiation's resident blocks a multiprocessor, by
+    the CUDA runtime, with Cornell's and the stress scene's stacks, named as
+    ``ptxas_report`` names them: the split tile's blocks of 128 (``split``)
+    and the tile as one block of 512 (``block512``)."""
+    depths = tile_stacks()
+    out = {}
+    for kernel, base in (("k5", "gi_mono"), ("k5 final_vis", "gi_mono"), ("k6", "gi_stage1")):
+        for textured in (False, True):
+            for split in (True, False):
+                tags = (["final_vis"] if kernel.endswith("final_vis") else []) + (["textured"] if textured else []) \
+                    + ["split" if split else "block512"]
+                out[f"{base}[{','.join(tags)}]"] = {
+                    k: tile_occupancy(kernel.split()[0], 512, d, split, textured, kernel.endswith("final_vis"))
+                    ["blocks_per_sm"] for k, d in depths.items()}
+    return out
+
+
+def gi_build(ptxas: dict) -> None:
+    """Every instantiation of K5 and K6 (final_vis, textured, a tile split
+    over blocks of 128 or one block of 512): registers and spill bytes from
+    phase 2's ptxas report, resident blocks and warps a multiprocessor with
+    the stacks of Cornell and of the stress scene; raises if one spills."""
+    depths = tile_stacks()
+    rows = {}
+    for name, blocks in gi_blocks_per_sm().items():
+        warps = (128 if name.endswith("split]") else 512) // 32
+        rows[name] = dict(ptxas.get(name, {}), blocks_per_sm=blocks,
+                          warps_per_sm={k: warps * v for k, v in blocks.items()}, stack_depth=depths)
+    emit("gi_build", instantiations=rows)
+    spilled = {k: v for k, v in rows.items() if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    if spilled:
+        raise AssertionError(f"K5 or K6 instantiations spill (or report no spill line): {spilled}")
 
 
 # the template arguments of a kernel in its mangled name: frames_kernel<5, true>
@@ -1015,18 +1061,31 @@ BETWEEN = (("cornell", 128, 128), ("cornell", 160, 160), ("cornell", 192, 192), 
            ("stress", 160, 160), ("stress", 192, 192), ("stress", 224, 224), ("stress", 256, 256))
 
 
-def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> dict:
+def tile_scene(name: str, w: int, h: int):
+    """The scene and camera at which K3-K7 are timed: Cornell at w x h in
+    Morton order, or the stress scene's one tree with its camera at w x h."""
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box, stress
+
+    if name == "stress":
+        scene, cam = stress_scene(128, 128)
+        return scene, (stress(w, h)[1] if (w, h) != (128, 128) else cam)
+    builder, cam = cornell_box(w, h)
+    return morton_permuted_scene(builder.compile())[0].to("cuda"), cam
+
+
+def by_shape(kernel: str, st, textured: bool = False, design_shapes: tuple = SHAPES + BETWEEN) -> dict:
     """K3 (``kernel`` "k3"), K4 ("k4"), K5 in both visibility modes ("k5"),
     K6 ("k6") or K7 ("k7") a launch at each of ``SHAPES`` (frame 3, after
     two frames of the kernels' own loop): the device time of the launch the
-    wrapper picks (``ms_by_shape``) and, with ``designs`` where the tree has
+    wrapper picks (``ms_by_shape``) and, where the tree has
     ``tile_clustered`` (not for K4 and K7, which have one launch), of both
-    launches in turns at ``SHAPES`` and ``BETWEEN`` (split, one block a
-    tile, one block, split: ``designs_by_shape``; each forced by standing in
-    for ``tile_clustered``) with each one's occupancy by the runtime and the
-    pick; one line a shape.  It uses nothing else that the port's ReSTIR
-    modules lacked before, so that ``--ab`` can time an older checkout
-    too."""
+    launches in turns at each of ``design_shapes`` (split, one block a tile,
+    one block, split: ``designs_by_shape``; each forced by standing in for
+    ``tile_clustered``) with each one's occupancy by the runtime and the
+    pick; one line a shape.  It uses nothing else
+    that the port's ReSTIR modules lacked before, so that ``--ab`` can time
+    an older checkout too."""
     from unittest import mock
 
     import torch
@@ -1035,21 +1094,15 @@ def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> d
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
     from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
     from fypraytracer_tpu_torch.render import restir_common as rc
-    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
-    from fypraytracer_tpu_torch.scene.procedural import cornell_box, stress
 
     t0 = time.perf_counter()
-    designs = designs and hasattr(rc, "tile_clustered") and kernel not in ("k4", "k7")
+    if not hasattr(rc, "tile_clustered") or kernel in ("k4", "k7"):
+        design_shapes = ()
     out: dict = {"ms_by_shape": {}, "designs_by_shape": {}, "occupancy_by_shape": {}, "picked_by_shape": {}}
-    for name, w, h in SHAPES + (BETWEEN if designs else ()):
+    for name, w, h in SHAPES + tuple(s for s in design_shapes if s not in SHAPES):
         timed = (name, w, h) in SHAPES
-        if name == "stress":
-            # one tree at every size: only the camera's size changes
-            scene, cam = stress_scene(128, 128)
-            cam = stress(w, h)[1] if (w, h) != (128, 128) else cam
-        else:
-            builder, cam = cornell_box(w, h)
-            scene = morton_permuted_scene(builder.compile())[0].to("cuda")
+        designs = (name, w, h) in design_shapes
+        scene, cam = tile_scene(name, w, h)
         shape = f"{name} {w}x{h}"
         B, C, depth = w * h, rc.pick_ray_lanes(w * h), stack_depth(scene.wide)
         ppv = torch.as_tensor(cam.proj_view, device="cuda")
@@ -1103,7 +1156,7 @@ def by_shape(kernel: str, st, textured: bool = False, designs: bool = True) -> d
         check_overflow(scene)
         emit("tile_kernel_by_shape", kernel=kernel, shape=shape, tiles=B // C, tile_pixels=C, stack_depth=depth,
              **{k: {key: v for key, v in d.items() if key.startswith(shape)} for k, d in out.items()})
-    emit("tile_kernel_by_shape_seconds", kernel=kernel, designs=designs, seconds=time.perf_counter() - t0)
+    emit("tile_kernel_by_shape_seconds", kernel=kernel, designs=bool(design_shapes), seconds=time.perf_counter() - t0)
     return out
 
 
@@ -1231,6 +1284,75 @@ def phase_restir_gi(summary: dict) -> None:
                              for k, d in shapes.items()})
     summary["restir_gi_k1"].update(by_shape("k6", st))
     summary["restir_gi_k2"].update(by_shape("k7", st))
+    attribution = gi_attribution()
+    for row, kernel in (("restir_gi_mono", "k5"), ("restir_gi_mono[final_vis]", "k5 final_vis"),
+                        ("restir_gi_k1", "k6")):
+        summary[row]["section_shares"] = {k: v["shares"] for k, v in attribution.items() if v["kernel"] == kernel}
+
+
+def gi_attribution() -> dict:
+    """Where K5's (both modes) and K6's time goes: csrc/restir_gi.cu built
+    with its section clocks (``-DFYP_GI_CLOCKS``; phase 2 builds it), one
+    launch at frame 3, after two frames of the kernels' own loop, at each
+    of ``SHAPES``.  Each section's share of the threads' summed cycles
+    (``GI_SECTIONS``; the rest is the camera ray, surface fetch, scatter
+    and shading), and what the clocks cost: the kept kernel's device ms
+    against the clocked one's, in turns (kept, clocked, clocked, kept).
+    One line a kernel and shape; returns {"<kernel> <shape>": row}.  It
+    uses only what the ReSTIR GI module had before, so that ``--ab`` runs
+    it in an older checkout whose restir_gi.cu has the clocks."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
+
+    kept = list(kernels.EXTRA_FLAGS.get("restir_gi", []))
+    clocked = kept + [GI_CLOCKS]
+    st = settings_for("RESTIR_GI")
+    out = {}
+    for name, w, h in SHAPES:
+        scene, cam = tile_scene(name, w, h)
+        B = w * h
+        ppv = torch.as_tensor(cam.proj_view, device="cuda")
+        cam_t = camera_matrices(cam, "cuda")
+        for kernel in ("k5", "k5 final_vis", "k6"):
+            z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+            _, state, stage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, st, ppv, ppv, mono=kernel != "k6")
+            outs = (torch.zeros((B, 3), device="cuda"), torch.empty_like(state), torch.empty_like(stage))
+
+            def run(flags, kernel=kernel, state=state, stage=stage, outs=outs):
+                with mock.patch.dict(kernels.EXTRA_FLAGS, {"restir_gi": flags}):
+                    if kernel == "k6":
+                        mg.restir_gi_k1(scene, cam, 3, st, state, ppv, outs[2], cam=cam_t)
+                    else:
+                        mg.restir_gi_mono(scene, cam, 3, st, state, stage, ppv, *outs,
+                                          final_vis=kernel.endswith("final_vis"), cam=cam_t)
+
+            sums = torch.zeros(len(GI_SECTIONS), dtype=torch.int64, device="cuda")
+            with mock.patch.dict(kernels.EXTRA_FLAGS, {"restir_gi": clocked}):
+                read = kernels.load("restir_gi", "fyp_restir_gi_clocks", [ctypes.c_void_p, ctypes.c_void_p])
+                stream = kernels.stream_ptr(sums.device)
+                kernels.check(read(kernels.ptr(sums), stream), "fyp_restir_gi_clocks")     # clears the sums
+                run(clocked)
+                kernels.check(read(kernels.ptr(sums), stream), "fyp_restir_gi_clocks")
+            cycles = dict(zip(GI_SECTIONS, sums.tolist()))
+            shares = {k: v / cycles["total"] for k, v in cycles.items() if k != "total"}
+            shares["surface_scatter_shading"] = 1.0 - sum(shares.values())
+            wrapper = mg.restir_gi_k1 if kernel == "k6" else mg.restir_gi_mono
+            calls = 5 if B > 256 * 256 else 10
+            turns = in_turns({"kept": functools.partial(run, kept), "clocked": functools.partial(run, clocked)},
+                             ("kept", "clocked", "clocked", "kept"), calls, launches=lambda: wrapper.launches)
+            key = f"{kernel} {name} {w}x{h}"
+            out[key] = dict(kernel=kernel, shape=f"{name} {w}x{h}", shares=shares, cycles=cycles,
+                            ms={k: statistics.median(v) for k, v in turns.items()}, turns_ms=turns)
+            emit("gi_attribution", **out[key])
+        check_overflow(scene)
+    return out
 
 
 DIFF_SIZE = 256
@@ -1242,6 +1364,10 @@ K2_CLOCKS = "-DFYP_K2_CLOCKS"
 K2_SECTIONS = ("total", "walk_primary", "walk_shadow", "walk_bounce", "light")
 # k2_attribution's launches: NEE at (scene, width, height, frames, calls)
 K2_ATTRIBUTION = (("cornell", 256, 256, 64, 10), ("stress", 128, 128, 8, 10), ("cornell", 1920, 1088, 8, 5))
+# K5 and K6 built with their section clocks (csrc/restir_gi.cu::Clocks), and
+# the sections in the order of its Section enum
+GI_CLOCKS = "-DFYP_GI_CLOCKS"
+GI_SECTIONS = ("total", "primary", "path_walks", "tile_sum", "temporal", "spatial_reads", "vis_walks", "stores")
 
 
 def ulps(a, b):
@@ -2892,10 +3018,12 @@ def restir_bits() -> dict:
     """Digests (sha256, 16 hex digits) of the ReSTIR kernels' outputs at
     ``SHAPES``, the camera static and moved 0.05 to the side before frame 3
     (after two frames of the kernels' own loops): K3's stage, K4's state
-    and accum, K6's stage, K7's state and accum; and of the DI and
-    ``mono=False`` GI entry points' images after 8 frames.  ``ab`` compares
-    them between checkouts, bit for bit; it uses only what the ReSTIR
-    modules had before K4, K6 and K7 moved to the wide BVH."""
+    and accum, K6's stage, K7's state and accum, K5's stage, state and
+    accum in both visibility modes; of the DI and GI entry points' images
+    after 8 frames (GI mono, ``final_vis`` and ``mono=False``); and of K5's
+    (both modes) and K6's outputs on the textured Cornell box at 256².
+    ``ab`` compares them between checkouts, bit for bit; it uses only what
+    the ReSTIR modules had before K4, K6 and K7 moved to the wide BVH."""
     import copy
     import hashlib
 
@@ -2931,6 +3059,7 @@ def restir_bits() -> dict:
             z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
             _, gstate, _ = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view,
                                                    mono=False)
+            _, mstate, mstage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view)
             ppv = cam.proj_view
             if move:
                 cam.move_to(cam.position + np.float32([0.05, 0.0, 0.0]))
@@ -2944,10 +3073,46 @@ def restir_bits() -> dict:
             gacc, gst = torch.zeros((B, 3), device="cuda"), gstate.clone()
             mg.restir_gi_k2(scene, cam, 3, gi, gstage, gst, gacc)
             out[f"K7 state+accum {tag}"] = digest(gst, gacc)
-        for cls, st, mode in ((mr.MegakernelReSTIRDI, di, {}), (mg.MegakernelReSTIRGI, gi, dict(mono=False))):
+            out.update(k5_bits(scene, cam, gi, mstate, mstage, ppv, tag))
+        for cls, st, mode in ((mr.MegakernelReSTIRDI, di, {}), (mg.MegakernelReSTIRGI, gi, dict(mono=False)),
+                              (mg.MegakernelReSTIRGI, gi, {"mono": True}),
+                              (mg.MegakernelReSTIRGI, gi, {"final_vis": True})):
             r = cls(scene, copy.deepcopy(cam0), st, device="cuda", **mode)
-            out[f"{cls.__name__}{' mono=False' if mode else ''} {name} {w}x{h} 8 frames"] = digest(r.render_many(8))
+            label = "".join(f" {k}={v}" for k, v in mode.items())
+            out[f"{cls.__name__}{label} {name} {w}x{h} 8 frames"] = digest(r.render_many(8))
+    scene, cam = textured_scene(256, 256)
+    B = 256 * 256
+    z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+    _, mstate, mstage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view)
+    _, gstate, _ = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view, mono=False)
+    out["K6 stage textured cornell 256x256 static"] = digest(mg.restir_gi_k1(scene, cam, 3, gi, gstate,
+                                                                                cam.proj_view))
+    out.update(k5_bits(scene, cam, gi, mstate, mstage, cam.proj_view, "textured cornell 256x256 static"))
     torch.cuda.synchronize()
+    return out
+
+
+def k5_bits(scene, cam, st, state, stage, ppv, tag: str) -> dict:
+    """``restir_bits``'s digests of one K5 launch in each visibility mode
+    (frame 3 from the given previous state and stage): its stage, and its
+    state with the accum."""
+    import hashlib
+
+    import torch
+
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+
+    out = {}
+    B = cam.width * cam.height
+    for fv in (False, True):
+        acc, s_, g_ = torch.zeros((B, 3), device="cuda"), torch.empty_like(state), torch.empty_like(stage)
+        mg.restir_gi_mono(scene, cam, 3, st, state, stage, ppv, acc, s_, g_, final_vis=fv)
+        mode = " final_vis" if fv else ""
+        for label, ts in ((f"K5{mode} stage", (g_,)), (f"K5{mode} state+accum", (s_, acc))):
+            h = hashlib.sha256()
+            for t in ts:
+                h.update(t.contiguous().cpu().numpy().tobytes())
+            out[f"{label} {tag}"] = h.hexdigest()[:16]
     return out
 
 
@@ -2962,8 +3127,10 @@ def ab_turn(tree: str) -> None:
     steps a rep); each 5 reps after a warm-up.
     Before them, K2 NEE a launch of the whole image (``k2_by_shape``),
     K3-K7 (K5 in both visibility modes) a launch at ``SHAPES``
-    (``by_shape``; K6's two launches only in this checkout, whose K6
-    follows ``tile_clustered``) and K8 a
+    (``by_shape``; K3's two launches at ``SHAPES`` and ``BETWEEN``, K5's
+    and K6's at ``SHAPES`` and, in this checkout only, at ``BETWEEN``),
+    K5's and K6's ``gi_attribution`` where the tree's restir_gi.cu has the
+    section clocks, and K8 a
     launch at ``SHAPES`` with its loss and d_tri at Cornell 256²
     (``k8_by_shape``), with the registers and spills of that tree's K2 NEE
     and K3-K8 from its nvcc report, their occupancy where the tree reports
@@ -3014,9 +3181,15 @@ def ab_turn(tree: str) -> None:
         if K2_CLOCKS[2:] in f.read():                   # the tree's K2 has its section clocks
             progress("K2 attribution")
             k2["attribution"] = {k: v["shares"] for k, v in k2_attribution().items()}
+    tile_designs = SHAPES + BETWEEN if own else SHAPES
     tile = {"k2": k2, "k3": by_shape("k3", di), "k4": by_shape("k4", di),
-            "k5": by_shape("k5", gi), "k6": by_shape("k6", gi, designs=own),
-            "k7": by_shape("k7", gi, designs=own), "k8": k8_by_shape(outputs=True)}
+            "k5": by_shape("k5", gi, design_shapes=tile_designs), "k6": by_shape("k6", gi, design_shapes=tile_designs),
+            "k7": by_shape("k7", gi), "k8": k8_by_shape(outputs=True)}
+    gi_attr = None
+    with open(os.path.join(tree, "fypraytracer_tpu_torch", "csrc", "restir_gi.cu")) as f:
+        if GI_CLOCKS[2:] in f.read():                   # the tree's K5 and K6 have their section clocks
+            progress("K5 and K6 attribution")
+            gi_attr = {k: dict(shares=v["shares"], ms=v["ms"]) for k, v in gi_attribution().items()}
     out = {}
     cornell_sizes = (("cornell", 256, 256), ("cornell", 1920, 1088))
     for cls, tech, frames, shapes, mode in ((Renderer, "NEE_MIS", 8, cornell_sizes, {}),
@@ -3061,7 +3234,8 @@ def ab_turn(tree: str) -> None:
         ptxas.update({k: v for k, v in ptxas_report(kernels.build_info[lib]["log"]).items()
                       if k.startswith(("frames_kernel", "k3_candidates", "k4_shade", "gi_mono", "gi_stage",
                                        "diff_kernel"))})
-    print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas, bits=bits)), flush=True)
+    print("AB " + json.dumps(dict(paths=out, tile_kernels=tile, ptxas=ptxas, bits=bits, gi_attribution=gi_attr)),
+          flush=True)
 
 
 def ab(others: list) -> None:
@@ -3074,7 +3248,8 @@ def ab(others: list) -> None:
     and range over its reps, change / each side, and each turn's median
     device and host ms in the order of the turns; one line a shape of K2
     and K3-K8 with each side's device ms a launch; one line with each
-    side's K2 section shares (None for a tree whose K2 has no clocks); one
+    side's K2 section shares (None for a tree whose K2 has no clocks) and
+    one with its K5 and K6 section shares (``ab_gi_attribution``); one
     line with each side's registers, spills, occupancy and launches by
     shape; one line a K8 output with each turn's loss and d_tri off the change's first
     (``ab_k8_gates``); and one line a ReSTIR output whose digest any turn
@@ -3127,6 +3302,7 @@ def ab(others: list) -> None:
                  if "change" in med else None)
     emit("ab_k2_attribution", shares={label: [t["tile_kernels"]["k2"].get("attribution") for t in runs[label]]
                                        for label in labels})
+    emit("ab_gi_attribution", sections={label: [t.get("gi_attribution") for t in runs[label]] for label in labels})
     emit("ab_kernel_build", ptxas={label: runs[label][0]["ptxas"] for label in labels},
          occupancy={label: {k: runs[label][0]["tile_kernels"][k].get("occupancy_by_shape") for k in tile_kernels[1:]}
                     for label in labels},

@@ -124,7 +124,7 @@ constexpr int kBlock = 128;  // threads
 // The blocks of 128 a multiprocessor must hold at once (__launch_bounds__),
 // which caps a thread at 65,536 / (min_blocks * 128) registers: the most
 // blocks at which ptxas spills nothing (NEE 96 registers at 5, the others
-// 79-80 at 6, on an H100; k2_variants.py, PERF.md)
+// 79-80 at 6, on an H100; kernel_variants.py, PERF.md)
 template <int S>
 constexpr int min_blocks() { return S == NEE ? 5 : 6; }
 

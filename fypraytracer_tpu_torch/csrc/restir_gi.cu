@@ -44,22 +44,39 @@
 // draws), and a visibility ray is traced only where it can change the merge
 // (the neighbour counts and its p-hat > 0): both exact.
 //
-// What bounds it on an H100: the BVH walks, 1 + bounces closest-hit walks and
-// N segment walks a pixel (1 with final_vis), each a chain of dependent loads,
-// with the divergence of a warp's 32 paths; the stage and state rows (33 + 16
-// floats a pixel) are read and written once a frame, coalesced, plus N
-// neighbour reads of 17 rows that stay in L2 at these sizes.  One thread per
-// pixel, reservoirs in registers, buffers read through __ldg.  K5, K6 and K7
-// walk the 4-wide BVH (wide.cuh::WideTracer: trace_closest_wide1 and
-// segment_visible_wide1, inlined, each walk's stack in dynamic shared
-// memory).  K5 and K6 run each tile as one block of C threads or, where the
-// tiles are too few to fill the card, split over a cluster of blocks of 128
-// (tile.cuh).  K7 sums nothing over its tile (the tile enters only through
-// pix / C in spatial), so it needs no cluster: it runs blocks of 128, C / 128
-// of them a tile, which hold five blocks (20 warps) a multiprocessor at its 96
-// registers where one block of 512 is one (16); on an H100 they ran it 1.02x,
-// 1.06x and 1.43x faster than one block of C a tile at Cornell 256², stress
-// 128² and Cornell 1920x1088 (PERF.md Findings).
+// What bounds it on an H100 (chip_smoke.py::gi_attribution, the section
+// clocks below; PERF.md Findings): K5 and K6 run each tile as one block of C
+// threads or, where the tiles are too few to fill the card, split over a
+// cluster of blocks of 128 (tile.cuh).  A tile's 512 threads take 122-128
+// registers, the whole register file of a multiprocessor: 16 warps.  The
+// split blocks' bound sets no minimum, and ptxas gives them the same
+// registers, 4 blocks of 128 a multiprocessor; at 5 every one spills.  Of
+// the threads' cycles at Cornell 256² (1920x1088), K5 spends 34% (24%) in the path
+// sample's closest-hit walks, 17% (20%) at the tile's reprojection sum,
+// mostly waiting at its barrier for the tile's slowest path, 19% (31%) in
+// spatial reuse's neighbour reads and Jacobian, 7% (3%) on the primary walk,
+// 3% (5%) on the visibility walks and 19% (15%) in surface fetch, scatter
+// and shading; K6 44% (38%) in the path's walks and 23% (32%) at the sum;
+// on the stress scene the sum takes a third.  Each walk is a chain of
+// dependent loads through the 4-wide BVH (wide.cuh::WideTracer:
+// trace_closest_wide1 and segment_visible_wide1, inlined, each walk's stack
+// in dynamic shared memory); one thread a pixel, reservoirs in registers,
+// buffers read through __ldg.  Redesigns measured against this one in turns
+// and dropped: one closest-hit walk site for the primary ray and the path
+// (kernel_variants.py gi onewalk: 99-119 registers for a tile as one
+// block; 0.88-0.96x at 256² and 1920x1088, 1.06-1.14x on the stress
+// scene, where its split blocks ran 5 a multiprocessor); the primary hit
+// and the tile's sum in a pass of their own before K5 and K6, which then
+// run blocks of 128 without a cluster (20 warps at 96 registers, but the
+// pass is one latency-bound wave of primary walks, 0.047 ms at 256², and
+// K5 in blocks of 128 ran 1.27x slower at 1920x1088); the tile's sum moved
+// to just after the primary hit (its barrier share fell to 4-14%, and K5
+// and K6 ran 0.92-1.15x, slower at 256² and 1920x1088).  K7 sums nothing
+// over its tile (the tile enters only through pix / C in spatial), so it
+// needs no cluster: it runs blocks of 128, C / 128 of them a tile, which hold five
+// blocks (20 warps) a multiprocessor at its 96 registers where one block of
+// 512 is one (16); on an H100 they ran it 1.02x, 1.06x and 1.43x faster than
+// one block of C a tile at Cornell 256², stress 128² and Cornell 1920x1088.
 //
 // Floating point: built with -fmad=false (ops/kernels.py), so no product is
 // fused into a sum and every expression rounds as the plain PyTorch version's
@@ -70,7 +87,8 @@
 // fyp_restir_gi launches one kernel, chosen by `kernel`, on the given stream
 // (`clustered`: K5 and K6 split each tile over a cluster) and returns the
 // launch's error, or cudaGetLastError(); fyp_restir_gi_occupancy reports K5's
-// and K6's resident blocks and clusters.
+// and K6's resident blocks and clusters; fyp_restir_gi_clocks (built with
+// -DFYP_GI_CLOCKS) their section cycles.
 #include "shading.cuh"
 #include "tile.cuh"
 #include "wide.cuh"
@@ -135,6 +153,51 @@ struct Params {
   float* accum;           // K5, K7: (B, 3), the frame's HDR added
 };
 
+// Cycles a thread spends in each section of K5 and K6, built with
+// -DFYP_GI_CLOCKS (chip_smoke.py::gi_attribution): the whole kernel, the
+// primary hit, the path sample's walks (first hit and continuation), the
+// tile's reprojection sum with its barrier wait, the rest of temporal reuse,
+// spatial reuse's row reads and Jacobian, the visibility walks (per neighbour
+// or final_vis), and the stage, shade and state stores; the rest is the
+// camera ray, surface fetch, scatter and shading.  Each warp adds its
+// threads' sums into gi_clocks, which the C entry fyp_restir_gi_clocks hands
+// over and clears.  Without the macro every call below compiles to nothing.
+enum Section {
+  kTotal = 0, kPrimary = 1, kPathWalks = 2, kTileSum = 3, kTemporal = 4, kSpatialReads = 5, kVisWalks = 6,
+  kStores = 7, kSections = 8
+};
+#ifdef FYP_GI_CLOCKS
+__device__ unsigned long long gi_clocks[kSections];
+struct Clocks {
+  long long c[kSections] = {};
+  __device__ __forceinline__ long long now() const { return clock64(); }
+  // adds the cycles since t0 to section s and returns them
+  __device__ __forceinline__ long long add(Section s, long long t0) {
+    const long long dt = clock64() - t0;
+    c[s] += dt;
+    return dt;
+  }
+  __device__ __forceinline__ void sub(Section s, long long dt) { c[s] -= dt; }
+  // every thread of the warp calls it
+  __device__ void flush() {
+#pragma unroll
+    for (int s = 0; s < kSections; ++s) {
+      long long v = c[s];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if ((threadIdx.x & 31) == 0) atomicAdd(gi_clocks + s, static_cast<unsigned long long>(v));
+    }
+  }
+};
+#else
+struct Clocks {
+  __device__ __forceinline__ long long now() const { return 0; }
+  __device__ __forceinline__ long long add(Section, long long) { return 0; }
+  __device__ __forceinline__ void sub(Section, long long) {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
 // A reservoir of path samples (megakernel_restir_gi.py::_gi_res_update).
 struct PathRes {
   float3 sp, sn, rad;
@@ -191,7 +254,8 @@ __device__ __forceinline__ float rad_norm(float3 r) { return sqrtf(fmaxf(dot(r, 
 // walked by tr.  Every thread of the tile must call it (the tile's
 // reprojection offset is a reduction over the Tile, tile.cuh).
 template <bool T, class Tracer, class Tile>
-__device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathRes& res, uint32_t& key) {
+__device__ void stage1(const Params& P, const Tracer& tr, Clocks& clk, int pix, Own& o, PathRes& res,
+                       uint32_t& key) {
   const int C = P.C;
   const int tile = pix / C;
   const int lane = pix - tile * C;
@@ -200,7 +264,9 @@ __device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathR
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
   const float3 view = -dir;
+  long long t0 = clk.now();
   const Hit h0 = tr.closest(orig, dir);
+  clk.add(kPrimary, t0);
   o.hit = h0.tri >= 0;
   Surf s0{};
   o.em = zero3();
@@ -229,7 +295,9 @@ __device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathR
     const float3 f0 = cook_torrance(o.n, view, d0, o.alb, o.metal, o.rough);
     const float cos0 = fmaxf(dot(d0, o.n), 0.0f);
     const float3 o1 = o.pos + o.n * kOriginEps;
+    t0 = clk.now();
     const Hit h1 = tr.closest(o1, d0);
+    clk.add(kPathWalks, t0);
     const bool hit1 = h1.tri >= 0;
     Surf s1{};
     float3 em1 = zero3();
@@ -265,7 +333,9 @@ __device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathR
         continue;
       }
       const float3 no = cur.pos + cur.n * kOriginEps;
+      const long long tw = clk.now();
       const Hit h = tr.closest(no, l);
+      clk.add(kPathWalks, tw);
       if (h.tri < 0) {
         rad = rad + thr * P.sky;
         active = false;
@@ -292,6 +362,7 @@ __device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathR
 
   if (P.temporal) {
     // ---- temporal reuse through the tile-shared reprojection (:1095-1164)
+    const long long tt = clk.now();
     int prev_pix = 0;
     if (o.shade) {
       const float* pv = P.ppv;
@@ -310,7 +381,9 @@ __device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathR
                           P.height - 1);
       prev_pix = ppx + ppy * P.width;
     }
+    const long long ts = clk.now();
     const int2 sum = Tile::sum(o.shade, prev_pix - pix);
+    clk.sub(kTemporal, clk.add(kTileSum, ts));
     const int off = static_cast<int>(rintf(static_cast<float>(sum.x) / fmaxf(static_cast<float>(sum.y), 1.0f)));
     const int q = min(max(tile * C + off, 0), B - C) + lane;
     if (o.shade) {
@@ -326,6 +399,7 @@ __device__ void stage1(const Params& P, const Tracer& tr, int pix, Own& o, PathR
         res.w = w_of(res);
       }
     }
+    clk.add(kTemporal, tt);
   }
 }
 
@@ -355,8 +429,9 @@ __device__ void write_stage(float* sg, int B, int pix, const Own& o, const PathR
 // buffer), with per-neighbour visibility walked by tr when vis
 // (megakernel_restir_gi.py: 1185-1373 and 447-661).
 template <class Tracer>
-__device__ void spatial(const Params& P, const Tracer& tr, const float* nb, int pix, const Own& o, PathRes& res,
-                        uint32_t& key, bool vis) {
+__device__ void spatial(const Params& P, const Tracer& tr, Clocks& clk, const float* nb, int pix, const Own& o,
+                        PathRes& res, uint32_t& key, bool vis) {
+  const long long t0 = clk.now();
   const int C = P.C;
   const int tile = pix / C;
   const int lane = pix - tile * C;
@@ -394,19 +469,25 @@ __device__ void spatial(const Params& P, const Tracer& tr, const float* nb, int 
     const float jac = (cos_q > 0.0f ? cos_r / fmaxf(cos_q, 1e-12f) : 0.0f) * (dist_q * dist_q) /
                       fmaxf(dist_r * dist_r, 1e-20f);
     float p_n = jac > 0.0f ? rad_norm(radn) / fmaxf(jac, 1e-12f) : 0.0f;
-    if (vis && p_n > 0.0f && !tr.visible(spn + snn * kOriginEps, dr / dist_r, dist_r)) p_n = 0.0f;
+    if (vis && p_n > 0.0f) {
+      const long long tv = clk.now();
+      if (!tr.visible(spn + snn * kOriginEps, dr / dist_r, dist_r)) p_n = 0.0f;
+      clk.sub(kSpatialReads, clk.add(kVisWalks, tv));
+    }
     const float nb_m = row1(nb, GS_M, B, q);
     z = z + nb_m;
     res_update(res, spn, snn, radn, p_n * row1(nb, GS_W, B, q) * nb_m, nb_m, p_n, u_acc);
   }
   res.w = res.phat > 0.0f ? res.wsum / (fmaxf(z, 1.0f) * res.phat) : 0.0f;
+  clk.add(kSpatialReads, t0);
 }
 
 // The shade (restir_gi._shade), the frame's HDR added to accum and the state
 // written; final_vis traces one visibility ray for the winner, walked by tr.
 template <class Tracer>
-__device__ void shade_out(const Params& P, const Tracer& tr, int pix, const Own& o, const PathRes& res, float3 view,
-                          bool final_vis) {
+__device__ void shade_out(const Params& P, const Tracer& tr, Clocks& clk, int pix, const Own& o, const PathRes& res,
+                          float3 view, bool final_vis) {
+  const long long t0 = clk.now();
   const int B = P.width * P.height;
   float3 hdr;
   if (!o.hit) {
@@ -418,7 +499,11 @@ __device__ void shade_out(const Params& P, const Tracer& tr, int pix, const Own&
     const float dist = sqrtf(fmaxf(dot(ts, ts), 1e-20f));
     const float3 sd = ts / dist;
     bool lane_ok = res.w > 0.0f;
-    if (lane_ok && final_vis) lane_ok = tr.visible(res.sp + res.sn * kOriginEps, -sd, dist);
+    if (lane_ok && final_vis) {
+      const long long tv = clk.now();
+      lane_ok = tr.visible(res.sp + res.sn * kOriginEps, -sd, dist);
+      clk.sub(kStores, clk.add(kVisWalks, tv));
+    }
     float3 gi = zero3();
     if (lane_ok) {
       const float3 f = cook_torrance(o.n, view, sd, o.alb, o.metal, o.rough);
@@ -440,6 +525,7 @@ __device__ void shade_out(const Params& P, const Tracer& tr, int pix, const Own&
   st[GT_M * B + pix] = res.m;
   st[GT_WSUM * B + pix] = res.wsum;
   put3(st, GT_NRM, B, pix, o.n);
+  clk.add(kStores, t0);
 }
 
 // ---- the kernels ---------------------------------------------------------------------
@@ -452,16 +538,22 @@ __global__ void __launch_bounds__(kThreads) gi_mono(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = P.width * P.height;
   const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
+  Clocks clk;
+  const long long t_all = clk.now();
   Own o;
   PathRes res;
   uint32_t key;
-  stage1<T, WideTracer, ClusterTile>(P, tr, pix, o, res, key);
+  stage1<T, WideTracer, ClusterTile>(P, tr, clk, pix, o, res, key);
+  const long long ts = clk.now();
   write_stage(P.stage_out, B, pix, o, res);
+  clk.add(kStores, ts);
   key = fold(key, 8002u);
-  if (P.neighbors > 0) spatial(P, tr, P.stage_in, pix, o, res, key, !kFinalVis);
+  if (P.neighbors > 0) spatial(P, tr, clk, P.stage_in, pix, o, res, key, !kFinalVis);
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  shade_out(P, tr, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
+  shade_out(P, tr, clk, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
+  clk.add(kTotal, t_all);
+  clk.flush();
 }
 
 // K6: the stage of this frame, each tile a cluster of blocks of kThreads
@@ -470,11 +562,17 @@ template <bool T, int kThreads>
 __global__ void __launch_bounds__(kThreads) gi_stage1(Params P) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
+  Clocks clk;
+  const long long t_all = clk.now();
   Own o;
   PathRes res;
   uint32_t key;
-  stage1<T, WideTracer, ClusterTile>(P, tr, pix, o, res, key);
+  stage1<T, WideTracer, ClusterTile>(P, tr, clk, pix, o, res, key);
+  const long long ts = clk.now();
   write_stage(P.stage_out, P.width * P.height, pix, o, res);
+  clk.add(kStores, ts);
+  clk.add(kTotal, t_all);
+  clk.flush();
 }
 
 // K7: same-frame spatial reuse from K6's stage, the shade, the state;
@@ -499,10 +597,11 @@ __global__ void __launch_bounds__(kTileBlock) gi_stage2(Params P) {
   PathRes res{row3(sg, GS_SP, B, pix), row3(sg, GS_SN, B, pix), row3(sg, GS_RAD, B, pix), row1(sg, GS_PHAT, B, pix),
               row1(sg, GS_W, B, pix), row1(sg, GS_M, B, pix), row1(sg, GS_WSUM, B, pix)};
   uint32_t key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 8002u);
-  if (P.neighbors > 0) spatial(P, tr, sg, pix, o, res, key, true);
+  Clocks clk;  // K7 keeps no clocks: they are never flushed and compile away
+  if (P.neighbors > 0) spatial(P, tr, clk, sg, pix, o, res, key, true);
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  shade_out(P, tr, pix, o, res, -dir, false);
+  shade_out(P, tr, clk, pix, o, res, -dir, false);
 }
 
 using TileKernel = void (*)(Params);
@@ -603,3 +702,17 @@ extern "C" int fyp_restir_gi_occupancy(int kernel, int textured, int lanes, int 
   if (e == cudaSuccess) e = tile_occupancy(k, lanes, threads, smem, blocks_per_sm, clusters);
   return static_cast<int>(e);
 }
+
+#ifdef FYP_GI_CLOCKS
+// The cycles of each section (Section) of K5 and K6 summed over every thread
+// of every launch since the last call, as kSections unsigned 64-bit ints
+// copied to out (on the card), and the sums cleared, on the stream.
+extern "C" int fyp_restir_gi_clocks(void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemcpyFromSymbolAsync(out, gi_clocks, sizeof(gi_clocks), 0, cudaMemcpyDeviceToDevice, st);
+  void* sums = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&sums, gi_clocks);
+  if (e == cudaSuccess) e = cudaMemsetAsync(sums, 0, sizeof(gi_clocks), st);
+  return static_cast<int>(e);
+}
+#endif

@@ -234,7 +234,7 @@ __device__ inline float importance(const LightTree& lt, int node, float3 p) {
   // at four sites (two children, in pick_light and emitter_pmf), and eight
   // corners a site of normalize's three IEEE divisions made its NEE kernel
   // larger, with more registers live; one corner an iteration cut K2 NEE's
-  // time by a fifth or more on an H100 (k2_variants.py, PERF.md)
+  // time by a fifth or more on an H100 (kernel_variants.py, PERF.md)
 #pragma unroll 1
   for (int i = 0; i < 8; ++i) {
     float3 corner = make_float3((i & 4) ? hi.x : lo.x, (i & 2) ? hi.y : lo.y, (i & 1) ? hi.z : lo.z);

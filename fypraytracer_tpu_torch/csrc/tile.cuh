@@ -36,6 +36,15 @@
 // half the multiprocessors.  A
 // cluster runs within one GPC, and B / threads blocks are whole clusters
 // since C divides B.
+//
+// What the sum costs K5 and K6, and what was tried against it (section clocks,
+// restir_gi.cu; PERF.md Findings): the barrier waits for the tile's slowest
+// path, 17-20% of K5's threads' cycles at Cornell and 30-36% of K5's and
+// K6's on the stress scene.  Summed just after the primary hit, the wait fell
+// to 4-14% but K5 and K6 ran up to 1.15x slower; summed by a pass of its own
+// before them, which let them run blocks of 128 without a cluster (20 warps
+// a multiprocessor), the pass cost 0.047 ms at 256² and K5 lost 1.27x at
+// 1920x1088.  The sum stays in the frame kernel, after the path sample.
 #pragma once
 
 #include <cooperative_groups.h>

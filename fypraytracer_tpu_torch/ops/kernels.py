@@ -37,7 +37,8 @@ EXTRA_FLAGS = {"restir_gi": ["-fmad=false"], "megakernel_diff": ["-fmad=false"]}
 # -DFYP_WALK_CHECKS for the walks' range checks in wide.cuh, is a library of
 # its own, loaded in its place while EXTRA_FLAGS names them)
 _libs: dict[str, tuple[ctypes.CDLL, dict, tuple]] = {}
-# per library: {"path", "seconds" (0.0 when it was already built), "log"}
+# per library: {"path", "seconds" (0.0 when it was already built), "log"} of the
+# build last made or loaded
 build_info: dict[str, dict] = {}
 
 
@@ -66,7 +67,7 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}_{_source_hash()}.so")
     if os.path.exists(out):
-        if name not in build_info:
+        if build_info.get(name, {}).get("path") != out:     # the library last built or loaded
             log = ""
             if os.path.exists(out + ".log"):
                 with open(out + ".log") as f:

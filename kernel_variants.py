@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""A kernel family against variants of its own source, in turns, on one card.
+
+Families (``FAMILIES``): ``k2`` is K2 (csrc/megakernel.cu), ``gi`` is K5 and
+K6 (csrc/restir_gi.cu).  Each variant is the committed source with some text
+replaced (the family's ``variants``; ``+`` joins them, as ``mb5+onewalk``):
+
+- ``mbN``, both families: the launch bound's blocks a multiprocessor.  K2:
+  every sampler's ``min_blocks`` set to N (``mb0`` no minimum).  K5 and K6:
+  ``__launch_bounds__(128, N)`` on their tiles split over clusters, so at
+  most 65,536 / (128 N) registers a thread.  The committed bound,
+  ``__launch_bounds__(kThreads)``, sets no minimum: it lets the split
+  instantiation take up to 255 registers, and only a tile run as one block
+  of 512 threads is capped at 128 (by its size).
+- ``unrolled``, K2: the light tree's corner loop unrolled.
+- ``unbounded``, K2: NEE's shadow walk unbounded.
+- ``onewalk``, K5 and K6: ``stage1``'s primary ray, the path sample's first
+  hit and each continuation walked at one inlined site, at the top of a
+  loop that is not unrolled, with the same slots in every thread (slot 0
+  the primary hit, 1 the first hit, 2 .. bounces the continuation); the
+  random numbers are drawn in the same order, so the outputs are the
+  committed kernels' bit for bit.
+
+A variant's copy of ``csrc/`` goes under
+``fypraytracer_tpu_torch/_build/variants/``; each side runs in a process of
+its own (the build's flags and sources are process state), all sides built
+first, in parallel, then timed in turns (kept, the variants, the variants
+again in reverse, kept).  K2's time at a case is CUDA events around 3 reps of
+a run of launches after a warm-up, the median rep over the run's launches,
+at the shapes ``chip_smoke.py --ab`` times K2 (``K2_AB``) and with 1 and 2
+lanes at 1920x1088.  K5's (both visibility modes) and K6's is the kernel's
+own device time a launch by torch.profiler over 20 launches (5 at
+1920x1088; ``chip_smoke.kernel_ms``), frame 3 after two frames of their own
+loop, at the shapes ``chip_smoke.py`` times them (Cornell 256², stress 128²,
+Cornell 1920x1088), in the launch the wrapper picks (``picked``) and with
+every tile split over a cluster (``split``, ``restir_common.tile_clustered``
+stood in for) where the wrapper picks one block a tile.
+
+Prints one JSON line a side's build (registers and spill bytes of every
+instantiation of the family; for K5 and K6 also their resident blocks a
+multiprocessor at Cornell's and the stress scene's stacks), one a turn, and
+one a case with each side's median ms, its ratio to kept and kept's own
+spread between its first and its last turn (max / min), which bounds what a
+ratio can tell.  Needs a CUDA card:
+
+    python3 kernel_variants.py k2 mb8 unrolled
+    python3 kernel_variants.py gi onewalk mb5+onewalk
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+from contextlib import nullcontext
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+# K2: (technique, scene, width, height, frames, lanes or None for k2_lanes, launches a rep)
+K2_CASES = ([("NEE_MIS", "cornell", 256, 256, 8, None, 20), ("NEE_MIS", "cornell", 256, 256, 64, None, 5),
+             ("NEE_MIS", "stress", 128, 128, 8, None, 20), ("NEE_MIS", "cornell", 1920, 1088, 8, None, 3),
+             ("NEE_MIS", "cornell", 1920, 1088, 8, 1, 3), ("NEE_MIS", "cornell", 1920, 1088, 8, 2, 3)]
+            + [(t, "cornell", 256, 256, 8, None, 20) for t in ("UNIFORM", "COSINE", "GGX", "BRDF", "LIGHT_SOURCE")])
+# K5 and K6: (scene, width, height, launches timed)
+GI_CASES = (("cornell", 256, 256, 20), ("stress", 128, 128, 20), ("cornell", 1920, 1088, 5))
+
+# stage1's closest-hit walks at one site: the committed text from its camera
+# ray to the end of the path sample (first, last) and what replaces it
+ONE_WALK_SPAN = ("  float3 orig, dir;\n  camera_ray(P.cam, P.width, P.height, pix, orig, dir);\n"
+                 "  const float3 view = -dir;\n  long long t0 = clk.now();\n",
+                 "    res.w = w_of(res);\n  }\n")
+ONE_WALK = r"""  float3 ro, rd;  // the slot's ray
+  camera_ray(P.cam, P.width, P.height, pix, ro, rd);
+  res = PathRes{zero3(), zero3(), zero3(), 0.0f, 0.0f, 0.0f, 0.0f};
+  o.shade = false;
+  bool live = true;       // a ray to trace in this slot
+  bool active = false;    // the path goes on past its first hit
+  bool reconnect = false;
+  float pdf0 = 0.0f;
+  float3 fw = zero3();    // the first bounce's BRDF weight f0 * cos0 / pdf0
+  float3 s1_pos = zero3(), s1_n = zero3();
+  float3 thr = make_float3(1.0f, 1.0f, 1.0f);
+  float3 rad = zero3();
+  const int n_slots = 1 + max(P.bounces, 1);
+#pragma unroll 1
+  for (int slot = 0; slot < n_slots; ++slot) {
+    Hit h;
+    h.tri = -1;
+    h.t = -1.0f;
+    if (live) {
+      const long long tw = clk.now();
+      h = tr.closest(ro, rd);
+      clk.add(slot == 0 ? kPrimary : kPathWalks, tw);
+    }
+    const bool hit = live && h.tri >= 0;
+    Surf sf{};
+    float3 em = zero3();
+    if (hit) {
+      sf = tex_surface<T>(P.geo, P.mats, P.tex, h, ro, rd, slot > 0);
+      em = emission_of(P.mats, sf.mat);
+    }
+    const bool em_hit = dot(em, em) > 0.0f;
+    if (slot == 0) {
+      o.hit = hit;
+      o.em = em;
+      o.shade = hit && !em_hit;
+      o.pos = sf.pos;
+      o.n = sf.n;
+      o.alb = sf.alb;
+      o.rough = sf.rough;
+      o.metal = sf.metal;
+      o.t = hit ? h.t : -1.0f;
+      o.sky_direct = zero3();
+      key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 8001u);
+      if (!o.shade) break;
+      // ---- the BRDF path sample (megakernel_restir_gi.py:993-1092)
+      const float u_sel = next_uniform(key);
+      const float u1 = next_uniform(key);
+      const float u2 = next_uniform(key);
+      const float3 view = -rd;
+      float3 d0;
+      pdf0 = mixture_sample(o.n, view, o.alb, o.metal, o.rough, u_sel, u1, u2, d0);
+      const float3 f0 = cook_torrance(o.n, view, d0, o.alb, o.metal, o.rough);
+      const float cos0 = fmaxf(dot(d0, o.n), 0.0f);
+      fw = f0 * (cos0 / fmaxf(pdf0, 1e-12f));
+      ro = o.pos + o.n * kOriginEps;
+      rd = d0;
+      continue;  // the first hit is traced whatever pdf0
+    }
+    if (slot == 1) {
+      s1_pos = sf.pos;
+      s1_n = sf.n;
+      reconnect = hit && pdf0 > 0.0f;
+      if (!hit && pdf0 > 0.0f) o.sky_direct = fw * P.sky;
+      // the path continues from the sample point with unit throughput
+      if (reconnect && em_hit) rad = em;
+      active = reconnect && !em_hit;
+    } else if (live) {
+      if (!hit) {
+        rad = rad + thr * P.sky;
+        active = false;
+      } else if (em_hit) {
+        rad = rad + thr * em;
+        active = false;
+      }
+    }
+    live = false;
+    if (slot < P.bounces) {
+      // the next continuation from sf, seen along rd
+      const float r1 = next_uniform(key);
+      const float r2 = next_uniform(key);
+      const float r3 = next_uniform(key);
+      if (active) {
+        const float3 bv = -rd;
+        float3 l;
+        const float pdf = mixture_sample(sf.n, bv, sf.alb, sf.metal, sf.rough, r1, r2, r3, l);
+        const float3 f = cook_torrance(sf.n, bv, l, sf.alb, sf.metal, sf.rough);
+        const float scale = fmaxf(dot(l, sf.n), 0.0f) / fmaxf(pdf, 1e-12f);
+        thr = thr * f * scale;
+        live = pdf > 0.0f;
+        active = live;
+        ro = sf.pos + sf.n * kOriginEps;
+        rd = l;
+      }
+    }
+  }
+  if (o.shade) {
+    if (!reconnect) rad = zero3();
+    const float src_pdf = reconnect ? pdf0 : 0.0f;
+    const float p_hat = rad_norm(rad);
+    const float u0 = next_uniform(key);
+    const float w_ris = src_pdf > 0.0f ? p_hat / fmaxf(src_pdf, 1e-12f) : 0.0f;
+    res_update(res, s1_pos, s1_n, rad, w_ris, 1.0f, p_hat, u0);
+    res.w = w_of(res);
+  }
+"""
+
+
+def k2_mb(n: int) -> list:
+    return [("megakernel.cu", "constexpr int min_blocks() { return S == NEE ? 5 : 6; }",
+             f"constexpr int min_blocks() {{ return {max(n, 1)}; }}")]
+
+
+def gi_mb(n: int) -> list:
+    return [("restir_gi.cu", f"__launch_bounds__(kThreads) {k}(",
+             f"__launch_bounds__(kThreads, kThreads == kTileBlock ? {n} : 1) {k}(") for k in ("gi_mono", "gi_stage1")]
+
+
+# family -> (library, its kernels' names in ptxas_report, mbN's substitutions, the other variants)
+# a substitution is (file in csrc/, old text or (its first, its last line), new text)
+FAMILIES = {
+    "k2": ("megakernel", ("frames_kernel",), k2_mb, {
+        "unrolled": [("shading.cuh", "#pragma unroll 1\n  for (int i = 0; i < 8; ++i) {",
+                      "#pragma unroll\n  for (int i = 0; i < 8; ++i) {")],
+        "unbounded": [("megakernel.cu", "r = Ray{s.pos + s.n * kOriginEps, l_dir, __fadd_rn(dist, tol), kShadow};",
+                       "r = Ray{s.pos + s.n * kOriginEps, l_dir, kBig + 0.0f * tol, kShadow};")]}),
+    "gi": ("restir_gi", ("gi_mono", "gi_stage1"), gi_mb, {
+        "onewalk": [("restir_gi.cu", ONE_WALK_SPAN, ONE_WALK)]}),
+}
+
+
+def substitute(text: str, fn: str, old, new: str) -> str:
+    """text with old (or the span from old[0] through old[1]) replaced once."""
+    first, last = (old, None) if isinstance(old, str) else old
+    i = text.find(first)
+    j = i + len(first) if last is None else text.find(last, i) + len(last)
+    if i < 0 or j < i + len(first) or text.count(first) != 1:
+        raise RuntimeError(f"{fn} has not exactly one {first!r}{'' if last is None else ' ... ' + repr(last)}")
+    return text[:i] + new + text[j:]
+
+
+def use_variant(family: str, name: str):
+    """Point ops/kernels.py at the variant's copy of csrc/ (made once)."""
+    from fypraytracer_tpu_torch.ops import kernels
+
+    if name == "kept":
+        return kernels
+    _, _, mb, variants = FAMILIES[family]
+    dst = os.path.join(kernels.BUILD_DIR, "variants", f"{family}_{name}", "csrc")
+    if not os.path.isdir(dst):
+        tmp = f"{dst}.{os.getpid()}"
+        shutil.copytree(os.path.join(REPO, "fypraytracer_tpu_torch", "csrc"), tmp)
+        for part in name.split("+"):
+            if part.startswith("mb") and part[2:].isdigit():
+                subs = mb(int(part[2:]))
+            elif part in variants:
+                subs = variants[part]
+            else:
+                raise ValueError(f"unknown variant {part} of {family}")
+            for fn, old, new in subs:
+                path = os.path.join(tmp, fn)
+                with open(path) as f:
+                    text = f.read()
+                with open(path, "w") as f:
+                    f.write(substitute(text, fn, old, new))
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        os.replace(tmp, dst)
+    kernels.CSRC = dst
+    return kernels
+
+
+def build(family: str, name: str) -> None:
+    import chip_smoke
+
+    lib, prefixes = FAMILIES[family][:2]
+    kernels = use_variant(family, name)
+    kernels.build(lib)
+    line = dict(side=name, ptxas={k: v for k, v in chip_smoke.ptxas_report(kernels.build_info[lib]["log"]).items()
+                                  if k.startswith(prefixes)})
+    if family == "gi":
+        line["blocks_per_sm"] = chip_smoke.gi_blocks_per_sm()
+    print("BUILD " + json.dumps(line), flush=True)
+
+
+def time_k2() -> dict:
+    import torch
+
+    from fypraytracer_tpu_torch.config import RenderSettings, SamplingTechnique
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel as mk
+    from fypraytracer_tpu_torch.render.megakernel import morton_permuted_scene
+    from fypraytracer_tpu_torch.scene import procedural
+
+    sc = {}
+    for name, w, h in {(c[1], c[2], c[3]) for c in K2_CASES}:
+        if name == "stress":
+            builder, cam = procedural.stress(w, h)
+            sc[(name, w, h)] = (morton_permuted_scene(builder.compile(native=True))[0].to("cuda"), cam)
+        else:
+            builder, cam = procedural.cornell_box(w, h)
+            sc[(name, w, h)] = (builder.compile().to("cuda"), cam)
+    ms = {}
+    for tech, scene_name, w, h, frames, lanes, calls in K2_CASES:
+        scene, cam = sc[(scene_name, w, h)]
+        st = RenderSettings(technique=SamplingTechnique[tech], bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08))
+        lanes = lanes or mk.k2_lanes(frames)
+
+        def run():
+            mk.megakernel(scene, cam, 1, frames, st, lanes=lanes)
+
+        run()
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            reps.append(start.elapsed_time(end) / calls)
+        ms[f"{tech} {scene_name} {w}x{h} {frames} frames lanes{lanes}"] = statistics.median(reps)
+    for scene, _ in sc.values():
+        check_overflow(scene)
+    return ms
+
+
+def time_gi() -> dict:
+    from unittest import mock
+
+    import torch
+
+    import chip_smoke
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render import restir_common as rc
+
+    st = chip_smoke.settings_for("RESTIR_GI")
+    ms = {}
+    for scene_name, w, h, calls in GI_CASES:
+        scene, cam = chip_smoke.tile_scene(scene_name, w, h)
+        B = w * h
+        ppv = torch.as_tensor(cam.proj_view, device="cuda")
+        cam_t = rc.camera_matrices(cam, "cuda")
+        launches = ["picked"] + ([] if rc.pick_tile_launch(scene, B, cam_t.device)["clustered"] else ["split"])
+        for kernel in ("k5", "k5 final_vis", "k6"):
+            z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+            _, state, stage = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, st, ppv, ppv, mono=kernel != "k6")
+            outs = (torch.zeros((B, 3), device="cuda"), torch.empty_like(state), torch.empty_like(stage))
+            if kernel == "k6":
+                wrapper = mg.restir_gi_k1
+
+                def run():
+                    mg.restir_gi_k1(scene, cam, 3, st, state, ppv, outs[2], cam=cam_t)
+            else:
+                wrapper = mg.restir_gi_mono
+
+                def run(fv=kernel.endswith("final_vis")):
+                    mg.restir_gi_mono(scene, cam, 3, st, state, stage, ppv, *outs, final_vis=fv, cam=cam_t)
+            for launch in launches:
+                with mock.patch.object(rc, "tile_clustered", lambda *_: True) if launch == "split" else nullcontext():
+                    run()
+                    torch.cuda.synchronize()
+                    ms[f"{kernel} {scene_name} {w}x{h} {launch}"] = chip_smoke.kernel_ms(
+                        run, calls, launches=lambda: wrapper.launches)
+        check_overflow(scene)
+    return ms
+
+
+def time_side(family: str, name: str) -> None:
+    use_variant(family, name)
+    ms = time_k2() if family == "k2" else time_gi()
+    print("TURN " + json.dumps(dict(side=name, ms=ms)), flush=True)
+
+
+def main(family: str, variants: list) -> int:
+    if family not in FAMILIES:
+        raise SystemExit(f"usage: kernel_variants.py {{{','.join(FAMILIES)}}} VARIANT [VARIANT ...]")
+    sides = ["kept"] + variants
+    me = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, me, "--build", family, s], cwd=REPO, stdout=subprocess.PIPE,
+                              text=True) for s in sides]
+    for p in procs:
+        out, _ = p.communicate(timeout=900)
+        print(out, end="", flush=True)
+        if p.returncode != 0:
+            return p.returncode
+    turns = {s: [] for s in sides}
+    for side in sides + sides[::-1]:
+        r = subprocess.run([sys.executable, me, "--time", family, side], cwd=REPO, capture_output=True, text=True,
+                           timeout=900)
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("TURN ")]
+        if r.returncode != 0 or not line:
+            print(r.stdout + r.stderr[-3000:], flush=True)
+            return r.returncode or 1
+        print(line[0], flush=True)
+        turns[side].append(json.loads(line[0][5:])["ms"])
+    for case in turns["kept"][0]:
+        med = {s: statistics.median(t[case] for t in turns[s]) for s in sides}
+        kept = [t[case] for t in turns["kept"]]
+        print(json.dumps(dict(case=case, median_ms=med, over_kept={s: med[s] / med["kept"] for s in variants},
+                              kept_spread=max(kept) / min(kept))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--build"]:
+        build(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--time"]:
+        time_side(*sys.argv[2:4])
+    else:
+        sys.exit(main(sys.argv[1], sys.argv[2:]))

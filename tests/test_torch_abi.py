@@ -172,6 +172,17 @@ def test_megakernel_clocks_entry_is_bound_by_the_smoke_test():
     assert [w.split(":")[0] for name, _, w in BINDINGS if name == "fyp_megakernel_clocks"] == ["chip_smoke.py"]
 
 
+def test_restir_gi_clocks_entry_is_bound_by_the_smoke_test():
+    """K5's and K6's section clocks (built with ``-DFYP_GI_CLOCKS``) hand over
+    their sums through an entry that takes the output and the stream, and
+    ``chip_smoke.py::gi_attribution`` binds it; the ReSTIR GI entry and its
+    occupancy entry keep their parameters (the kernel, texturing, tile,
+    launch shape and stack depth, and the two counts out)."""
+    assert ENTRIES["fyp_restir_gi_clocks"] == ["pointer", "pointer"]
+    assert [w.split(":")[0] for name, _, w in BINDINGS if name == "fyp_restir_gi_clocks"] == ["chip_smoke.py"]
+    assert ENTRIES["fyp_restir_gi_occupancy"] == ["int"] * 5 + ["pointer"] * 2
+
+
 def test_parameter_kinds_are_read_as_declared():
     """The reader of the prototypes: pointers whatever their constness,
     ``unsigned int`` apart from ``int``; a type it does not know fails."""

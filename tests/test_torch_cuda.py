@@ -496,6 +496,47 @@ def test_restir_gi_kernels_match_plain_over_frames(cuda, mode, size):
     mk.overflow.check()
 
 
+# frames of 32, 50, 72, 98 and 128 tiles of 512 pixels: between them
+# restir_common.tile_clustered switches K5's and K6's launch on both scenes
+SWITCH = [(128, 128), (160, 160), (192, 192), (224, 224), (256, 256)]
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "stress"])
+@pytest.mark.parametrize("w, h", SWITCH, ids=[f"{w * h // 512}-tiles" for w, h in SWITCH])
+def test_gi_kernels_match_plain_where_the_tile_launch_switches(cuda, scene_name, w, h):
+    """K5 (both visibility modes) and K6 at those frames, one frame after
+    two of history with the camera moved before it: each tile split over a
+    cluster and one block give the same bits, K5's stage is K6's bit for
+    bit, and both hold to their plain versions on the same inputs under
+    chip_smoke.py's gate (fewer than 1% of pixels with an element off by
+    1e-3 relative)."""
+    if scene_name == "stress":
+        host, _ = _stress_host()
+        cam = tproc.stress(w, h)[1]
+        scene = host.to(cuda)
+    else:
+        scene, _, cam = _di_setup(cuda, w, h)
+    B = w * h
+    z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
+    _, state, stage = tmg.restir_gi_megakernel(scene, cam, *z, 1, 2, GI, cam.proj_view, cam.proj_view)
+    ppv = _moved(cam)
+    k6 = _launched(tmg.restir_gi_k1, True)(scene, cam, 3, GI, state, ppv)
+    assert torch.equal(k6, _launched(tmg.restir_gi_k1, False)(scene, cam, 3, GI, state, ppv))
+    assert _elements_off(k6, tmg.restir_gi_k1_plain(scene, cam, 3, GI, state, ppv)) < 0.01
+    for final_vis in (False, True):
+        outs = []
+        for fn in (_launched(tmg.restir_gi_mono, True), _launched(tmg.restir_gi_mono, False),
+                   tmg.restir_gi_mono_plain):
+            acc, st, sg = torch.zeros((B, 3), device=cuda), torch.empty_like(state), torch.empty_like(stage)
+            fn(scene, cam, 3, GI, state, stage, ppv, acc, st, sg, final_vis=final_vis)
+            outs.append((acc.T, st, sg))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+        assert torch.equal(outs[0][2], k6)
+        assert max(_elements_off(a, b) for a, b in zip(outs[0], outs[2])) < 0.01
+    ttrav.check_overflow(scene)
+
+
 # the technique each entry point of the long-run tests renders
 _TECHNIQUE_OF = {MegakernelReSTIRGI: SamplingTechnique.RESTIR_GI, MegakernelReSTIRDI: SamplingTechnique.RESTIR_DI,
                  MegakernelRenderer: SamplingTechnique.NEE_MIS}

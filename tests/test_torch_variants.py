@@ -1,0 +1,60 @@
+"""kernel_variants.py's substitutions against the committed kernel sources (CPU only).
+
+Each variant is the committed source with some text replaced; a replacement
+whose text the source no longer holds would time the committed kernel under a
+variant's name, so every one must match exactly once and change the file.
+"""
+
+import importlib.util
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "fypraytracer_tpu_torch", "csrc")
+
+
+def _variants():
+    spec = importlib.util.spec_from_file_location("kernel_variants", os.path.join(REPO, "kernel_variants.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+kv = _variants()
+CASES = [(family, name) for family, (_, _, _, variants) in kv.FAMILIES.items() for name in ["mb3", "mb5", *variants]]
+
+
+@pytest.mark.parametrize("family,name", CASES, ids=[f"{f}-{n}" for f, n in CASES])
+def test_every_variant_changes_the_committed_source(family, name):
+    _, _, mb, variants = kv.FAMILIES[family]
+    subs = mb(int(name[2:])) if name.startswith("mb") else variants[name]
+    for fn, old, new in subs:
+        with open(os.path.join(CSRC, fn)) as f:
+            text = f.read()
+        out = kv.substitute(text, fn, old, new)
+        assert out != text and new in out
+        first = old if isinstance(old, str) else old[0]
+        assert first not in out or first in new
+
+
+def test_a_missing_text_is_refused():
+    with pytest.raises(RuntimeError, match="has not exactly one"):
+        kv.substitute("a b c", "x.cu", "d", "e")
+    with pytest.raises(RuntimeError, match="has not exactly one"):
+        kv.substitute("a b a", "x.cu", "a", "e")
+    with pytest.raises(RuntimeError, match="has not exactly one"):
+        kv.substitute("a b c", "x.cu", ("b", "a"), "e")
+    assert kv.substitute("a b c d", "x.cu", ("b", "c"), "X") == "a X d"
+
+
+def test_one_walk_replaces_stage1s_walks_with_one_site():
+    with open(os.path.join(CSRC, "restir_gi.cu")) as f:
+        text = f.read()
+    out = text
+    for fn, old, new in kv.FAMILIES["gi"][3]["onewalk"]:
+        out = kv.substitute(out, fn, old, new)
+    stage1 = lambda t: t[t.index("__device__ void stage1("):t.index("// ---- the second half")]  # noqa: E731
+    assert stage1(text).count("tr.closest(") == 3
+    assert stage1(out).count("tr.closest(") == 1
+    assert "#pragma unroll 1" in stage1(out)
