@@ -13,13 +13,16 @@ interactive session), in phases:
   2. build: the five kernel sources compiled from ``csrc/`` with nvcc, one
      nvcc per source, started together, with K8 again without its
      gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c), K2
-     again with its section clocks (``-DFYP_K2_CLOCKS``, for phase 4b) and
-     K5-K6 with theirs (``-DFYP_GI_CLOCKS``, for phase 5b); ptxas's
+     again with its section clocks (``-DFYP_K2_CLOCKS``, for phase 4b),
+     K5-K6 with theirs (``-DFYP_GI_CLOCKS``, for phase 5b), K4 and K8 with
+     theirs and their block spans (``-DFYP_DI_CLOCKS``, ``-DFYP_DIFF_CLOCKS``,
+     for phases 5 and 5c); ptxas's
      registers and spills of every kernel, the untextured and the textured
      instantiations and K8's bounce counts by name; every K2 instantiation's
      registers, spills (none allowed) and resident blocks a multiprocessor
-     with Cornell's and the stress scene's stacks (``k2_build``), and the
-     same of every K5 and K6 instantiation (``gi_build``);
+     with Cornell's and the stress scene's stacks (``k2_build``), the
+     same of every K5 and K6 instantiation (``gi_build``), and no spill in
+     K4 or any K8 instantiation;
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
      wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
      random rays (a quad a ray) and on the 1920x1088 camera's rays (one
@@ -60,7 +63,11 @@ interactive session), in phases:
      stress 128² and Cornell 1920x1088, K3 as the wrapper picks its launch
      and both launches in turns (split, one block, one block, split), each
      beside its resident blocks and clusters (the CUDA runtime's
-     occupancy; the registers and spills are phase 2's);
+     occupancy; the registers and spills are phase 2's); then where K4's
+     time goes (``di_attribution``: each section's share of its threads'
+     cycles and the share of the launch after its median block has ended,
+     by the clocked build, at the same three shapes, and the clocks' cost
+     in turns);
   5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``), K6
      ``restir_gi_k1`` (both with the wide walks, tiles launched as K3's) and
      K7 ``restir_gi_k2`` (the wide walks, blocks of 128) each against its
@@ -78,11 +85,14 @@ interactive session), in phases:
      frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
      within 1e-4 of their largest entry), its d_mat against torch autograd of
      the port's cosine wavefront on the card (K1 traces; 1e-4, 1e-3), and one
-     launch per ``DiffRenderer.loss_and_grad``; where its time goes (the
-     kept kernel against the one without its gradient's atomics, in turns:
-     the ``k8_attribution`` line); and its device ms a launch at Cornell
-     256², stress 128² and Cornell 1920x1088 with 2 bounces and at 256²
-     with 4;
+     launch per ``DiffRenderer.loss_and_grad``; where its time goes
+     (``k8_attribution``, at Cornell 256², stress 128² and Cornell
+     1920x1088 with 2 bounces and at 256² with 4: each section's share of
+     its threads' cycles and the share of the launch after its median
+     block has ended, by the clocked build, the clocks' cost in turns, and
+     at 256² with 2 bounces the kept kernel against the one without its
+     gradient's atomics, in turns); and its device ms a launch at the same
+     four cases;
   5d. textured: on the textured Cornell box at 256² (the 64² checker and a
      seeded 1024² page, which the kernels' primary level box-filters to
      256²), K2's textured instantiation under NEE, cosine and light
@@ -447,14 +457,16 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = ("trace", "megakernel", "restir_di", "restir_gi", "megakernel_diff")
     # K8 without its gradient's atomics (k8_attribution), K2 with its section
-    # clocks (k2_attribution) and K5-K6 with theirs (gi_attribution), built
-    # beside the others, each by a process of its own: the flags are the
-    # build's global state
+    # clocks (k2_attribution), K5-K6 with theirs (gi_attribution), K8 and K4
+    # with theirs and their block spans (k8_attribution, di_attribution),
+    # built beside the others, each by a process of its own: the flags are
+    # the build's global state
     variants = {(lib, flag): subprocess.Popen(
         [sys.executable, "-c", "from fypraytracer_tpu_torch.ops import kernels; "
          f"kernels.EXTRA_FLAGS['{lib}'] = kernels.EXTRA_FLAGS.get('{lib}', []) + ['{flag}']; "
          f"kernels.build('{lib}')"], cwd=REPO)
-        for lib, flag in (("megakernel_diff", K8_NO_ATOMICS), ("megakernel", K2_CLOCKS), ("restir_gi", GI_CLOCKS))}
+        for lib, flag in (("megakernel_diff", K8_NO_ATOMICS), ("megakernel", K2_CLOCKS), ("restir_gi", GI_CLOCKS),
+                          ("megakernel_diff", DIFF_CLOCKS), ("restir_di", DI_CLOCKS))}
     try:
         with ThreadPoolExecutor(len(names)) as pool:
             list(pool.map(kernels.build, names))      # raises if any build failed
@@ -476,6 +488,10 @@ def phase_build() -> None:
          ptxas=ptxas)
     k2_build(ptxas)
     gi_build(ptxas)
+    spilled = {k: v for k, v in ptxas.items() if k.startswith(("k4_shade", "diff_kernel"))
+               and (v.get("spill_stores", 1) or v.get("spill_loads", 1))}
+    if spilled:
+        raise AssertionError(f"K4 or K8 instantiations spill (or report no spill line): {spilled}")
 
 
 def k2_build(ptxas: dict) -> None:
@@ -1050,6 +1066,7 @@ def phase_restir(summary: dict) -> None:
             raise AssertionError(f"K3+K4 disagree with restir_di_megakernel_plain on {name}")
     summary["restir_di_k3"].update(by_shape("k3", st))
     summary["restir_di_k4"].update(by_shape("k4", st))
+    di_attribution()
 
 
 # the shapes at which K3-K6 are timed: few tiles, a deep tree, many tiles
@@ -1368,6 +1385,17 @@ K2_ATTRIBUTION = (("cornell", 256, 256, 64, 10), ("stress", 128, 128, 8, 10), ("
 # the sections in the order of its Section enum
 GI_CLOCKS = "-DFYP_GI_CLOCKS"
 GI_SECTIONS = ("total", "primary", "path_walks", "tile_sum", "temporal", "spatial_reads", "vis_walks", "stores")
+# K8 and K4 built with their section clocks and block spans (csrc/clocks.cuh;
+# csrc/megakernel_diff.cu::Clocks, csrc/restir_di.cu::Clocks), and the
+# sections in the order of their Section enums
+DIFF_CLOCKS = "-DFYP_DIFF_CLOCKS"
+DIFF_SECTIONS = ("total", "camera", "walk_camera", "walk_1", "walk_2", "walk_3", "walk_4", "surface", "scatter",
+                 "loss_sum", "reverse_scan", "atomics")
+DI_CLOCKS = "-DFYP_DI_CLOCKS"
+DI_SECTIONS = ("total", "stage_reads", "neighbour_reads", "p_hat", "emitter", "shadow_walk", "writes")
+# k8_attribution's launches: (scene, width, height, bounces, launches a turn)
+K8_ATTRIBUTION = (("cornell", 256, 256, 2, 20), ("stress", 128, 128, 2, 20), ("cornell", 1920, 1088, 2, 10),
+                  ("cornell", 256, 256, 4, 20))
 
 
 def ulps(a, b):
@@ -1538,7 +1566,7 @@ def phase_diff(summary: dict) -> None:
                                       loss_rel_err=row["loss_rel_err"], d_tri_rel_err=row["d_tri_rel_err"],
                                       d_mat_rel_err=row["d_mat_rel_err"],
                                       parity_shape=f"cornell {DIFF_SIZE}x{DIFF_SIZE}, 2 bounces, frame 3",
-                                      atomics_share=k8_attribution(scene, cam, cam_t, tgt)["atomics_share"],
+                                      atomics_share=k8_attribution()["atomics_share"],
                                       **k8_by_shape(), **bound(walks, io))
     summary["diff_megakernel"].pop("outputs")
 
@@ -1581,34 +1609,160 @@ def k8_by_shape(outputs: bool = False) -> dict:
     return out
 
 
-def k8_attribution(scene, cam, cam_t, tgt) -> dict:
-    """Where K8's time goes at Cornell 256², 2 bounces: the kept kernel
-    against the same source built with ``-DFYP_DIFF_NO_ATOMICS`` (the
-    gradient's atomics compiled out, the sums kept live; phase 2 builds
-    it), in turns (kept, without, without, kept); the atomics' share is
-    1 − without / kept.  The walks' share is the parent's time against
-    this one's under ``--ab`` (PERF.md)."""
+def block_spans(spans, n_blocks: int) -> dict:
+    """A launch's span from its blocks' starts and ends on the card's clock
+    (``spans``: (2, n) int64 nanoseconds from a clocked build's reader):
+    the launch in µs from the first start to the last end, the last start,
+    the median and the longest block in µs, and the tail: the share of the
+    launch that runs after the median block has ended (for a launch of one
+    wave; with many waves the median block ends near the launch's middle
+    whatever its tail)."""
+    start, end = spans[0, :n_blocks], spans[1, :n_blocks]
+    if bool((start < 0).any()) or bool((end <= 0).any()):
+        raise AssertionError("a block of the clocked launch recorded no span")
+    t0 = start.min()
+    start, end = (start - t0).double() / 1e3, (end - t0).double() / 1e3
+    launch = end.max().item()
+    return dict(blocks=n_blocks, launch_us=launch, last_start_us=start.max().item(), median_end_us=end.median().item(),
+                median_block_us=(end - start).median().item(), longest_block_us=(end - start).max().item(),
+                tail_share=(launch - end.median().item()) / launch)
+
+
+def clocked(lib: str, reader, flag: str, sections: tuple, run, n_blocks: int, calls: int, launches,
+            others: dict | None = None) -> dict:
+    """One call of ``run(flags)`` with ``lib`` built with its section clocks
+    (``flag``; phase 2 builds it), read through the C entry that
+    ``reader()`` loads: the cycles of each section summed over the threads,
+    each section's share of the total (the rest under ``rest``) and the
+    blocks' spans (``block_spans``); then what the clocks cost: the kept
+    build's device ms against the clocked one's over ``calls`` launches, in
+    turns (kept, clocked, clocked, kept; ``others``, {name: extra flags},
+    are builds timed between them)."""
     from unittest import mock
 
+    import torch
+
     from fypraytracer_tpu_torch.ops import kernels
+
+    flags = list(kernels.EXTRA_FLAGS.get(lib, [])) + [flag]
+    sums = torch.zeros(len(sections), dtype=torch.int64, device="cuda")
+    spans = torch.zeros((2, n_blocks), dtype=torch.int64, device="cuda")
+    with mock.patch.dict(kernels.EXTRA_FLAGS, {lib: flags}):
+        read = reader()
+        stream = kernels.stream_ptr(sums.device)
+        kernels.check(read(kernels.ptr(sums), kernels.ptr(spans), n_blocks, stream), f"{lib} clocks")   # clears them
+        run(flags)
+        kernels.check(read(kernels.ptr(sums), kernels.ptr(spans), n_blocks, stream), f"{lib} clocks")
+    cycles = dict(zip(sections, sums.tolist()))
+    shares = {k: v / cycles["total"] for k, v in cycles.items() if k != "total"}
+    shares["rest"] = 1.0 - sum(shares.values())
+    kept = flags[:-1]
+    sides = {"kept": kept, "clocked": flags, **{k: kept + v for k, v in (others or {}).items()}}
+    order = ["kept", "clocked", *list(others or {}), *list(others or {})[::-1], "clocked", "kept"]
+    turns = in_turns({k: functools.partial(run, v) for k, v in sides.items()}, order, calls, launches=launches)
+    return dict(shares=shares, cycles=cycles, spans=block_spans(spans, n_blocks),
+                ms={k: statistics.median(v) for k, v in turns.items()}, turns_ms=turns)
+
+
+def k8_attribution() -> dict:
+    """Where K8's time goes, at each of ``K8_ATTRIBUTION`` (frame 3, a
+    seeded target): the kernel built with its section clocks and block
+    spans (``-DFYP_DIFF_CLOCKS``; phase 2 builds it), one launch: each
+    section's share of the threads' summed cycles (``DIFF_SECTIONS``; the
+    rest is the set-up, the keys and the contributions) and the share of
+    the launch after its median block has ended (``block_spans``); and what
+    the clocks cost, the kept kernel's device ms against the clocked one's
+    in turns (kept, clocked, clocked, kept).  At Cornell 256² with 2
+    bounces also the kept kernel against the same source built with
+    ``-DFYP_DIFF_NO_ATOMICS`` (the gradient's atomics compiled out, the
+    sums kept live), in turns; the atomics' share is 1 − without / kept.
+    One line a case; returns {case: row} and the atomics' share."""
+    import ctypes
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
     from fypraytracer_tpu_torch.render import megakernel_diff as md
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
 
-    alb = scene.materials.albedo
+    out: dict = {}
+    for name, w, h, bounces, calls in K8_ATTRIBUTION:
+        if name == "stress":
+            scene, cam = stress_scene(w, h)
+        else:
+            builder, cam = cornell_box(w, h)
+            scene = builder.compile().to("cuda")
+        tgt = torch.as_tensor(np.random.default_rng(2026).uniform(0.0, 0.5, (w * h, 3)).astype(np.float32),
+                              device="cuda")
+        cam_t, alb = camera_matrices(cam, "cuda"), scene.materials.albedo
 
-    def run(flags):
-        with mock.patch.dict(kernels.EXTRA_FLAGS, {"megakernel_diff": flags}):
-            md.diff_megakernel(scene, cam, alb, tgt, 3, 2, SKY, cam=cam_t)
+        def run(flags, scene=scene, cam=cam, alb=alb, tgt=tgt, cam_t=cam_t, bounces=bounces):
+            with mock.patch.dict(kernels.EXTRA_FLAGS, {"megakernel_diff": flags}):
+                md.diff_megakernel(scene, cam, alb, tgt, 3, bounces, SKY, cam=cam_t)
 
-    kept = kernels.EXTRA_FLAGS["megakernel_diff"]
-    turns = in_turns({"kept": functools.partial(run, kept),
-                      "without_atomics": functools.partial(run, kept + [K8_NO_ATOMICS])},
-                     ("kept", "without_atomics", "without_atomics", "kept"), 20,
-                     launches=lambda: md.diff_megakernel.launches)
-    med = {k: statistics.median(v) for k, v in turns.items()}
-    row = dict(ms=med["kept"], ms_without_atomics=med["without_atomics"],
-               atomics_share=1.0 - med["without_atomics"] / med["kept"], turns_ms=turns)
-    emit("k8_attribution", size=f"{DIFF_SIZE}x{DIFF_SIZE}", bounces=2, **row)
-    return row
+        # K8's blocks: four warps, each a tile of 8 x 4 pixels
+        row = clocked("megakernel_diff", lambda: kernels.load("megakernel_diff", "fyp_diff_clocks", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]), DIFF_CLOCKS, DIFF_SECTIONS, run,
+            ((w + 7) // 8 * ((h + 3) // 4) + 3) // 4, calls, lambda: md.diff_megakernel.launches,
+            {"without_atomics": [K8_NO_ATOMICS]} if (name, w, bounces) == ("cornell", 256, 2) else None)
+        if "without_atomics" in row["ms"]:
+            out["atomics_share"] = 1.0 - row["ms"]["without_atomics"] / row["ms"]["kept"]
+        key = f"{name} {w}x{h} bounces={bounces}"
+        out[key] = row
+        emit("k8_attribution", case=key, **row)
+        check_overflow(scene)
+    return out
+
+
+def di_attribution() -> dict:
+    """Where K4's time goes, at each of ``SHAPES`` (frame 3, after two
+    frames of the DI loop): the kernel built with its section clocks and
+    block spans (``-DFYP_DI_CLOCKS``; phase 2 builds it), one launch: each
+    section's share of the threads' summed cycles (``DI_SECTIONS``; the
+    rest is the camera ray, the keys, the reservoir updates and the final
+    sum) and the share of the launch after its median block has ended
+    (``block_spans``); and what the clocks cost, the kept kernel's device
+    ms against the clocked one's in turns (kept, clocked, clocked, kept).
+    One line a shape; returns {shape: row}."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render.restir_common import TILE_BLOCK, camera_matrices
+
+    st = settings_for("RESTIR_DI")
+    out = {}
+    for name, w, h in SHAPES:
+        scene, cam = tile_scene(name, w, h)
+        B = w * h
+        ppv = torch.as_tensor(cam.proj_view, device="cuda")
+        cam_t = camera_matrices(cam, "cuda")
+        em = mr.prepare_emissive_table(scene)
+        state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+        mr.restir_di_megakernel(scene, em, cam, state, 1, 2, st, ppv, ppv)
+        stage = mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)
+        acc, st_out = torch.zeros((B, 3), device="cuda"), torch.empty_like(state)
+
+        def run(flags, scene=scene, em=em, cam=cam, stage=stage, st_out=st_out, acc=acc, cam_t=cam_t):
+            with mock.patch.dict(kernels.EXTRA_FLAGS, {"restir_di": flags}):
+                mr.restir_di_k4(scene, em, cam, 3, st, stage, st_out, acc, cam=cam_t)
+
+        row = clocked("restir_di", lambda: kernels.load("restir_di", "fyp_restir_di_clocks", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]), DI_CLOCKS, DI_SECTIONS, run,
+            B // TILE_BLOCK, 10 if B > 256 * 256 else 20, lambda: mr.restir_di_k4.launches)
+        key = f"{name} {w}x{h}"
+        out[key] = row
+        emit("di_attribution", shape=key, **row)
+        check_overflow(scene)
+    return out
 
 
 # the textured phase's seeded page: larger than the kernels' 256² primary

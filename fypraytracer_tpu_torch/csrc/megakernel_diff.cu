@@ -3,14 +3,16 @@
 //
 // Replaces the TPU kernel fypraytracer_tpu/render/megakernel_diff.py::
 // make_diff_megakernel -> kernel (:117, launched at :241).  One thread owns
-// one pixel (128-thread blocks, as K2):
+// one pixel, each warp a tile of 8 x 4 pixels, a block of 128 threads four
+// such tiles:
 //   * forward: K2's cosine path for one frame and one sample (camera_ray,
 //     the closest hit, surface, cosine_dir), keys fold(fold(fold(pcg(pix),
 //     frame), 0), 0) (megakernel_diff.py:144-147); NL = bounces scatter
 //     levels, level j scattering at the primary hit (j = 0) or at the hit of
-//     level j-1's trace.  Each level keeps its throughput factor g_c = f_c *
-//     cos / pdf, dg_c = df_c/dalb_c * cos / pdf, its surface's triangle id and
-//     its radiance contribution in registers (at most 4 levels).  A primary
+//     level j-1's trace.  Each level keeps in registers (at most 4 levels)
+//     the ratio dg_c / g_c of its throughput factor's albedo derivative dg_c
+//     = df_c/dalb_c * cos / pdf to the factor g_c = f_c * cos / pdf (0 where
+//     g_c <= 0), its surface's triangle id and its radiance contribution.  A primary
 //     miss outputs the sky, an emissive primary hit its emission; both, and
 //     a level whose pdf <= 0, carry no gradient.  The BRDF and its albedo
 //     derivative are the JAX kernel's own _f_and_dfdalb (:67-96), term for
@@ -19,8 +21,8 @@
 //     warp shuffles, then over the block's 4 warps in shared memory, then one
 //     atomicAdd a block into one float;
 //   * reverse scan (:215-225): over the levels in reverse, suffix_c +=
-//     contrib_c(level) before use, gsel_c = a_c * suffix_c * dg_c / g_c where
-//     g_c > 0 (a_c = 2 err_c / (3B)), added into d_tri[tri * 3 + c].  The TPU
+//     contrib_c(level) before use, gsel_c = a_c * suffix_c * (dg_c / g_c)
+//     (a_c = 2 err_c / (3B)), added into d_tri[tri * 3 + c].  The TPU
 //     kernel forms a one-hot (T, C) product on the MXU instead.
 //
 // What bounds it on an H100: the 1 + bounces BVH walks a pixel, as K2's
@@ -43,20 +45,42 @@
 // (0.2130 to 0.1860 at 4), and cost 0.8% at 1024², where the atomics are
 // 1% of it.  Float atomics sum in an order that changes between runs.
 //
+// Where its time goes (section clocks, below; PERF.md Findings): at Cornell
+// 256² and 2 bounces the walks take 59% of the threads' cycles, the loss
+// sum's barrier wait 16%, surface and scatter 10%, the atomics 0.04%; the
+// launch is one wave, and 36% of it runs after its median block has
+// ended.  So a warp walks a tile of 8 x 4 pixels rather than 32 of a row:
+// its rays leave neighbouring points, so its lanes share more of their
+// walks and its blocks end closer together (0.98x at 256², 0.95x on
+// stress 128², 0.99x at 1920x1088, 0.97x at 4 bounces).  Keys, rays and
+// targets stay on the pixel index, so only the float atomics' order
+// changes.  A level keeps dg / g in place of g and dg, three registers
+// fewer: with 2 bounces ptxas took 72 registers and spilled 24 bytes,
+// now 71 and none (63-95 registers over NL = 1-4, no spills), without
+// giving up a block a multiprocessor (a launch bound of 5 blocks also
+// removes the spills, and lost 1.09x at 1920x1088).  Both together:
+// 0.96x, 0.94x, 0.96x and 0.95x of the parent's kernel, on an H100.
+//
 // Built with -DFYP_DIFF_NO_ATOMICS, the gradient's atomics are compiled out
 // (the sums stay live): chip_smoke.py times the kernel so built against the
-// kept one to read the atomics' share.  Built with -DFYP_WALK_CHECKS, the
-// walks check their state (wide.cuh).
+// kept one to read the atomics' share.  Built with -DFYP_DIFF_CLOCKS, each
+// thread counts the cycles of its sections and each block its span on the
+// card's clock (Clocks below, clocks.cuh) for chip_smoke.py::k8_attribution.
+// Built with -DFYP_WALK_CHECKS, the walks check their state (wide.cuh).
 //
 // Built with -fmad=false (ops/kernels.py::EXTRA_FLAGS), so that no product
-// is fused into a sum and every expression rounds as in the plain PyTorch
-// version (render/megakernel_diff.py::diff_plain).
+// is fused into a sum and every expression but the reverse scan's product
+// (a_c * suffix_c times the kept ratio, where diff_plain divides last)
+// rounds as in the plain PyTorch version
+// (render/megakernel_diff.py::diff_plain).
 //
 // C interface (loaded with ctypes by render/megakernel_diff.py::
-// diff_megakernel): zeroes the loss and d_tri (T, 3) on the stream, launches,
-// and returns cudaGetLastError() (cudaErrorInvalidValue for bounces outside
-// 1-4, or for 128 stacks of the depth that do not fit a block's shared
-// memory).
+// diff_megakernel): fyp_diff_megakernel zeroes the loss and d_tri (T, 3) on
+// the stream, launches, and returns cudaGetLastError() (cudaErrorInvalidValue
+// for bounces outside 1-4, or for 128 stacks of the depth that do not fit a
+// block's shared memory); fyp_diff_clocks (built with -DFYP_DIFF_CLOCKS)
+// hands over the section cycles and block spans since its last call.
+#include "clocks.cuh"
 #include "shading.cuh"
 #include "wide.cuh"
 
@@ -120,6 +144,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Cycles a thread spends in each section of K8, built with -DFYP_DIFF_CLOCKS
+// (chip_smoke.py::k8_attribution): the whole kernel, the camera ray, the walk
+// of each level (kWalk: the camera ray's, then each scatter level's), the
+// surface and emission of a hit, a level's scatter with f_and_dfdalb, the
+// loss sum with its barrier wait, the reverse scan's warp sums and the
+// gradient's atomics; the rest is the set-up, the keys and the
+// contributions.  Each warp adds its threads' sums into diff_clocks and its
+// span into diff_spans, which the C entry fyp_diff_clocks hands over and
+// clears.  Without the macro every call below compiles to nothing.
+enum Section {
+  kTotal = 0, kCamera = 1, kWalk = 2, kSurface = 7, kScatter = 8, kLoss = 9, kScan = 10, kAtomics = 11,
+  kSections = 12
+};
+#ifdef FYP_DIFF_CLOCKS
+__device__ unsigned long long diff_clocks[kSections];
+__device__ BlockSpans diff_spans;
+struct Clocks : SectionClocks<kSections> {
+  __device__ __forceinline__ void begin() const { SectionClocks::begin(diff_spans); }
+  __device__ void flush() const { SectionClocks::flush(diff_clocks, diff_spans); }
+};
+#else
+using Clocks = NoClocks;
+#endif
+
 // One channel of a triangle's gradient into d_tri
 __device__ __forceinline__ void add_grad(float* p, float v) {
 #ifdef FYP_DIFF_NO_ATOMICS
@@ -131,18 +179,26 @@ __device__ __forceinline__ void add_grad(float* p, float v) {
 
 template <int NL>
 __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  Clocks clk;
+  clk.begin();
+  const long long t_all = clk.now();
   const int n_pix = P.width * P.height;
+  // each warp a tile of 8 x 4 pixels; a lane outside the image takes pix = n_pix
+  const int tiles_x = (P.width + 7) / 8;
+  const int wt = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int px = (wt % tiles_x) * 8 + (threadIdx.x & 7);
+  const int py = (wt / tiles_x) * 4 + ((threadIdx.x >> 3) & 3);
+  const int pix = px < P.width && py < P.height ? py * P.width + px : n_pix;
   const float inv_n = 1.0f / static_cast<float>(3 * n_pix);
 
-  // per level: g, dg, contribution, triangle (-1: no gradient)
-  float g[NL][3], dg[NL][3], ct[NL][3];
+  // per level: dg / g, contribution, triangle (-1: no gradient)
+  float rg[NL][3], ct[NL][3];
   int tri[NL];
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
     tri[j] = -1;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) g[j][i] = dg[j][i] = ct[j][i] = 0.0f;
+    for (int i = 0; i < 3; ++i) rg[j][i] = ct[j][i] = 0.0f;
   }
 
   // ---- forward; every thread of the block stays to the end (warp sums)
@@ -150,7 +206,9 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
   if (pix < n_pix) {
     const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
     float3 o, d;
+    long long t0 = clk.now();
     camera_ray(P.cam, P.width, P.height, pix, o, d);
+    clk.add(kCamera, t0);
     tgt = ldg3(P.target, pix);
     uint32_t key = 0u;
     float3 thr = make_float3(1.0f, 1.0f, 1.0f);
@@ -161,12 +219,16 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
     for (int j = -1; j < NL; ++j) {
       if (j >= 0) {
         // level j scatters at s
+        t0 = clk.now();
         const float u1 = next_uniform(key);
         const float u2 = next_uniform(key);
         const float3 l = cosine_dir(s.n, u1, u2);
         const float cos_t = fmaxf(dot(l, s.n), 0.0f);
         const float pdf = cos_t * kInvPi;
-        if (!(pdf > 0.0f)) break;
+        if (!(pdf > 0.0f)) {
+          clk.add(kScatter, t0);
+          break;
+        }
         float f[3], df[3];
         f_and_dfdalb(s.n, view, l, s.alb, s.rough, s.metal, f, df);
         const float scale = cos_t / pdf;
@@ -177,24 +239,26 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
         for (int k = 0; k < NL; ++k) {
           if (k == j) {
 #pragma unroll
-            for (int i = 0; i < 3; ++i) {
-              g[k][i] = gj[i];
-              dg[k][i] = df[i] * scale;
-            }
+            for (int i = 0; i < 3; ++i) rg[k][i] = gj[i] > 0.0f ? df[i] * scale / gj[i] : 0.0f;
             tri[k] = lvl_tri;
           }
         }
         thr = thr * make_float3(gj[0], gj[1], gj[2]);
         o = s.pos + s.n * kOriginEps;
         d = l;
+        clk.add(kScatter, t0);
       }
+      t0 = clk.now();
       const Hit h = tr.closest(o, d);
+      clk.add(kWalk + 1 + j, t0);
       Surf nxt{};
       float3 em = make_float3(0.0f, 0.0f, 0.0f);
+      t0 = clk.now();
       if (h.tri >= 0) {
         nxt = surface(P.geo, P.mats, h, o, d);
         em = emission_of(P.mats, nxt.mat);
       }
+      clk.add(kSurface, t0);
       const bool lit = dot(em, em) > 0.0f;
       if (j < 0) {
         if (h.tri < 0) {
@@ -228,6 +292,7 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
   }
 
   // ---- loss: warp shuffles, the block's warps in shared memory, one atomic
+  long long t_sum = clk.now();
   const float e[3] = {out.x - tgt.x, out.y - tgt.y, out.z - tgt.z};
   __shared__ float part[kWarps];
   const float sq = warp_sum(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]);
@@ -240,8 +305,10 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
     for (int w = 0; w < kWarps; ++w) s += part[w];
     atomicAdd(P.loss, s * inv_n);
   }
+  clk.add(kLoss, t_sum);
 
   // ---- reverse scan over the levels, gradient into d_tri
+  t_sum = clk.now();
   float adj[3], suffix[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int i = 0; i < 3; ++i) adj[i] = 2.0f * e[i] / static_cast<float>(3 * n_pix);
@@ -251,7 +318,7 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       suffix[i] = suffix[i] + ct[j][i];
-      gs[i] = g[j][i] > 0.0f ? adj[i] * suffix[i] * dg[j][i] / g[j][i] : 0.0f;
+      gs[i] = adj[i] * suffix[i] * rg[j][i];
     }
     const int t = tri[j];
     // the lanes that hold one triangle: each group of two or more sums its
@@ -268,17 +335,24 @@ __global__ void __launch_bounds__(kBlock) diff_kernel(Params P) {
 #pragma unroll
       for (int i = 0; i < 3; ++i) s[i] = warp_sum(in ? gs[i] : 0.0f);
       if (lane == src) {
+        const long long ta = clk.now();
 #pragma unroll
         for (int i = 0; i < 3; ++i)
           if (s[i] != 0.0f) add_grad(P.d_tri + 3 * t + i, s[i]);
+        clk.sub(kScan, clk.add(kAtomics, ta));
       }
     }
     if (alone && t >= 0) {
+      const long long ta = clk.now();
 #pragma unroll
       for (int i = 0; i < 3; ++i)
         if (gs[i] != 0.0f) add_grad(P.d_tri + 3 * t + i, gs[i]);
+      clk.sub(kScan, clk.add(kAtomics, ta));
     }
   }
+  clk.add(kScan, t_sum);
+  clk.add(kTotal, t_all);
+  clk.flush();
 }
 
 using DiffKernel = void (*)(Params);
@@ -320,6 +394,24 @@ extern "C" int fyp_diff_megakernel(
                        : bounces == 3 ? diff_kernel<3> : diff_kernel<4>;
   err = allow_stack_smem(k, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k<<<(n_pix + kBlock - 1) / kBlock, kBlock, smem, st>>>(P);
+  k<<<((width + 7) / 8 * ((height + 3) / 4) + kWarps - 1) / kWarps, kBlock, smem, st>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef FYP_DIFF_CLOCKS
+// The cycles of each section (Section) summed over every thread of every
+// launch since the last call, as kSections unsigned 64-bit ints copied to
+// sums_out, and the first n_blocks blocks' starts and ends in nanoseconds,
+// as (2, n_blocks) unsigned 64-bit ints copied to spans_out (both on the
+// card); then both cleared, on the stream.
+extern "C" int fyp_diff_clocks(void* sums_out, void* spans_out, int n_blocks, void* stream) {
+  void* sums = nullptr;
+  void* spans = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&sums, diff_clocks);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&spans, diff_spans);
+  if (e == cudaSuccess)
+    e = read_clocks(static_cast<unsigned long long*>(sums), kSections, static_cast<BlockSpans*>(spans), sums_out,
+                    spans_out, n_blocks, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+#endif

@@ -33,7 +33,16 @@
 //     >= 0.906 and it shades (:489-544);
 //   * the shadow ray leaves pos + n * 1e-12 towards a uniform point on the
 //     chosen emitter; visible means its closest hit is that emitter; an escaping
-//     shadow ray adds the sky (:546-590);
+//     shadow ray adds the sky (:546-590).  K4 walks it first bounded by the
+//     emitter, t_max = dist + tol, tol = max(1e-4, 1e-3 dist) (K2's NEE rule,
+//     megakernel.cu), and walks it again unbounded only where that walk
+//     finds no hit: a bounded walk finds every hit nearer than t_max as the
+//     unbounded walk does (ties to the lowest id), so where it finds one it
+//     is the unbounded walk's closest hit, and where it finds none the second
+//     walk tells an escaping ray (the sky) from one blocked past the emitter.
+//     Both passes run at one inlined walk site; the result is the unbounded
+//     walk's, bit for bit (tests/test_torch_k4_shadow.py holds the premise
+//     and counts the second passes);
 //   * textures (megakernel_restir.py:278-288): K3 is built with and without
 //     the albedo fetch (shading.cuh::tex_surface); its primary hit reads the
 //     primary level, and K4 shades with the albedo K3 staged (S_ALB);
@@ -56,10 +65,16 @@
 // one block a tile at every shape timed, by 1.46x at 1920x1088 (on an H100,
 // PERF.md Findings).
 //
+// Built with -DFYP_DI_CLOCKS, K4 counts the cycles of its sections and each
+// block its span on the card's clock (Clocks below, clocks.cuh) for
+// chip_smoke.py::di_attribution.
+//
 // C interface (loaded with ctypes by render/megakernel_restir.py): each entry
 // launches one kernel on the given stream and returns the launch's error (K3)
 // or cudaGetLastError() (K4); fyp_restir_di_k3_occupancy reports K3's resident
-// blocks and clusters.
+// blocks and clusters; fyp_restir_di_clocks (built with -DFYP_DI_CLOCKS)
+// hands over K4's section cycles and block spans since its last call.
+#include "clocks.cuh"
 #include "shading.cuh"
 #include "tile.cuh"
 #include "wide.cuh"
@@ -275,6 +290,30 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
   st[S_RM * B + pix] = res.m;
 }
 
+// Cycles a thread of K4 spends in each section, built with -DFYP_DI_CLOCKS
+// (chip_smoke.py::di_attribution): the whole kernel, its stage reads, the
+// spatial loop's neighbour reads (with their tests) and its p-hat
+// evaluations, the point on the emitter with the BRDF and the geometry
+// term, the shadow walk (both passes), and the accum and state writes; the
+// rest is the camera ray, the keys, the reservoir updates and the final
+// sum.  Each warp adds its threads' sums into di_clocks and its span into
+// di_spans, which the C entry fyp_restir_di_clocks hands over and clears.
+// Without the macro every call below compiles to nothing.
+enum Section {
+  kTotal = 0, kStageReads = 1, kNeighbourReads = 2, kPHat = 3, kEmitter = 4, kShadowWalk = 5, kWrites = 6,
+  kSections = 7
+};
+#ifdef FYP_DI_CLOCKS
+__device__ unsigned long long di_clocks[kSections];
+__device__ BlockSpans di_spans;
+struct Clocks : SectionClocks<kSections> {
+  __device__ __forceinline__ void begin() const { SectionClocks::begin(di_spans); }
+  __device__ void flush() const { SectionClocks::flush(di_clocks, di_spans); }
+};
+#else
+using Clocks = NoClocks;
+#endif
+
 struct K4Params {
   const float* cam;  // (2, 4, 4)
   int width, height;
@@ -294,6 +333,9 @@ struct K4Params {
 // K4: blocks of kTileBlock threads, C / kTileBlock of them a tile, the shadow
 // ray through the wide BVH
 __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
+  Clocks clk;
+  clk.begin();
+  const long long t_all = clk.now();
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int C = P.C;
   const int tile = pix / C;
@@ -301,6 +343,7 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
   const int B = P.width * P.height;
   const float* sg = P.stage;
 
+  long long t0 = clk.now();
   const float3 pos = row3(sg, S_POS, B, pix);
   const float3 n = row3(sg, S_NRM, B, pix);
   const float3 alb = row3(sg, S_ALB, B, pix);
@@ -311,6 +354,7 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
   const bool hit = __ldg(sg + S_HIT * B + pix) > 0.5f;
   Res res{__ldg(sg + S_RIDX * B + pix), __ldg(sg + S_RW * B + pix), __ldg(sg + S_RPDF * B + pix),
           __ldg(sg + S_RWSUM * B + pix), __ldg(sg + S_RM * B + pix)};
+  clk.add(kStageReads, t0);
 
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
@@ -325,6 +369,7 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
     const int px = pix % P.width, py = pix / P.width;
     uint32_t okey = fold(fold(fold(pcg(0xD1CEu), P.frame), 0u), 7002u);
     for (int k = 0; k < P.neighbors; ++k) {
+      t0 = clk.now();
       const float ux = next_uniform(okey);
       const float uy = next_uniform(okey);
       const int dx = static_cast<int>(__fmul_rn(__fsub_rn(__fmul_rn(ux, 2.0f), 1.0f), P.radius));
@@ -340,8 +385,11 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
       const float nb_idx = __ldg(sg + S_RIDX * B + q);
       const float nb_w = __ldg(sg + S_RW * B + q);
       const float nb_m = __ldg(sg + S_RM * B + q);
+      clk.add(kNeighbourReads, t0);
       const float u_acc = next_uniform(key);
+      t0 = clk.now();
       const float p_n = p_hat(P.em, slot(P.em, nb_idx), pos, n, view, alb, rough, metal);
+      clk.add(kPHat, t0);
       res_update(sp, nb_idx, p_n * nb_w * nb_m, nb_m, p_n, u_acc, ok);
       z = z + ((ok && p_n > 0.0f) ? nb_m : 0.0f);
     }
@@ -361,6 +409,7 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
   } else if (!shade) {
     hdr = row3(sg, S_EMIT, B, pix);
   } else {
+    t0 = clk.now();
     const int e = slot(P.em, res.idx);
     const float su = sqrtf(up1);
     const float b1 = su * (1.0f - up2);
@@ -374,13 +423,28 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
     const float cos_y = fmaxf(-dot(l, ldg3(P.em.normal, e)), 0.0f);
     const float area = fmaxf(__ldg(P.em.area + e), 1e-20f);
     const float thr_s = cos_x * cos_y * area / dist2;
-    const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
-    const Hit sh = tr.closest(pos + n * kOriginEps, l);
+    clk.add(kEmitter, t0);
+    // the shadow walk bounded by the emitter, then unbounded where it found
+    // no hit: one walk site, at most two passes
+    t0 = clk.now();
+    const LaneStack stack = lane_stack(P.wide.stack_depth);
+    const float3 so = pos + n * kOriginEps;
+    const float dist = sqrtf(dist2);
+    float t_max = __fadd_rn(dist, fmaxf(1e-4f, __fmul_rn(dist, 1e-3f)));
+    Hit sh;
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      sh = trace_closest_wide1(P.wide, stack, so, l, t_max);
+      if (sh.tri >= 0) break;
+      t_max = kBig;
+    }
+    clk.add(kShadowWalk, t0);
     const int sel_tri = __ldg(P.em.tri + e);
     hdr = make_float3(0.0f, 0.0f, 0.0f);
     if (sh.tri == sel_tri && sel_tri >= 0) hdr = f * thr_s * ldg3(P.em.emission, e) * res.w;
     if (sh.tri < 0) hdr = hdr + f * thr_s * P.sky;
   }
+  t0 = clk.now();
   P.accum[3 * pix + 0] += hdr.x;
   P.accum[3 * pix + 1] += hdr.y;
   P.accum[3 * pix + 2] += hdr.z;
@@ -393,6 +457,9 @@ __global__ void __launch_bounds__(kTileBlock) k4_shade(K4Params P) {
   st[ST_RM * B + pix] = res.m;
   put3(st, ST_NRM, B, pix, n);
   st[ST_T * B + pix] = t_own;
+  clk.add(kWrites, t0);
+  clk.add(kTotal, t_all);
+  clk.flush();
 }
 
 Emitters emitters(const void* p0, const void* e1, const void* e2, const void* area, const void* normal,
@@ -505,4 +572,22 @@ extern "C" int fyp_restir_di_k4(
   k4_shade<<<n_pix / kTileBlock, kTileBlock, smem, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef FYP_DI_CLOCKS
+// K4's cycles of each section (Section) summed over every thread of every
+// launch since the last call, as kSections unsigned 64-bit ints copied to
+// sums_out, and the first n_blocks blocks' starts and ends in nanoseconds,
+// as (2, n_blocks) unsigned 64-bit ints copied to spans_out (both on the
+// card); then both cleared, on the stream.
+extern "C" int fyp_restir_di_clocks(void* sums_out, void* spans_out, int n_blocks, void* stream) {
+  void* sums = nullptr;
+  void* spans = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&sums, di_clocks);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&spans, di_spans);
+  if (e == cudaSuccess)
+    e = read_clocks(static_cast<unsigned long long*>(sums), kSections, static_cast<BlockSpans*>(spans), sums_out,
+                    spans_out, n_blocks, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+#endif
 

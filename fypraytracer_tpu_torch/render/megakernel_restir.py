@@ -209,6 +209,18 @@ def restir_di_k3_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
                         *(res[k] for k in RES_FIELDS)])
 
 
+def _emitter_ray(em: EmissiveTable, e, pos, up1, up2):
+    """K4's shadow ray from ``pos`` towards the point of emitter ``e`` at the
+    uniform draws ``up1``, ``up2``: its unit direction and its squared
+    length, clamped to 1e-20."""
+    su = torch.sqrt(up1)
+    b1, b2 = su * (1.0 - up2), su * up2
+    pt = em.p0[e] + em.e1[e] * b1[:, None] + em.e2[e] * b2[:, None]
+    tl = pt - pos
+    dist2 = torch.clamp_min(dot3(tl, tl, keepdims=False), 1e-20)
+    return tl * torch.rsqrt(dist2)[:, None], dist2
+
+
 def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: int,
                        settings: RenderSettings, stage: torch.Tensor, state: torch.Tensor,
                        accum: torch.Tensor) -> None:
@@ -255,12 +267,7 @@ def restir_di_k4_plain(scene: Scene, em: EmissiveTable, camera: Camera, frame: i
     # ---- final shade (Renderer.cu:1957-2031)
     key, (up1, up2) = rng.uniforms(key, 2)
     e = _slot(em, res["index"])
-    su = torch.sqrt(up1)
-    b1, b2 = su * (1.0 - up2), su * up2
-    pt = em.p0[e] + em.e1[e] * b1[:, None] + em.e2[e] * b2[:, None]
-    tl = pt - pos
-    dist2 = torch.clamp_min(dot3(tl, tl, keepdims=False), 1e-20)
-    l = tl * torch.rsqrt(dist2)[:, None]
+    l, dist2 = _emitter_ray(em, e, pos, up1, up2)
     f = cook_torrance_brdf(n, view, l, alb, metal, rough)
     cos_x = torch.clamp_min(dot3(l, n, keepdims=False), 0.0)
     cos_y = torch.clamp_min(-dot3(l, em.normal[e], keepdims=False), 0.0)

@@ -2,16 +2,19 @@
 """A kernel family against variants of its own source, in turns, on one card.
 
 Families (``FAMILIES``): ``k2`` is K2 (csrc/megakernel.cu), ``gi`` is K5 and
-K6 (csrc/restir_gi.cu).  Each variant is the committed source with some text
+K6 (csrc/restir_gi.cu), ``k8`` is K8 (csrc/megakernel_diff.cu) and ``di`` is
+K4 (csrc/restir_di.cu).  Each variant is the committed source with some text
 replaced (the family's ``variants``; ``+`` joins them, as ``mb5+onewalk``):
 
-- ``mbN``, both families: the launch bound's blocks a multiprocessor.  K2:
+- ``mbN``, every family: the launch bound's blocks a multiprocessor.  K2:
   every sampler's ``min_blocks`` set to N (``mb0`` no minimum).  K5 and K6:
   ``__launch_bounds__(128, N)`` on their tiles split over clusters, so at
   most 65,536 / (128 N) registers a thread.  The committed bound,
   ``__launch_bounds__(kThreads)``, sets no minimum: it lets the split
   instantiation take up to 255 registers, and only a tile run as one block
-  of 512 threads is capped at 128 (by its size).
+  of 512 threads is capped at 128 (by its size).  K8 and K4:
+  ``__launch_bounds__(128, N)`` on ``diff_kernel`` (every bounce count) and
+  on ``k4_shade``, whose committed bounds set no minimum.
 - ``unrolled``, K2: the light tree's corner loop unrolled.
 - ``unbounded``, K2: NEE's shadow walk unbounded.
 - ``onewalk``, K5 and K6: ``stage1``'s primary ray, the path sample's first
@@ -20,7 +23,17 @@ replaced (the family's ``variants``; ``+`` joins them, as ``mb5+onewalk``):
   the primary hit, 1 the first hit, 2 .. bounces the continuation); the
   random numbers are drawn in the same order, so the outputs are the
   committed kernels' bit for bit.
+- ``block64``, K8: blocks of 64 threads (two tiles of 8 x 4 pixels) in
+  place of 128.
+- ``fastmath``, K8: ``f_and_dfdalb``'s ``powf(1 - v.h, 5)`` as products
+  and its three divisions by ``__fdividef``; K8's outputs then differ from
+  ``diff_plain``'s in the last bits, within its gates.
+- ``unbounded``, K4: the shadow walk unbounded, one pass (the parent's).
 
+K4's outputs (state and accum) must equal kept's bit for bit on every side
+and turn (their digests are compared); K8's loss and d_tri must lie within
+``chip_smoke.py``'s gates of kept's first turn (the float atomics sum in an
+order that changes between runs).
 A variant's copy of ``csrc/`` goes under
 ``fypraytracer_tpu_torch/_build/variants/``; each side runs in a process of
 its own (the build's flags and sources are process state), all sides built
@@ -28,7 +41,11 @@ first, in parallel, then timed in turns (kept, the variants, the variants
 again in reverse, kept).  K2's time at a case is CUDA events around 3 reps of
 a run of launches after a warm-up, the median rep over the run's launches,
 at the shapes ``chip_smoke.py --ab`` times K2 (``K2_AB``) and with 1 and 2
-lanes at 1920x1088.  K5's (both visibility modes) and K6's is the kernel's
+lanes at 1920x1088.  K8's and K4's is their own device time a launch, as
+K5's below: K8 at frame 3 against a seeded target at Cornell 256², stress
+128² and Cornell 1920x1088 with 2 bounces and at Cornell 256² with 4
+(``chip_smoke.k8_by_shape``), K4 at frame 3 after two frames of the DI
+loop at the same three shapes (``DI_CASES``).  K5's (both visibility modes) and K6's is the kernel's
 own device time a launch by torch.profiler over 20 launches (5 at
 1920x1088; ``chip_smoke.kernel_ms``), frame 3 after two frames of their own
 loop, at the shapes ``chip_smoke.py`` times them (Cornell 256², stress 128²,
@@ -45,6 +62,11 @@ ratio can tell.  Needs a CUDA card:
 
     python3 kernel_variants.py k2 mb8 unrolled
     python3 kernel_variants.py gi onewalk mb5+onewalk
+    python3 kernel_variants.py k8 mb6 block64 fastmath
+    python3 kernel_variants.py di unbounded mb8
+
+``--builds-only`` after the family builds the sides and prints their BUILD
+lines without timing them (a launch bound's spills, in a minute).
 """
 
 from __future__ import annotations
@@ -67,6 +89,8 @@ K2_CASES = ([("NEE_MIS", "cornell", 256, 256, 8, None, 20), ("NEE_MIS", "cornell
             + [(t, "cornell", 256, 256, 8, None, 20) for t in ("UNIFORM", "COSINE", "GGX", "BRDF", "LIGHT_SOURCE")])
 # K5 and K6: (scene, width, height, launches timed)
 GI_CASES = (("cornell", 256, 256, 20), ("stress", 128, 128, 20), ("cornell", 1920, 1088, 5))
+# K4: at GI_CASES' shapes
+DI_CASES = GI_CASES
 
 # stage1's closest-hit walks at one site: the committed text from its camera
 # ray to the end of the path sample (first, last) and what replaces it
@@ -190,6 +214,35 @@ def gi_mb(n: int) -> list:
              f"__launch_bounds__(kThreads, kThreads == kTileBlock ? {n} : 1) {k}(") for k in ("gi_mono", "gi_stage1")]
 
 
+def k8_mb(n: int) -> list:
+    return [("megakernel_diff.cu", "__launch_bounds__(kBlock) diff_kernel(", f"__launch_bounds__(kBlock, {n}) diff_kernel(")]
+
+
+def di_mb(n: int) -> list:
+    return [("restir_di.cu", "__launch_bounds__(kTileBlock) k4_shade(", f"__launch_bounds__(kTileBlock, {n}) k4_shade(")]
+
+
+# f_and_dfdalb's power and divisions, fast
+K8_FAST = [
+    ("megakernel_diff.cu", """  const float g = (ndv / fmaxf(ndv * (1.0f - k) + k, 1e-12f)) * (ndl / fmaxf(ndl * (1.0f - k) + k, 1e-12f));
+  const float den = ndh * ndh * (a2 - 1.0f) + 1.0f;
+  const float d = a2 * kInvPi / fmaxf(den * den, 1e-12f);
+  const float spec = d * g / fmaxf(4.0f * ndv * ndl, 1e-12f);
+  const float s5 = powf(1.0f - vdh, 5.0f);""",
+     """  const float g = __fdividef(ndv, fmaxf(ndv * (1.0f - k) + k, 1e-12f)) *
+                  __fdividef(ndl, fmaxf(ndl * (1.0f - k) + k, 1e-12f));
+  const float den = ndh * ndh * (a2 - 1.0f) + 1.0f;
+  const float d = __fdividef(a2 * kInvPi, fmaxf(den * den, 1e-12f));
+  const float spec = __fdividef(d * g, fmaxf(4.0f * ndv * ndl, 1e-12f));
+  const float om = 1.0f - vdh, om2 = om * om;
+  const float s5 = om2 * om2 * om;""")]
+# K4's shadow walk as the parent walked it: unbounded, one pass
+DI_UNBOUNDED = [("restir_di.cu", ("    // the shadow walk bounded by the emitter, then unbounded where it found\n",
+                                  "      t_max = kBig;\n    }\n"),
+                 "    t0 = clk.now();\n    const Hit sh = trace_closest_wide1(P.wide, lane_stack(P.wide.stack_depth), "
+                 "pos + n * kOriginEps, l, kBig);\n")]
+
+
 # family -> (library, its kernels' names in ptxas_report, mbN's substitutions, the other variants)
 # a substitution is (file in csrc/, old text or (its first, its last line), new text)
 FAMILIES = {
@@ -200,6 +253,10 @@ FAMILIES = {
                        "r = Ray{s.pos + s.n * kOriginEps, l_dir, kBig + 0.0f * tol, kShadow};")]}),
     "gi": ("restir_gi", ("gi_mono", "gi_stage1"), gi_mb, {
         "onewalk": [("restir_gi.cu", ONE_WALK_SPAN, ONE_WALK)]}),
+    "k8": ("megakernel_diff", ("diff_kernel",), k8_mb, {
+        "block64": [("megakernel_diff.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 64;")],
+        "fastmath": K8_FAST}),
+    "di": ("restir_di", ("k4_shade",), di_mb, {"unbounded": DI_UNBOUNDED}),
 }
 
 
@@ -341,15 +398,82 @@ def time_gi() -> dict:
     return ms
 
 
+def time_k8() -> tuple:
+    """K8's device ms a launch at ``chip_smoke.py``'s shapes
+    (``k8_by_shape``), and its loss and d_tri at Cornell 256²."""
+    import chip_smoke
+
+    out = chip_smoke.k8_by_shape(outputs=True)
+    return out["ms_by_shape"], out["outputs"]
+
+
+def time_di() -> tuple:
+    """K4's device ms a launch at each of ``DI_CASES`` (frame 3, after two
+    frames of the DI loop), and the digest of its state and accum."""
+    import hashlib
+
+    import torch
+
+    import chip_smoke
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render.restir_common import camera_matrices
+
+    st = chip_smoke.settings_for("RESTIR_DI")
+    ms, outputs = {}, {}
+    for name, w, h, calls in DI_CASES:
+        scene, cam = chip_smoke.tile_scene(name, w, h)
+        B = w * h
+        ppv = torch.as_tensor(cam.proj_view, device="cuda")
+        cam_t = camera_matrices(cam, "cuda")
+        em = mr.prepare_emissive_table(scene)
+        state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+        mr.restir_di_megakernel(scene, em, cam, state, 1, 2, st, ppv, ppv)
+        stage = mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)
+        acc, st_out = torch.zeros((B, 3), device="cuda"), torch.empty_like(state)
+
+        def run():
+            mr.restir_di_k4(scene, em, cam, 3, st, stage, st_out, acc, cam=cam_t)
+
+        case = f"{name} {w}x{h}"
+        run()
+        digest = hashlib.sha256()
+        for t in (st_out, acc):
+            digest.update(t.contiguous().cpu().numpy().tobytes())
+        outputs[case] = digest.hexdigest()[:16]
+        ms[case] = chip_smoke.kernel_ms(run, calls, launches=lambda: mr.restir_di_k4.launches)
+        check_overflow(scene)
+    return ms, outputs
+
+
 def time_side(family: str, name: str) -> None:
     use_variant(family, name)
-    ms = time_k2() if family == "k2" else time_gi()
-    print("TURN " + json.dumps(dict(side=name, ms=ms)), flush=True)
+    ms, outputs = {"k2": lambda: (time_k2(), None), "gi": lambda: (time_gi(), None), "k8": time_k8,
+                   "di": time_di}[family]()
+    print("TURN " + json.dumps(dict(side=name, ms=ms, outputs=outputs)), flush=True)
+
+
+def outputs_agree(family: str, got, want) -> bool:
+    """K4's digests equal kept's first; K8's loss within 1e-5 and d_tri
+    within 1e-4 of its largest entry of kept's first (chip_smoke.py's
+    gates, at Cornell 256²); the other families compare nothing here."""
+    if family == "di":
+        return got == want
+    if family == "k8":
+        for case, w in want.items():
+            g = got[case]
+            scale = max(abs(x) for x in w["d_tri"])
+            if abs(g["loss"] - w["loss"]) > 1e-5 * abs(w["loss"]) or \
+                    max(abs(a - b) for a, b in zip(g["d_tri"], w["d_tri"])) > 1e-4 * scale:
+                return False
+    return True
 
 
 def main(family: str, variants: list) -> int:
     if family not in FAMILIES:
-        raise SystemExit(f"usage: kernel_variants.py {{{','.join(FAMILIES)}}} VARIANT [VARIANT ...]")
+        raise SystemExit(f"usage: kernel_variants.py [--builds-only] {{{','.join(FAMILIES)}}} VARIANT [VARIANT ...]")
+    builds_only = variants[:1] == ["--builds-only"]
+    variants = variants[1:] if builds_only else variants
     sides = ["kept"] + variants
     me = os.path.abspath(__file__)
     procs = [subprocess.Popen([sys.executable, me, "--build", family, s], cwd=REPO, stdout=subprocess.PIPE,
@@ -359,7 +483,10 @@ def main(family: str, variants: list) -> int:
         print(out, end="", flush=True)
         if p.returncode != 0:
             return p.returncode
+    if builds_only:
+        return 0
     turns = {s: [] for s in sides}
+    outputs = {s: [] for s in sides}
     for side in sides + sides[::-1]:
         r = subprocess.run([sys.executable, me, "--time", family, side], cwd=REPO, capture_output=True, text=True,
                            timeout=900)
@@ -368,13 +495,17 @@ def main(family: str, variants: list) -> int:
             print(r.stdout + r.stderr[-3000:], flush=True)
             return r.returncode or 1
         print(line[0], flush=True)
-        turns[side].append(json.loads(line[0][5:])["ms"])
+        turn = json.loads(line[0][5:])
+        turns[side].append(turn["ms"])
+        outputs[side].append(turn["outputs"])
+    agree = {s: [outputs_agree(family, o, outputs["kept"][0]) for o in outputs[s]] for s in sides}
+    print(json.dumps(dict(outputs_agree_with_kept=agree)), flush=True)
     for case in turns["kept"][0]:
         med = {s: statistics.median(t[case] for t in turns[s]) for s in sides}
         kept = [t[case] for t in turns["kept"]]
         print(json.dumps(dict(case=case, median_ms=med, over_kept={s: med[s] / med["kept"] for s in variants},
                               kept_spread=max(kept) / min(kept))), flush=True)
-    return 0
+    return 0 if all(v for vs in agree.values() for v in vs) else 1
 
 
 if __name__ == "__main__":

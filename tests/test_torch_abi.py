@@ -183,6 +183,19 @@ def test_restir_gi_clocks_entry_is_bound_by_the_smoke_test():
     assert ENTRIES["fyp_restir_gi_occupancy"] == ["int"] * 5 + ["pointer"] * 2
 
 
+@pytest.mark.parametrize("entry", ["fyp_diff_clocks", "fyp_restir_di_clocks"])
+def test_diff_and_di_clocks_entries_are_bound_by_the_smoke_test(entry):
+    """K8's and K4's section clocks and block spans (built with
+    ``-DFYP_DIFF_CLOCKS`` and ``-DFYP_DI_CLOCKS``, csrc/clocks.cuh) hand
+    over their sums and spans through an entry that takes both outputs,
+    the blocks to copy and the stream, and ``chip_smoke.py``'s
+    ``k8_attribution`` and ``di_attribution`` bind it; K4's and K8's own
+    entries keep their parameters."""
+    assert ENTRIES[entry] == ["pointer", "pointer", "int", "pointer"]
+    assert [w.split(":")[0] for name, _, w in BINDINGS if name == entry] == ["chip_smoke.py"]
+    assert len(ENTRIES["fyp_restir_di_k4"]) == 28 and len(ENTRIES["fyp_diff_megakernel"]) == 25
+
+
 def test_parameter_kinds_are_read_as_declared():
     """The reader of the prototypes: pointers whatever their constness,
     ``unsigned int`` apart from ``int``; a type it does not know fails."""

@@ -512,17 +512,25 @@ def test_cli_train_on_two_processes_equals_one():
     one-process run's losses and albedo error: each shard renders its
     pixels' rays and keys, the gradients are summed by ``all_reduce``, and
     the loss is summed in float64 (losses within 1e-6 relative, the error
-    within 1e-6)."""
-    import socket
+    within 1e-6).
+
+    The rendezvous store is this process's, listening from the moment it
+    binds a free port, and both ranks join it as clients, as under
+    torchrun's agent (``TORCHELASTIC_USE_AGENT_STORE``).  A port picked by
+    binding and closing a socket, for rank 0 to bind again seconds later,
+    can be taken in between by any other process of the host (the other
+    test workers' gloo listeners and connections among them), and rank 0
+    then fails to listen."""
     import subprocess
     import sys
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    from torch.distributed import TCPStore
+
+    store = TCPStore("127.0.0.1", 0, 2, is_master=True, wait_for_workers=False)
     args = [sys.executable, "-m", "fypraytracer_tpu_torch.app.cli", "train", "--scene", "cornell-empty", "--width",
             "16", "--height", "16", "--bounces", "1", "--steps", "3", "--device", "cpu"]
-    env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2")
+    env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port), WORLD_SIZE="2",
+               TORCHELASTIC_USE_AGENT_STORE="True")
     procs = [subprocess.Popen([*args, "--devices", "2"], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
     outs = [p.communicate(timeout=300) for p in procs]

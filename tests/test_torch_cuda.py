@@ -674,6 +674,87 @@ def test_diff_megakernel_matches_its_plain_version(cuda, size):
     assert (d_tri2 - d_tri).abs().max().item() <= 1e-5 * d_tri.abs().max().item()
 
 
+@pytest.mark.parametrize("bounces, size", [(1, 64), (2, 64), (3, 64), (4, 64), (2, (37, 23))],
+                         ids=["1-64", "2-64", "3-64", "4-64", "2-37x23"])
+def test_diff_megakernel_matches_its_plain_version_at_every_bounce_count(cuda, bounces, size):
+    """K8's four instantiations against ``diff_plain`` at 64², frame 3, and
+    at 37x23, whose warps' 8 x 4 tiles overhang the image: the loss within
+    1e-5 relative, d_tri within 1e-4 of its largest entry."""
+    if isinstance(size, tuple):
+        builder, cam = tproc.cornell_box(*size)
+        scene = builder.compile().to(cuda)
+        rng = np.random.default_rng(7)
+        alb = scene.materials.albedo
+        tgt = torch.as_tensor(rng.uniform(0.0, 0.5, (size[0] * size[1], 3)).astype(np.float32), device=cuda)
+    else:
+        scene, cam, alb, tgt = _diff_inputs(cuda, size)
+    loss, d_tri = tmd.diff_megakernel(scene, cam, alb, tgt, 3, bounces, (0.05, 0.06, 0.08))
+    ref_loss, ref_tri = tmd.diff_plain(scene, cam, alb, tgt, 3, bounces, (0.05, 0.06, 0.08))
+    assert abs(loss.item() - ref_loss.item()) / ref_loss.item() <= 1e-5
+    assert (d_tri - ref_tri).abs().max().item() <= 1e-4 * ref_tri.abs().max().item()
+    ttrav.check_overflow(scene)
+
+
+def _k4_over_frames(cuda, frames=8):
+    """K4 at stress 128² over ``frames`` frames of the plain DI loop, each
+    frame fed the stage and state its plain version is fed: [(K4's state,
+    K4's HDR, the plain state, the plain HDR)] a frame."""
+    builder, cam = tproc.stress(128, 128)
+    scene = tmk.morton_permuted_scene(builder.compile(native=True))[0].to(cuda)
+    em = tmr.prepare_emissive_table(scene)
+    state = torch.zeros((tmr.ST_ROWS, 128 * 128), device=cuda)
+    out = []
+    for frame in range(1, frames + 1):
+        stage = tmr.restir_di_k3_plain(scene, em, cam, frame, DI, state, cam.proj_view)
+        got_state, got = state.clone(), torch.zeros((128 * 128, 3), device=cuda)
+        tmr.restir_di_k4(scene, em, cam, frame, DI, stage, got_state, got)
+        ref = torch.zeros_like(got)
+        tmr.restir_di_k4_plain(scene, em, cam, frame, DI, stage, state, ref)
+        out.append((got_state, got, state.clone(), ref))
+    ttrav.check_overflow(scene)
+    return out
+
+
+def test_k4_matches_its_plain_version_over_frames_on_the_stress_scene(cuda):
+    """K4 against ``restir_di_k4_plain`` at stress 128² over 8 frames, fed
+    the same stage and state each frame: the frame's HDR under the parity
+    gates and fewer than 1% of pixels with a state row off by 1e-3
+    relative (the kernel's shading contracts products into sums, its
+    plain version does not), and one launch a frame."""
+    before = tmr.restir_di_k4.launches
+    for got_state, got, state, ref in _k4_over_frames(cuda):
+        _gates(got.cpu().numpy(), ref.cpu().numpy())
+        assert _elements_off(got_state, state) < 0.01
+    assert tmr.restir_di_k4.launches == before + 8
+
+
+def test_k4_bounded_shadow_walk_equals_the_unbounded_walk(cuda, monkeypatch):
+    """K4's shadow walk, bounded by its emitter and walked again unbounded
+    where it finds no hit, against the same kernel with the one unbounded
+    walk it replaced (``kernel_variants.py di unbounded``) at stress 128²
+    over 8 frames: the state and the HDR bit for bit."""
+    import kernel_variants
+
+    kept = _k4_over_frames(cuda)
+    monkeypatch.setattr(kernels, "CSRC", kernels.CSRC)      # restored after the test
+    monkeypatch.setattr(kernels, "_libs", {})
+    kernel_variants.use_variant("di", "unbounded")
+    for frame, ((state, hdr, _, _), (u_state, u_hdr, _, _)) in enumerate(zip(kept, _k4_over_frames(cuda)), 1):
+        assert torch.equal(state, u_state) and torch.equal(hdr, u_hdr), f"frame {frame}"
+
+
+@pytest.mark.parametrize("lib, kernel", [("restir_di", "k4_shade"), ("megakernel_diff", "diff_kernel")])
+def test_k4_and_k8_spill_nothing(cuda, lib, kernel):
+    """ptxas's report of every instantiation of K4 and K8 (each bounce
+    count): registers used, and no byte spilled."""
+    import chip_smoke
+
+    kernels.build(lib)
+    rows = {k: v for k, v in chip_smoke.ptxas_report(kernels.build_info[lib]["log"]).items() if k.startswith(kernel)}
+    assert len(rows) == (4 if kernel == "diff_kernel" else 1), rows
+    assert all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in rows.values()), rows
+
+
 def test_diff_loss_backward_on_the_card(cuda):
     scene, cam, alb, tgt = _diff_inputs(cuda, 64)
     dr = tmd.DiffRenderer(scene, cam, bounces=2, device=cuda)

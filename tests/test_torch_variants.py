@@ -7,6 +7,7 @@ variant's name, so every one must match exactly once and change the file.
 
 import importlib.util
 import os
+import re
 
 import pytest
 
@@ -58,3 +59,35 @@ def test_one_walk_replaces_stage1s_walks_with_one_site():
     assert stage1(text).count("tr.closest(") == 3
     assert stage1(out).count("tr.closest(") == 1
     assert "#pragma unroll 1" in stage1(out)
+
+
+def _kernel(text, name, end):
+    return text[text.index(name):text.index(end, text.index(name))]
+
+
+def test_k4_walks_its_shadow_ray_at_one_site_and_unbounded_restores_one_walk():
+    """K4's shadow ray: one walk site in a loop of at most two passes, the
+    first bounded by the emitter; ``di unbounded`` puts back the one
+    unbounded walk it replaced (the card test holds both bit for bit)."""
+    with open(os.path.join(CSRC, "restir_di.cu")) as f:
+        text = f.read()
+    k4 = _kernel(text, "k4_shade(K4Params P) {", "\nEmitters emitters(")
+    assert k4.count("trace_closest_wide1(") == 1 and "tr.closest(" not in k4
+    assert "for (int pass = 0; pass < 2; ++pass)" in k4 and "t_max = kBig;" in k4
+    out = text
+    for fn, old, new in kv.FAMILIES["di"][3]["unbounded"]:
+        out = kv.substitute(out, fn, old, new)
+    k4 = _kernel(out, "k4_shade(K4Params P) {", "\nEmitters emitters(")
+    assert k4.count("trace_closest_wide1(") == 1 and "pass" not in k4 and "l, kBig);" in k4
+
+
+def test_k8_warps_walk_tiles_and_keep_one_ratio_a_level():
+    """K8's warps own 8 x 4 pixel tiles (the grid counts the tiles), and a
+    level keeps dg / g in place of g and dg."""
+    with open(os.path.join(CSRC, "megakernel_diff.cu")) as f:
+        text = f.read()
+    k8 = _kernel(text, "diff_kernel(Params P) {", "\nusing DiffKernel")
+    assert "(threadIdx.x & 7)" in k8 and "((threadIdx.x >> 3) & 3)" in k8
+    assert "float rg[NL][3], ct[NL][3];" in k8
+    assert re.search(r"\bd?g\[", k8) is None
+    assert "((width + 7) / 8 * ((height + 3) / 4) + kWarps - 1) / kWarps" in text
