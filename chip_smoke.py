@@ -14,15 +14,17 @@ interactive session), in phases:
      nvcc per source, started together, with K8 again without its
      gradient's atomics (``-DFYP_DIFF_NO_ATOMICS``, for phase 5c), K2
      again with its section clocks (``-DFYP_K2_CLOCKS``, for phase 4b),
-     K5-K6 with theirs (``-DFYP_GI_CLOCKS``, for phase 5b), K4 and K8 with
-     theirs and their block spans (``-DFYP_DI_CLOCKS``, ``-DFYP_DIFF_CLOCKS``,
-     for phases 5 and 5c); ptxas's
+     K5-K7 with theirs (``-DFYP_GI_CLOCKS``, K7's with its block spans and
+     walk counters, for phase 5b), K3, K4 and K8 with theirs and their block
+     spans (``-DFYP_DI_CLOCKS``, ``-DFYP_DIFF_CLOCKS``, for phases 5 and
+     5c); ptxas's
      registers and spills of every kernel, the untextured and the textured
      instantiations and K8's bounce counts by name; every K2 instantiation's
      registers, spills (none allowed) and resident blocks a multiprocessor
      with Cornell's and the stress scene's stacks (``k2_build``), the
-     same of every K5 and K6 instantiation (``gi_build``), and no spill in
-     K4 or any K8 instantiation;
+     same of every K5 and K6 instantiation (``gi_build``), no spill in
+     any K3, K4, K7 or K8 instantiation, and K3 at 64 registers or fewer
+     (two blocks of 512 a multiprocessor);
   3. K1 ``trace_closest`` against its plain PyTorch walk on the card, as the
      wrapper picks its lanes: on the 256² camera's 65,536 rays and 65,536
      random rays (a quad a ray) and on the 1920x1088 camera's rays (one
@@ -59,14 +61,18 @@ interactive session), in phases:
      against its plain version on the same inputs, and the frame loop of
      both against ``restir_di_megakernel_plain``: 128², 8 frames on the
      stress scene, and 64², 4 + 4 frames on Cornell with a camera move in
-     between; then K3's and K4's device time a launch at Cornell 256²,
+     between; K3 (both launches) and K4 against their plain versions on
+     Cornell 256² with the rough sphere emissive (578 emitters, more than
+     K3's p-hat table holds: ``many_emitter_di``); then K3's and K4's
+     device time a launch at Cornell 256²,
      stress 128² and Cornell 1920x1088, K3 as the wrapper picks its launch
      and both launches in turns (split, one block, one block, split), each
      beside its resident blocks and clusters (the CUDA runtime's
-     occupancy; the registers and spills are phase 2's); then where K4's
-     time goes (``di_attribution``: each section's share of its threads'
-     cycles and the share of the launch after its median block has ended,
-     by the clocked build, at the same three shapes, and the clocks' cost
+     occupancy; the registers and spills are phase 2's); then where K3's
+     and K4's time goes (``di_attribution``: each section's share of their
+     threads' cycles and the share of the launch after its median block
+     has ended, by the clocked build, at the same three shapes, K3 also
+     split where the wrapper picks one block a tile, and the clocks' cost
      in turns);
   5b. K5 ``restir_gi_mono`` (per-neighbour visibility and ``final_vis``), K6
      ``restir_gi_k1`` (both with the wide walks, tiles launched as K3's) and
@@ -79,7 +85,10 @@ interactive session), in phases:
      timed at the shapes of phase 5 with their occupancy, K5's and K6's two
      launches also at 32-128 tiles (``BETWEEN``); then where K5's and K6's time goes
      (``gi_attribution``: each section's share of the threads' cycles by
-     the clocked build at the three shapes, and the clocks' cost in turns);
+     the clocked build at the three shapes, and the clocks' cost in turns)
+     and K7's (``k7_attribution``: its section shares, its launch's tail,
+     and its visibility walks: walking lanes a round, rounds a warp over
+     its longest list);
   5c. K8 ``diff_megakernel`` (the fused loss and albedo gradient) against its
      plain version ``diff_plain`` on the same inputs (Cornell 256², 2 bounces,
      frame 3, a seeded target; the loss within 1e-5 relative, d_tri and d_mat
@@ -199,9 +208,10 @@ fetches its plain version counts (at most the texture tables once).
 1920x1088, every other sampler at 256²), K3-K8 and the entry points of
 other checkouts against this one in turns (e.g. the commit before a
 change), with K2 NEE's ``k2_attribution`` in each tree whose K2 has the
-section clocks and K5's and K6's ``gi_attribution`` in each tree whose
-restir_gi.cu has them, compares their ReSTIR outputs bit for bit
-(``restir_bits``) and holds K8's loss and gradient to phase 5c's gates.
+section clocks, K5's and K6's ``gi_attribution`` in each tree whose
+restir_gi.cu has them and K7's ``k7_attribution`` where its K7 has them,
+compares their ReSTIR outputs bit for bit (``restir_bits``) and holds K8's
+loss and gradient to phase 5c's gates.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line before
 the last is the kernels' summary, the last line is
@@ -488,10 +498,15 @@ def phase_build() -> None:
          ptxas=ptxas)
     k2_build(ptxas)
     gi_build(ptxas)
-    spilled = {k: v for k, v in ptxas.items() if k.startswith(("k4_shade", "diff_kernel"))
+    spilled = {k: v for k, v in ptxas.items() if k.startswith(("k3_candidates", "k4_shade", "gi_stage2", "diff_kernel"))
                and (v.get("spill_stores", 1) or v.get("spill_loads", 1))}
     if spilled:
-        raise AssertionError(f"K4 or K8 instantiations spill (or report no spill line): {spilled}")
+        raise AssertionError(f"K3, K4, K7 or K8 instantiations spill (or report no spill line): {spilled}")
+    # K3's tile as one block of 512 holds two blocks a multiprocessor only
+    # at 64 registers or fewer (65,536 / 1,024)
+    wide = {k: v["registers"] for k, v in ptxas.items() if k.startswith("k3_candidates") and v["registers"] > 64}
+    if wide:
+        raise AssertionError(f"K3 instantiations above 64 registers: {wide}")
 
 
 def k2_build(ptxas: dict) -> None:
@@ -1064,9 +1079,57 @@ def phase_restir(summary: dict) -> None:
              moved=len(moves) > 1, **row)
         if not row["ok"]:
             raise AssertionError(f"K3+K4 disagree with restir_di_megakernel_plain on {name}")
+    many_emitter_di(st)
     summary["restir_di_k3"].update(by_shape("k3", st))
     summary["restir_di_k4"].update(by_shape("k4", st))
     di_attribution()
+
+
+def many_emitter_di(st) -> None:
+    """K3 (one block a tile and split over clusters) and K4 against their
+    plain versions on the same inputs, frame 3 after two frames of history,
+    on Cornell at 256² with the rough sphere's material made emissive
+    through ``SceneManager.set_material``: 578 emitters, more than K3's
+    p-hat table holds, so K3 evaluates p-hat a candidate.  Raises unless
+    each meets phase 5's gates."""
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import restir_common as rc
+    from fypraytracer_tpu_torch.scene.manager import SceneManager
+    from fypraytracer_tpu_torch.scene.procedural import cornell_box
+
+    builder, cam = cornell_box(256, 256)
+    SceneManager(builder).set_material(4, emission_color=(1.0, 0.8, 0.6), emission_power=3.0)
+    scene = builder.compile().to("cuda")
+    em = mr.prepare_emissive_table(scene)
+    B = cam.width * cam.height
+    ppv = torch.as_tensor(cam.proj_view, device="cuda")
+    state = torch.zeros((mr.ST_ROWS, B), device="cuda")
+    mr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, st, ppv, ppv)
+    ref = mr.restir_di_k3_plain(scene, em, cam, 3, st, state, ppv)
+    rows = {}
+    for split in (False, True):
+        with mock.patch.object(rc, "tile_clustered", lambda *_: split):
+            got = mr.restir_di_k3(scene, em, cam, 3, st, state, ppv)
+        d = (got - ref).abs()
+        off = ((d > 1e-3 * torch.clamp_min(ref.abs(), 1.0)).any(0)).float().mean().item()
+        rows["k3_split" if split else "k3_one_block"] = dict(max_abs_err=d.max().item(), frac_px_over_1e3=off,
+                                                              ok=off < 0.01)
+    acc_k, acc_p = (torch.zeros((B, 3), device="cuda") for _ in range(2))
+    st_k, st_p = state.clone(), state.clone()
+    mr.restir_di_k4(scene, em, cam, 3, st, ref, st_k, acc_k)
+    mr.restir_di_k4_plain(scene, em, cam, 3, st, ref, st_p, acc_p)
+    k4 = parity(acc_k.cpu().numpy(), acc_p.cpu().numpy())
+    k4["state_frac_px_over_1e3"] = ((st_k - st_p).abs() > 1e-3 * torch.clamp_min(st_p.abs(), 1.0)).any(0) \
+        .float().mean().item()
+    k4["ok"] = bool(k4["ok"] and k4["state_frac_px_over_1e3"] < 0.01)
+    rows["k4"] = k4
+    emit("di_many_emitters", size="256x256", scene="cornell, rough sphere emissive", emitters=em.n, **rows)
+    if not all(r["ok"] for r in rows.values()):
+        raise AssertionError("K3 or K4 disagrees with its plain version with many emitters")
 
 
 # the shapes at which K3-K6 are timed: few tiles, a deep tree, many tiles
@@ -1305,6 +1368,7 @@ def phase_restir_gi(summary: dict) -> None:
     for row, kernel in (("restir_gi_mono", "k5"), ("restir_gi_mono[final_vis]", "k5 final_vis"),
                         ("restir_gi_k1", "k6")):
         summary[row]["section_shares"] = {k: v["shares"] for k, v in attribution.items() if v["kernel"] == kernel}
+    summary["restir_gi_k2"]["section_shares"] = {k: v["shares"] for k, v in k7_attribution().items()}
 
 
 def gi_attribution() -> dict:
@@ -1393,6 +1457,12 @@ DIFF_SECTIONS = ("total", "camera", "walk_camera", "walk_1", "walk_2", "walk_3",
                  "loss_sum", "reverse_scan", "atomics")
 DI_CLOCKS = "-DFYP_DI_CLOCKS"
 DI_SECTIONS = ("total", "stage_reads", "neighbour_reads", "p_hat", "emitter", "shadow_walk", "writes")
+# K3's, also built with -DFYP_DI_CLOCKS (csrc/restir_di.cu::K3Section)
+K3_SECTIONS = ("total", "primary_walk", "surface", "candidates", "reproject", "tile_sum", "temporal", "writes")
+# K7's, built with -DFYP_GI_CLOCKS (csrc/restir_gi.cu::K7Section), and its
+# visibility-walk counters after them
+K7_SECTIONS = ("total", "own_reads", "neighbour_tests", "jacobian", "vis_walks", "shade", "writes")
+K7_COUNTERS = ("walk_lanes", "walk_rounds", "longest_lists")
 # k8_attribution's launches: (scene, width, height, bounces, launches a turn)
 K8_ATTRIBUTION = (("cornell", 256, 256, 2, 20), ("stress", 128, 128, 2, 20), ("cornell", 1920, 1088, 2, 10),
                   ("cornell", 256, 256, 4, 20))
@@ -1629,11 +1699,12 @@ def block_spans(spans, n_blocks: int) -> dict:
 
 
 def clocked(lib: str, reader, flag: str, sections: tuple, run, n_blocks: int, calls: int, launches,
-            others: dict | None = None) -> dict:
+            others: dict | None = None, counters: tuple = ()) -> dict:
     """One call of ``run(flags)`` with ``lib`` built with its section clocks
     (``flag``; phase 2 builds it), read through the C entry that
     ``reader()`` loads: the cycles of each section summed over the threads,
-    each section's share of the total (the rest under ``rest``) and the
+    each section's share of the total (the rest under ``rest``), the
+    kernel's ``counters`` (the sums after its sections, by name) and the
     blocks' spans (``block_spans``); then what the clocks cost: the kept
     build's device ms against the clocked one's over ``calls`` launches, in
     turns (kept, clocked, clocked, kept; ``others``, {name: extra flags},
@@ -1645,7 +1716,7 @@ def clocked(lib: str, reader, flag: str, sections: tuple, run, n_blocks: int, ca
     from fypraytracer_tpu_torch.ops import kernels
 
     flags = list(kernels.EXTRA_FLAGS.get(lib, [])) + [flag]
-    sums = torch.zeros(len(sections), dtype=torch.int64, device="cuda")
+    sums = torch.zeros(len(sections) + len(counters), dtype=torch.int64, device="cuda")
     spans = torch.zeros((2, n_blocks), dtype=torch.int64, device="cuda")
     with mock.patch.dict(kernels.EXTRA_FLAGS, {lib: flags}):
         read = reader()
@@ -1654,14 +1725,16 @@ def clocked(lib: str, reader, flag: str, sections: tuple, run, n_blocks: int, ca
         run(flags)
         kernels.check(read(kernels.ptr(sums), kernels.ptr(spans), n_blocks, stream), f"{lib} clocks")
     cycles = dict(zip(sections, sums.tolist()))
+    counts = dict(zip(counters, sums.tolist()[len(sections):]))
     shares = {k: v / cycles["total"] for k, v in cycles.items() if k != "total"}
     shares["rest"] = 1.0 - sum(shares.values())
     kept = flags[:-1]
     sides = {"kept": kept, "clocked": flags, **{k: kept + v for k, v in (others or {}).items()}}
     order = ["kept", "clocked", *list(others or {}), *list(others or {})[::-1], "clocked", "kept"]
     turns = in_turns({k: functools.partial(run, v) for k, v in sides.items()}, order, calls, launches=launches)
-    return dict(shares=shares, cycles=cycles, spans=block_spans(spans, n_blocks),
-                ms={k: statistics.median(v) for k, v in turns.items()}, turns_ms=turns)
+    return dict(shares=shares, cycles=cycles, **({"counters": counts} if counters else {}),
+                spans=block_spans(spans, n_blocks), ms={k: statistics.median(v) for k, v in turns.items()},
+                turns_ms=turns)
 
 
 def k8_attribution() -> dict:
@@ -1719,15 +1792,18 @@ def k8_attribution() -> dict:
 
 
 def di_attribution() -> dict:
-    """Where K4's time goes, at each of ``SHAPES`` (frame 3, after two
-    frames of the DI loop): the kernel built with its section clocks and
-    block spans (``-DFYP_DI_CLOCKS``; phase 2 builds it), one launch: each
-    section's share of the threads' summed cycles (``DI_SECTIONS``; the
-    rest is the camera ray, the keys, the reservoir updates and the final
-    sum) and the share of the launch after its median block has ended
-    (``block_spans``); and what the clocks cost, the kept kernel's device
-    ms against the clocked one's in turns (kept, clocked, clocked, kept).
-    One line a shape; returns {shape: row}."""
+    """Where K3's and K4's time goes, at each of ``SHAPES`` (frame 3, after
+    two frames of the DI loop): the kernels built with their section clocks
+    and block spans (``-DFYP_DI_CLOCKS``; phase 2 builds it), one launch:
+    each section's share of the threads' summed cycles (``K3_SECTIONS``,
+    the rest the camera ray and the keys; ``DI_SECTIONS``, the rest the
+    camera ray, the keys, the reservoir updates and the final sum) and the
+    share of the launch after its median block has ended (``block_spans``);
+    and what the clocks cost, the kept kernel's device ms against the
+    clocked one's in turns (kept, clocked, clocked, kept).  K3 in the launch
+    the wrapper picks and, where it picks one block a tile, split over
+    clusters too.  One line a kernel, shape and launch; returns
+    {"<kernel> <shape> [<launch>]": row}."""
     import ctypes
     from unittest import mock
 
@@ -1736,6 +1812,7 @@ def di_attribution() -> dict:
     from fypraytracer_tpu_torch.ops import kernels
     from fypraytracer_tpu_torch.ops.traverse import check_overflow
     from fypraytracer_tpu_torch.render import megakernel_restir as mr
+    from fypraytracer_tpu_torch.render import restir_common as rc
     from fypraytracer_tpu_torch.render.restir_common import TILE_BLOCK, camera_matrices
 
     st = settings_for("RESTIR_DI")
@@ -1748,19 +1825,89 @@ def di_attribution() -> dict:
         em = mr.prepare_emissive_table(scene)
         state = torch.zeros((mr.ST_ROWS, B), device="cuda")
         mr.restir_di_megakernel(scene, em, cam, state, 1, 2, st, ppv, ppv)
+        calls = 10 if B > 256 * 256 else 20
+        lay = rc.pick_tile_launch(scene, B, cam_t.device)
+        for launch in ["picked"] + ([] if lay["clustered"] else ["split"]):
+            split = launch == "split" or lay["clustered"]
+
+            def k3(flags, split=split, scene=scene, em=em, cam=cam, state=state, ppv=ppv, cam_t=cam_t):
+                with mock.patch.dict(kernels.EXTRA_FLAGS, {"restir_di": flags}), \
+                        mock.patch.object(rc, "tile_clustered", lambda *_: split):
+                    mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)
+
+            row = clocked("restir_di", lambda: kernels.load("restir_di", "fyp_restir_di_k3_clocks", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]), DI_CLOCKS, K3_SECTIONS, k3,
+                          B // (TILE_BLOCK if split else rc.pick_ray_lanes(B)), calls,
+                          lambda: mr.restir_di_k3.launches)
+            key = f"k3 {name} {w}x{h} {launch}"
+            out[key] = dict(row, launch=launch, split=split)
+            emit("di_attribution", kernel="k3", shape=f"{name} {w}x{h}", launch=launch, split=split, **row)
         stage = mr.restir_di_k3(scene, em, cam, 3, st, state, ppv, cam=cam_t)
         acc, st_out = torch.zeros((B, 3), device="cuda"), torch.empty_like(state)
 
-        def run(flags, scene=scene, em=em, cam=cam, stage=stage, st_out=st_out, acc=acc, cam_t=cam_t):
+        def k4(flags, scene=scene, em=em, cam=cam, stage=stage, st_out=st_out, acc=acc, cam_t=cam_t):
             with mock.patch.dict(kernels.EXTRA_FLAGS, {"restir_di": flags}):
                 mr.restir_di_k4(scene, em, cam, 3, st, stage, st_out, acc, cam=cam_t)
 
         row = clocked("restir_di", lambda: kernels.load("restir_di", "fyp_restir_di_clocks", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]), DI_CLOCKS, DI_SECTIONS, run,
-            B // TILE_BLOCK, 10 if B > 256 * 256 else 20, lambda: mr.restir_di_k4.launches)
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]), DI_CLOCKS, DI_SECTIONS, k4,
+            B // TILE_BLOCK, calls, lambda: mr.restir_di_k4.launches)
+        key = f"k4 {name} {w}x{h}"
+        out[key] = row
+        emit("di_attribution", kernel="k4", shape=f"{name} {w}x{h}", **row)
+        check_overflow(scene)
+    return out
+
+
+def k7_attribution() -> dict:
+    """Where K7's time goes, at each of ``SHAPES`` (frame 3, its stage from
+    K6 after two frames of the ``mono=False`` loop): the kernel built with
+    its section clocks, block spans and visibility-walk counters
+    (``-DFYP_GI_CLOCKS``; phase 2 builds it), one launch: each section's
+    share of the threads' summed cycles (``K7_SECTIONS``; the rest is the
+    keys and the camera ray), the share of the launch after its median
+    block has ended, and the walks: the lanes that walk a walk round (a
+    round: a neighbour that some lane of the warp walks) and the rounds a
+    warp against the most walks any one lane needs (a warp walking each
+    lane's own list needs only the latter); and what the clocks cost, in
+    turns (kept, clocked, clocked, kept).  One line a shape; returns
+    {shape: row}."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from fypraytracer_tpu_torch.ops import kernels
+    from fypraytracer_tpu_torch.ops.traverse import check_overflow
+    from fypraytracer_tpu_torch.render import megakernel_restir_gi as mg
+    from fypraytracer_tpu_torch.render.restir_common import TILE_BLOCK, camera_matrices
+
+    st = settings_for("RESTIR_GI")
+    out = {}
+    for name, w, h in SHAPES:
+        scene, cam = tile_scene(name, w, h)
+        B = w * h
+        ppv = torch.as_tensor(cam.proj_view, device="cuda")
+        cam_t = camera_matrices(cam, "cuda")
+        z = (torch.zeros((mg.GT_ROWS, B), device="cuda"), torch.zeros((mg.GS_ROWS, B), device="cuda"))
+        _, state, _ = mg.restir_gi_megakernel(scene, cam, *z, 1, 2, st, ppv, ppv, mono=False)
+        stage = mg.restir_gi_k1(scene, cam, 3, st, state, ppv, cam=cam_t)
+        acc, st_out = torch.zeros((B, 3), device="cuda"), torch.empty_like(state)
+
+        def k7(flags, scene=scene, cam=cam, stage=stage, st_out=st_out, acc=acc, cam_t=cam_t):
+            with mock.patch.dict(kernels.EXTRA_FLAGS, {"restir_gi": flags}):
+                mg.restir_gi_k2(scene, cam, 3, st, stage, st_out, acc, cam=cam_t)
+
+        row = clocked("restir_gi", lambda: kernels.load("restir_gi", "fyp_restir_gi_k7_clocks", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]), GI_CLOCKS, K7_SECTIONS, k7,
+            B // TILE_BLOCK, 10 if B > 256 * 256 else 20, lambda: mg.restir_gi_k2.launches, counters=K7_COUNTERS)
+        c = row["counters"]
+        row["walks"] = dict(lanes_a_round=c["walk_lanes"] / max(c["walk_rounds"], 1),
+                            rounds_over_longest_list=c["walk_rounds"] / max(c["longest_lists"], 1),
+                            walks_a_pixel=c["walk_lanes"] / B)
         key = f"{name} {w}x{h}"
         out[key] = row
-        emit("di_attribution", shape=key, **row)
+        emit("k7_attribution", shape=key, **row)
         check_overflow(scene)
     return out
 
@@ -3284,7 +3431,7 @@ def ab_turn(tree: str) -> None:
     (``by_shape``; K3's two launches at ``SHAPES`` and ``BETWEEN``, K5's
     and K6's at ``SHAPES`` and, in this checkout only, at ``BETWEEN``),
     K5's and K6's ``gi_attribution`` where the tree's restir_gi.cu has the
-    section clocks, and K8 a
+    section clocks, K7's ``k7_attribution`` where its K7 has them, and K8 a
     launch at ``SHAPES`` with its loss and d_tri at Cornell 256²
     (``k8_by_shape``), with the registers and spills of that tree's K2 NEE
     and K3-K8 from its nvcc report, their occupancy where the tree reports
@@ -3344,6 +3491,11 @@ def ab_turn(tree: str) -> None:
         if GI_CLOCKS[2:] in f.read():                   # the tree's K5 and K6 have their section clocks
             progress("K5 and K6 attribution")
             gi_attr = {k: dict(shares=v["shares"], ms=v["ms"]) for k, v in gi_attribution().items()}
+    with open(os.path.join(tree, "fypraytracer_tpu_torch", "csrc", "restir_gi.cu")) as f:
+        if "fyp_restir_gi_k7_clocks" in f.read():       # the tree's K7 has its section clocks
+            progress("K7 attribution")
+            gi_attr = dict(gi_attr or {}, **{f"k7 {k}": dict(shares=v["shares"], ms=v["ms"], walks=v["walks"])
+                                             for k, v in k7_attribution().items()})
     out = {}
     cornell_sizes = (("cornell", 256, 256), ("cornell", 1920, 1088))
     for cls, tech, frames, shapes, mode in ((Renderer, "NEE_MIS", 8, cornell_sizes, {}),

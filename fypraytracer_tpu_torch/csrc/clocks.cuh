@@ -1,6 +1,7 @@
-// Section clocks and block spans of K4 (restir_di.cu, -DFYP_DI_CLOCKS) and
-// K8 (megakernel_diff.cu, -DFYP_DIFF_CLOCKS), for chip_smoke.py's
-// di_attribution and k8_attribution.
+// Section clocks and block spans of K3 and K4 (restir_di.cu,
+// -DFYP_DI_CLOCKS), K7 (restir_gi.cu, -DFYP_GI_CLOCKS) and K8
+// (megakernel_diff.cu, -DFYP_DIFF_CLOCKS), for chip_smoke.py's
+// di_attribution, k7_attribution and k8_attribution.
 //
 //   * SectionClocks<N>: each thread counts the cycles (clock64) it spends in
 //     each of N sections; at its end every warp adds its threads' sums into

@@ -19,7 +19,12 @@
 //     C / 128 blocks of 128 (no cluster: K4 has no tile sum, and its reads
 //     need only the tile's index pix / C);
 //   * candidates are uniform over the emissive list with p-hat at the emitter's
-//     centroid (:219-240, :313-325), dist^-1 by rsqrtf;
+//     centroid (:219-240, :313-325), dist^-1 by rsqrtf.  p-hat depends on
+//     the pixel's surface and the emitter only, so where the list holds at
+//     most kPhatTable emitters K3 evaluates each once, after the surface,
+//     and reads every candidate's value from that table, the same bits
+//     (tests/test_torch_k3_phat.py holds the premise); a pixel that does
+//     not shade evaluates none, since its reservoir takes no candidate;
 //   * temporal reuse: each shading pixel reprojects its hit point through ppv;
 //     the tile reads the previous state at ONE offset, rint(mean(prev_pix -
 //     pix)) over its shading pixels (summed as integers), clamped to [0, B - C];
@@ -52,7 +57,8 @@
 //
 // What bounds it on an H100: two BVH walks per pixel per frame (primary in K3,
 // shadow in K4), chains of dependent loads, and the candidate p-hat
-// evaluations (M + 1 in K3, N + 1 in K4, each a Cook-Torrance evaluation); the
+// evaluations (M + 1 in K3, ne + 1 where the table serves; N + 1 in K4,
+// each a Cook-Torrance evaluation); the
 // stage and state rows are read and written once per frame, coalesced (22 + 9
 // rows of 4 B per pixel), plus N neighbour reads of 8 rows that stay in L2.
 // The emissive table is a few floats per emitter.  One thread per pixel, state
@@ -63,17 +69,23 @@
 // runs every frame in blocks of 128, which need no cluster: at 77 registers
 // a thread an SM holds six of them against one block of 512, and they beat
 // one block a tile at every shape timed, by 1.46x at 1920x1088 (on an H100,
-// PERF.md Findings).
+// PERF.md Findings).  Of K3's threads' cycles at Cornell 256² (stress 128²,
+// 1920x1088) the candidate loop took 34% (19%, 37%) before the table, the
+// primary walk 25% (38%, 18%) and the tile's sum, mostly its barrier's
+// wait for the tile's slowest walk, 22% (33%, 25%); the table cut K3's
+// time to 0.93x (0.93x, 0.73x), at 64 registers without a spill (p_prev
+// from the table too spills 4 bytes: it is evaluated).
 //
-// Built with -DFYP_DI_CLOCKS, K4 counts the cycles of its sections and each
-// block its span on the card's clock (Clocks below, clocks.cuh) for
-// chip_smoke.py::di_attribution.
+// Built with -DFYP_DI_CLOCKS, K3 and K4 count the cycles of their sections
+// and each block its span on the card's clock (K3Clocks and Clocks below,
+// clocks.cuh) for chip_smoke.py::di_attribution.
 //
 // C interface (loaded with ctypes by render/megakernel_restir.py): each entry
 // launches one kernel on the given stream and returns the launch's error (K3)
 // or cudaGetLastError() (K4); fyp_restir_di_k3_occupancy reports K3's resident
-// blocks and clusters; fyp_restir_di_clocks (built with -DFYP_DI_CLOCKS)
-// hands over K4's section cycles and block spans since its last call.
+// blocks and clusters; fyp_restir_di_k3_clocks and fyp_restir_di_clocks
+// (built with -DFYP_DI_CLOCKS) hand over K3's and K4's section cycles and
+// block spans since their last call.
 #include "clocks.cuh"
 #include "shading.cuh"
 #include "tile.cuh"
@@ -160,6 +172,20 @@ __device__ float p_hat(const Emitters& E, int e, float3 pos, float3 n, float3 vi
   return sqrtf(fmaxf(dot(r, r), 0.0f));
 }
 
+// K3 evaluates p-hat once per emitter where the emissive list holds at most
+// kPhatTable emitters (the Cornell box and the stress scene hold 2), and
+// reads each candidate's value from that table
+constexpr int kPhatTable = 4;
+
+// the table's entry for emitter e (0 <= e < kPhatTable), selected by
+// compares: a runtime index into a local array would put it in local memory
+__device__ __forceinline__ float phat_of(const float (&t)[kPhatTable], int e) {
+  float v = t[0];
+#pragma unroll
+  for (int j = 1; j < kPhatTable; ++j) v = e == j ? t[j] : v;
+  return v;
+}
+
 __device__ __forceinline__ float3 row3(const float* buf, int row, int B, int q) {
   return make_float3(__ldg(buf + row * B + q), __ldg(buf + (row + 1) * B + q), __ldg(buf + (row + 2) * B + q));
 }
@@ -169,6 +195,46 @@ __device__ __forceinline__ void put3(float* buf, int row, int B, int q, float3 v
   buf[(row + 1) * B + q] = v.y;
   buf[(row + 2) * B + q] = v.z;
 }
+
+// Cycles a thread spends in each section, built with -DFYP_DI_CLOCKS
+// (chip_smoke.py::di_attribution).  K3: the whole kernel, the primary walk,
+// the surface with its texture fetch, the candidate loop (its p-hat
+// evaluations, draws and reservoir updates), the reprojection, the tile's
+// sum with its barrier wait, the temporal reads with p_prev and the merge,
+// and the stage writes; the rest is the camera ray and the keys.  K4: the
+// whole kernel, its stage reads, the spatial loop's neighbour reads (with
+// their tests) and its p-hat evaluations, the point on the emitter with the
+// BRDF and the geometry term, the shadow walk (both passes), and the accum
+// and state writes; the rest is the camera ray, the keys, the reservoir
+// updates and the final sum.  Each warp adds its threads' sums into
+// k3_clocks or di_clocks and its block's span into k3_spans or di_spans,
+// which the C entries fyp_restir_di_k3_clocks and fyp_restir_di_clocks hand
+// over and clear.  Without the macro every call below compiles to nothing.
+enum K3Section {
+  k3Total = 0, k3PrimaryWalk = 1, k3Surface = 2, k3Candidates = 3, k3Reproject = 4, k3TileSum = 5,
+  k3Temporal = 6, k3Writes = 7, k3Sections = 8
+};
+enum Section {
+  kTotal = 0, kStageReads = 1, kNeighbourReads = 2, kPHat = 3, kEmitter = 4, kShadowWalk = 5, kWrites = 6,
+  kSections = 7
+};
+#ifdef FYP_DI_CLOCKS
+__device__ unsigned long long k3_clocks[k3Sections];
+__device__ BlockSpans k3_spans;
+__device__ unsigned long long di_clocks[kSections];
+__device__ BlockSpans di_spans;
+struct K3Clocks : SectionClocks<k3Sections> {
+  __device__ __forceinline__ void begin() const { SectionClocks::begin(k3_spans); }
+  __device__ void flush() const { SectionClocks::flush(k3_clocks, k3_spans); }
+};
+struct Clocks : SectionClocks<kSections> {
+  __device__ __forceinline__ void begin() const { SectionClocks::begin(di_spans); }
+  __device__ void flush() const { SectionClocks::flush(di_clocks, di_spans); }
+};
+#else
+using K3Clocks = NoClocks;
+using Clocks = NoClocks;
+#endif
 
 struct K3Params {
   const float* cam;  // (2, 4, 4)
@@ -193,6 +259,9 @@ struct K3Params {
 // BVH; textured when T
 template <bool T, int kThreads>
 __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
+  K3Clocks clk;
+  clk.begin();
+  const long long t_all = clk.now();
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int C = P.C;
   const int tile = pix / C;
@@ -202,7 +271,10 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
 
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
+  long long t0 = clk.now();
   const Hit h0 = tr.closest(orig, dir);
+  clk.add(k3PrimaryWalk, t0);
+  t0 = clk.now();
   const bool hit = h0.tri >= 0;
   Surf s{};
   float3 em0 = make_float3(0.0f, 0.0f, 0.0f);
@@ -212,21 +284,40 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
   }
   const bool shade = hit && !(dot(em0, em0) > 0.0f);
   const float3 view = -dir;
+  clk.add(k3Surface, t0);
 
   uint32_t key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 7001u);
   const int ne = P.em.n;
+  t0 = clk.now();
+  // where the list is short, p-hat of every emitter once (a pixel that does
+  // not shade reads none: its reservoir takes no candidate), then each
+  // candidate's from the table; else a p-hat a candidate
+  const bool table = ne <= kPhatTable;
+  float ph_e[kPhatTable];
+#pragma unroll
+  for (int j = 0; j < kPhatTable; ++j) ph_e[j] = 0.0f;
+  if (table && shade) {
+#pragma unroll 1
+    for (int e = 0; e < ne; ++e) {
+      const float v = p_hat(P.em, e, s.pos, s.n, view, s.alb, s.rough, s.metal);
+#pragma unroll
+      for (int j = 0; j < kPhatTable; ++j) ph_e[j] = j == e ? v : ph_e[j];
+    }
+  }
   Res res{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int i = 0; i < P.candidates; ++i) {
     float u_sel = next_uniform(key);
     float u_acc = next_uniform(key);
     int cand = min(static_cast<int>(u_sel * static_cast<float>(ne)), ne - 1);
-    float ph = p_hat(P.em, cand, s.pos, s.n, view, s.alb, s.rough, s.metal);
+    float ph = table ? phat_of(ph_e, cand) : p_hat(P.em, cand, s.pos, s.n, view, s.alb, s.rough, s.metal);
     res_update(res, static_cast<float>(cand), ph * static_cast<float>(ne), 1.0f, ph, u_acc, shade);
   }
   res.w = res.p > 0.0f ? (res.wsum / fmaxf(res.m, 1.0f)) / res.p : 0.0f;
+  clk.add(k3Candidates, t0);
 
   if (P.temporal) {
     // reprojection through the previous proj @ view (Renderer.cu:1750-1765)
+    t0 = clk.now();
     const float* pv = P.ppv;
     auto prow = [&](int r) {
       return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__ldg(pv + 4 * r), s.pos.x), __fmul_rn(__ldg(pv + 4 * r + 1), s.pos.y)),
@@ -242,10 +333,14 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
     const int ppy = min(max(static_cast<int>(__fmul_rn(__fsub_rn(1.0f, v), static_cast<float>(P.height))), 0),
                         P.height - 1);
     const int prev_pix = ppx + ppy * P.width;
+    clk.add(k3Reproject, t0);
 
     // the tile's one offset: rint of the mean reprojection offset of its
     // shading pixels, summed exactly as integers
+    t0 = clk.now();
     const int2 sum = ClusterTile::sum(shade, prev_pix - pix);
+    clk.add(k3TileSum, t0);
+    t0 = clk.now();
     const int off = static_cast<int>(rintf(static_cast<float>(sum.x) / fmaxf(static_cast<float>(sum.y), 1.0f)));
     const int sc = min(max(tile * C + off, 0), B - C);
     const int q = sc + lane;
@@ -271,8 +366,10 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
       res = tmp;
       res.w = tmp.p > 0.0f ? (m_inv * tmp.wsum) / tmp.p : 0.0f;
     }
+    clk.add(k3Temporal, t0);
   }
 
+  t0 = clk.now();
   float* st = P.stage;
   put3(st, S_POS, B, pix, s.pos);
   put3(st, S_NRM, B, pix, s.n);
@@ -288,31 +385,10 @@ __global__ void __launch_bounds__(kThreads) k3_candidates(K3Params P) {
   st[S_RPDF * B + pix] = res.p;
   st[S_RWSUM * B + pix] = res.wsum;
   st[S_RM * B + pix] = res.m;
+  clk.add(k3Writes, t0);
+  clk.add(k3Total, t_all);
+  clk.flush();
 }
-
-// Cycles a thread of K4 spends in each section, built with -DFYP_DI_CLOCKS
-// (chip_smoke.py::di_attribution): the whole kernel, its stage reads, the
-// spatial loop's neighbour reads (with their tests) and its p-hat
-// evaluations, the point on the emitter with the BRDF and the geometry
-// term, the shadow walk (both passes), and the accum and state writes; the
-// rest is the camera ray, the keys, the reservoir updates and the final
-// sum.  Each warp adds its threads' sums into di_clocks and its span into
-// di_spans, which the C entry fyp_restir_di_clocks hands over and clears.
-// Without the macro every call below compiles to nothing.
-enum Section {
-  kTotal = 0, kStageReads = 1, kNeighbourReads = 2, kPHat = 3, kEmitter = 4, kShadowWalk = 5, kWrites = 6,
-  kSections = 7
-};
-#ifdef FYP_DI_CLOCKS
-__device__ unsigned long long di_clocks[kSections];
-__device__ BlockSpans di_spans;
-struct Clocks : SectionClocks<kSections> {
-  __device__ __forceinline__ void begin() const { SectionClocks::begin(di_spans); }
-  __device__ void flush() const { SectionClocks::flush(di_clocks, di_spans); }
-};
-#else
-using Clocks = NoClocks;
-#endif
 
 struct K4Params {
   const float* cam;  // (2, 4, 4)
@@ -574,6 +650,20 @@ extern "C" int fyp_restir_di_k4(
 }
 
 #ifdef FYP_DI_CLOCKS
+// K3's cycles of each section (K3Section) summed over every thread of every
+// launch since the last call, and the first n_blocks blocks' spans, as
+// fyp_restir_di_clocks hands over K4's; then both cleared, on the stream.
+extern "C" int fyp_restir_di_k3_clocks(void* sums_out, void* spans_out, int n_blocks, void* stream) {
+  void* sums = nullptr;
+  void* spans = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&sums, k3_clocks);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&spans, k3_spans);
+  if (e == cudaSuccess)
+    e = read_clocks(static_cast<unsigned long long*>(sums), k3Sections, static_cast<BlockSpans*>(spans), sums_out,
+                    spans_out, n_blocks, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+
 // K4's cycles of each section (Section) summed over every thread of every
 // launch since the last call, as kSections unsigned 64-bit ints copied to
 // sums_out, and the first n_blocks blocks' starts and ends in nanoseconds,

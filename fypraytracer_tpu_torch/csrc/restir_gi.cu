@@ -78,6 +78,19 @@
 // 512 is one (16); on an H100 they ran it 1.02x, 1.06x and 1.43x faster than
 // one block of C a tile at Cornell 256², stress 128² and Cornell 1920x1088.
 //
+// K7 (chip_smoke.py::k7_attribution; PERF.md Findings): at Cornell 256²
+// (stress 128², 1920x1088) its threads count 59% (75%, 64%) of their
+// cycles in the neighbour tests, 6% (1%, 9%) in the Jacobian and 23% (11%,
+// 21%) in the visibility walks; a warp's walk round finds 8.8 (3.5, 7.8)
+// of its 32 lanes walking, and a lane that does not walk counts its wait
+// for those that do in its next tests.  Reading every row of a
+// neighbour before its tests, the Jacobian computed for every neighbour
+// (L::kEager 2), cut its time to 0.97x at all three.  Each thread walking
+// its own list of segments (kernel_variants.py gi vislist) needs 1/1.4 to
+// 1/1.6 of the rounds and ran 0.76-0.78x on the stress scene and 0.92-0.96x
+// at 1920x1088, but 1.04-1.06x at Cornell 256², where reading and testing
+// the neighbours again costs more than the rounds it saves.
+//
 // Floating point: built with -fmad=false (ops/kernels.py), so no product is
 // fused into a sum and every expression rounds as the plain PyTorch version's
 // elementwise ops do; a reservoir decision compares floats and flips on one
@@ -88,7 +101,9 @@
 // (`clustered`: K5 and K6 split each tile over a cluster) and returns the
 // launch's error, or cudaGetLastError(); fyp_restir_gi_occupancy reports K5's
 // and K6's resident blocks and clusters; fyp_restir_gi_clocks (built with
-// -DFYP_GI_CLOCKS) their section cycles.
+// -DFYP_GI_CLOCKS) their section cycles, fyp_restir_gi_k7_clocks K7's with
+// its block spans and visibility-walk counters.
+#include "clocks.cuh"
 #include "shading.cuh"
 #include "tile.cuh"
 #include "wide.cuh"
@@ -172,12 +187,12 @@ struct Clocks {
   long long c[kSections] = {};
   __device__ __forceinline__ long long now() const { return clock64(); }
   // adds the cycles since t0 to section s and returns them
-  __device__ __forceinline__ long long add(Section s, long long t0) {
+  __device__ __forceinline__ long long add(int s, long long t0) {
     const long long dt = clock64() - t0;
     c[s] += dt;
     return dt;
   }
-  __device__ __forceinline__ void sub(Section s, long long dt) { c[s] -= dt; }
+  __device__ __forceinline__ void sub(int s, long long dt) { c[s] -= dt; }
   // every thread of the warp calls it
   __device__ void flush() {
 #pragma unroll
@@ -192,11 +207,74 @@ struct Clocks {
 #else
 struct Clocks {
   __device__ __forceinline__ long long now() const { return 0; }
-  __device__ __forceinline__ long long add(Section, long long) { return 0; }
-  __device__ __forceinline__ void sub(Section, long long) {}
+  __device__ __forceinline__ long long add(int, long long) { return 0; }
+  __device__ __forceinline__ void sub(int, long long) {}
   __device__ __forceinline__ void flush() {}
 };
 #endif
+
+// Cycles a thread of K7 spends in each section, also built with
+// -DFYP_GI_CLOCKS (chip_smoke.py::k7_attribution): the whole kernel, its own
+// stage reads, the neighbours' reads and tests (with the merge), the
+// reconnection Jacobian, the visibility walks, the shade, and the accum and
+// state writes; the rest is the keys and the camera ray.  Each warp adds its
+// threads' sums into k7_clocks and its block's span into k7_spans
+// (clocks.cuh), and after the sections its visibility walks: the lanes
+// that walk summed over the warp's rounds (a round: a neighbour that any
+// lane of the warp walks), the rounds, and the most walks of any one lane,
+// over the first 32 neighbours.  The C entry fyp_restir_gi_k7_clocks hands
+// them over and clears them.  Without the macro every call compiles to
+// nothing.
+enum K7Section {
+  k7Total = 0, k7OwnReads = 1, k7NeighbourTests = 2, k7Jacobian = 3, k7VisWalks = 4, k7Shade = 5, k7Writes = 6,
+  k7Sections = 7, k7WalkLanes = 7, k7WalkRounds = 8, k7LongestLists = 9, k7Sums = 10
+};
+#ifdef FYP_GI_CLOCKS
+__device__ unsigned long long k7_clocks[k7Sums];
+__device__ BlockSpans k7_spans;
+struct K7Clocks : SectionClocks<k7Sections> {
+  __device__ __forceinline__ void begin() const { SectionClocks::begin(k7_spans); }
+  // every thread of the warp calls it, with bit k set where it walked
+  // neighbour k's segment
+  __device__ void walks(uint32_t walked, int n) const {
+    unsigned long long lanes = 0, rounds = 0;
+    for (int k = 0; k < min(n, 32); ++k) {
+      const unsigned b = __ballot_sync(0xffffffffu, (walked >> k) & 1u);
+      lanes += __popc(b);
+      rounds += b != 0u ? 1u : 0u;
+    }
+    const unsigned longest = __reduce_max_sync(0xffffffffu, static_cast<unsigned>(__popc(walked)));
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(k7_clocks + k7WalkLanes, lanes);
+      atomicAdd(k7_clocks + k7WalkRounds, rounds);
+      atomicAdd(k7_clocks + k7LongestLists, static_cast<unsigned long long>(longest));
+    }
+  }
+  __device__ void flush() const { SectionClocks::flush(k7_clocks, k7_spans); }
+};
+#else
+struct K7Clocks : NoClocks {
+  __device__ __forceinline__ void walks(uint32_t, int) const {}
+};
+#endif
+
+// The sections that spatial's and shade_out's clocks add to, for K5 and
+// for K7: each is a lap, the cycles since the last mark, added at its end;
+// and how spatial reads a neighbour's rows (kEager): 0, the tests in a
+// chain of branches, each test's rows loaded after the test before; 1,
+// every test's rows loaded first and the tests without a branch; 2, the
+// reconnection Jacobian's rows and arithmetic too, for every neighbour,
+// before its tests decide.  The same values and decisions in each.
+struct K5Laps {
+  static constexpr int kTests = kSpatialReads, kJacobian = kSpatialReads, kWalks = kVisWalks, kShade = kStores,
+                       kWrites = kStores;
+  static constexpr int kEager = 0;
+};
+struct K7Laps {
+  static constexpr int kTests = k7NeighbourTests, kJacobian = k7Jacobian, kWalks = k7VisWalks, kShade = k7Shade,
+                       kWrites = k7Writes;
+  static constexpr int kEager = 2;
+};
 
 // A reservoir of path samples (megakernel_restir_gi.py::_gi_res_update).
 struct PathRes {
@@ -427,17 +505,22 @@ __device__ void write_stage(float* sg, int B, int pix, const Own& o, const PathR
 
 // Spatial reuse of res over the frame's neighbours read from nb (a stage
 // buffer), with per-neighbour visibility walked by tr when vis
-// (megakernel_restir_gi.py: 1185-1373 and 447-661).
-template <class Tracer>
-__device__ void spatial(const Params& P, const Tracer& tr, Clocks& clk, const float* nb, int pix, const Own& o,
-                        PathRes& res, uint32_t& key, bool vis) {
-  const long long t0 = clk.now();
+// (megakernel_restir_gi.py: 1185-1373 and 447-661), the neighbours in
+// rounds: round k tests neighbour k (in the image, the tile's read
+// unclamped, depth, normal, shading, M > 0), computes its p-hat through
+// the reconnection Jacobian and walks its segment.  Returns bit k set where
+// it walked neighbour k's segment (k < 32).  Laps of L on clk.
+template <class L, class Tracer, class Clk>
+__device__ uint32_t spatial(const Params& P, const Tracer& tr, Clk& clk, const float* nb, int pix, const Own& o,
+                            PathRes& res, uint32_t& key, bool vis) {
+  long long t = clk.now();
   const int C = P.C;
   const int tile = pix / C;
   const int lane = pix - tile * C;
   const int B = P.width * P.height;
   const int px = pix % P.width, py = pix / P.width;
   float z = o.shade ? res.m : 0.0f;
+  uint32_t walked = 0;
   uint32_t okey = fold(fold(fold(pcg(0xD1CEu), P.frame), 0u), 8002u);
   for (int k = 0; k < P.neighbors; ++k) {
     const float ux = next_uniform(okey);
@@ -451,10 +534,22 @@ __device__ void spatial(const Params& P, const Tracer& tr, Clocks& clk, const fl
     const int q = sc + lane;
     const bool in_img = px + dx >= 0 && px + dx < P.width && py + dy >= 0 && py + dy < P.height;
     const float n_t = row1(nb, GS_T, B, q);
-    const bool ok = in_img && s == sc && n_t <= 1.1f * o.t && n_t >= 0.9f * o.t &&
-                    dot(row3(nb, GS_NRM, B, q), o.n) >= kNormalSpatial && row1(nb, GS_SHADE, B, q) > 0.5f &&
-                    row1(nb, GS_M, B, q) > 0.0f;
-    if (!ok) continue;
+    bool ok;
+    if constexpr (L::kEager > 0) {
+      // every row the tests read, loaded before any test and tested without
+      // a branch (q lies in [0, B) whatever the offset)
+      ok = in_img & (s == sc) & (n_t <= 1.1f * o.t) & (n_t >= 0.9f * o.t) &
+           (dot(row3(nb, GS_NRM, B, q), o.n) >= kNormalSpatial) & (row1(nb, GS_SHADE, B, q) > 0.5f) &
+           (row1(nb, GS_M, B, q) > 0.0f);
+    } else {
+      ok = in_img && s == sc && n_t <= 1.1f * o.t && n_t >= 0.9f * o.t &&
+           dot(row3(nb, GS_NRM, B, q), o.n) >= kNormalSpatial && row1(nb, GS_SHADE, B, q) > 0.5f &&
+           row1(nb, GS_M, B, q) > 0.0f;
+    }
+    if constexpr (L::kEager < 2) {
+      if (!ok) continue;
+      t += clk.add(L::kTests, t);
+    }
 
     // Jacobian of path reconnection (eq. 11, Renderer.cu:2343-2353)
     const float3 spn = row3(nb, GS_SP, B, q);
@@ -469,25 +564,30 @@ __device__ void spatial(const Params& P, const Tracer& tr, Clocks& clk, const fl
     const float jac = (cos_q > 0.0f ? cos_r / fmaxf(cos_q, 1e-12f) : 0.0f) * (dist_q * dist_q) /
                       fmaxf(dist_r * dist_r, 1e-20f);
     float p_n = jac > 0.0f ? rad_norm(radn) / fmaxf(jac, 1e-12f) : 0.0f;
+    if constexpr (L::kEager == 2) {
+      if (!ok) continue;
+    }
+    t += clk.add(L::kJacobian, t);
     if (vis && p_n > 0.0f) {
-      const long long tv = clk.now();
+      walked |= k < 32 ? 1u << k : 0u;
       if (!tr.visible(spn + snn * kOriginEps, dr / dist_r, dist_r)) p_n = 0.0f;
-      clk.sub(kSpatialReads, clk.add(kVisWalks, tv));
+      t += clk.add(L::kWalks, t);
     }
     const float nb_m = row1(nb, GS_M, B, q);
     z = z + nb_m;
     res_update(res, spn, snn, radn, p_n * row1(nb, GS_W, B, q) * nb_m, nb_m, p_n, u_acc);
   }
   res.w = res.phat > 0.0f ? res.wsum / (fmaxf(z, 1.0f) * res.phat) : 0.0f;
-  clk.add(kSpatialReads, t0);
+  clk.add(L::kTests, t);
+  return walked;
 }
 
 // The shade (restir_gi._shade), the frame's HDR added to accum and the state
 // written; final_vis traces one visibility ray for the winner, walked by tr.
-template <class Tracer>
-__device__ void shade_out(const Params& P, const Tracer& tr, Clocks& clk, int pix, const Own& o, const PathRes& res,
+template <class L, class Tracer, class Clk>
+__device__ void shade_out(const Params& P, const Tracer& tr, Clk& clk, int pix, const Own& o, const PathRes& res,
                           float3 view, bool final_vis) {
-  const long long t0 = clk.now();
+  long long t = clk.now();
   const int B = P.width * P.height;
   float3 hdr;
   if (!o.hit) {
@@ -500,9 +600,9 @@ __device__ void shade_out(const Params& P, const Tracer& tr, Clocks& clk, int pi
     const float3 sd = ts / dist;
     bool lane_ok = res.w > 0.0f;
     if (lane_ok && final_vis) {
-      const long long tv = clk.now();
+      t += clk.add(L::kShade, t);
       lane_ok = tr.visible(res.sp + res.sn * kOriginEps, -sd, dist);
-      clk.sub(kStores, clk.add(kVisWalks, tv));
+      t += clk.add(L::kWalks, t);
     }
     float3 gi = zero3();
     if (lane_ok) {
@@ -512,6 +612,7 @@ __device__ void shade_out(const Params& P, const Tracer& tr, Clocks& clk, int pi
     }
     hdr = gi + o.sky_direct;
   }
+  t += clk.add(L::kShade, t);
   P.accum[3 * pix + 0] += hdr.x;
   P.accum[3 * pix + 1] += hdr.y;
   P.accum[3 * pix + 2] += hdr.z;
@@ -525,7 +626,7 @@ __device__ void shade_out(const Params& P, const Tracer& tr, Clocks& clk, int pi
   st[GT_M * B + pix] = res.m;
   st[GT_WSUM * B + pix] = res.wsum;
   put3(st, GT_NRM, B, pix, o.n);
-  clk.add(kStores, t0);
+  clk.add(L::kWrites, t);
 }
 
 // ---- the kernels ---------------------------------------------------------------------
@@ -548,10 +649,10 @@ __global__ void __launch_bounds__(kThreads) gi_mono(Params P) {
   write_stage(P.stage_out, B, pix, o, res);
   clk.add(kStores, ts);
   key = fold(key, 8002u);
-  if (P.neighbors > 0) spatial(P, tr, clk, P.stage_in, pix, o, res, key, !kFinalVis);
+  if (P.neighbors > 0) spatial<K5Laps>(P, tr, clk, P.stage_in, pix, o, res, key, !kFinalVis);
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  shade_out(P, tr, clk, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
+  shade_out<K5Laps>(P, tr, clk, pix, o, res, -dir, kFinalVis && P.neighbors > 0);
   clk.add(kTotal, t_all);
   clk.flush();
 }
@@ -579,10 +680,14 @@ __global__ void __launch_bounds__(kThreads) gi_stage1(Params P) {
 // blocks of kTileBlock threads, C / kTileBlock of them a tile, without a
 // cluster; the walks through the wide BVH.
 __global__ void __launch_bounds__(kTileBlock) gi_stage2(Params P) {
+  K7Clocks clk;
+  clk.begin();
+  const long long t_all = clk.now();
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = P.width * P.height;
   const WideTracer tr{P.wide, lane_stack(P.wide.stack_depth)};
   const float* sg = P.stage_in;
+  const long long t0 = clk.now();
   Own o;
   o.pos = row3(sg, GS_POS, B, pix);
   o.n = row3(sg, GS_NRM, B, pix);
@@ -596,12 +701,16 @@ __global__ void __launch_bounds__(kTileBlock) gi_stage2(Params P) {
   o.shade = row1(sg, GS_SHADE, B, pix) > 0.5f;
   PathRes res{row3(sg, GS_SP, B, pix), row3(sg, GS_SN, B, pix), row3(sg, GS_RAD, B, pix), row1(sg, GS_PHAT, B, pix),
               row1(sg, GS_W, B, pix), row1(sg, GS_M, B, pix), row1(sg, GS_WSUM, B, pix)};
+  clk.add(k7OwnReads, t0);
   uint32_t key = fold(fold(fold(pcg(static_cast<uint32_t>(pix)), P.frame), 0u), 8002u);
-  Clocks clk;  // K7 keeps no clocks: they are never flushed and compile away
-  if (P.neighbors > 0) spatial(P, tr, clk, sg, pix, o, res, key, true);
+  uint32_t walked = 0;
+  if (P.neighbors > 0) walked = spatial<K7Laps>(P, tr, clk, sg, pix, o, res, key, true);
+  clk.walks(walked, P.neighbors);
   float3 orig, dir;
   camera_ray(P.cam, P.width, P.height, pix, orig, dir);
-  shade_out(P, tr, clk, pix, o, res, -dir, false);
+  shade_out<K7Laps>(P, tr, clk, pix, o, res, -dir, false);
+  clk.add(k7Total, t_all);
+  clk.flush();
 }
 
 using TileKernel = void (*)(Params);
@@ -704,6 +813,22 @@ extern "C" int fyp_restir_gi_occupancy(int kernel, int textured, int lanes, int 
 }
 
 #ifdef FYP_GI_CLOCKS
+// K7's cycles of each section (K7Section) summed over every thread of every
+// launch since the last call, then its walk counters, as k7Sums unsigned
+// 64-bit ints copied to sums_out, and the first n_blocks blocks' spans as
+// (2, n_blocks) unsigned 64-bit ints copied to spans_out (both on the
+// card); then all cleared, on the stream.
+extern "C" int fyp_restir_gi_k7_clocks(void* sums_out, void* spans_out, int n_blocks, void* stream) {
+  void* sums = nullptr;
+  void* spans = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&sums, k7_clocks);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&spans, k7_spans);
+  if (e == cudaSuccess)
+    e = read_clocks(static_cast<unsigned long long*>(sums), k7Sums, static_cast<BlockSpans*>(spans), sums_out,
+                    spans_out, n_blocks, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+
 // The cycles of each section (Section) of K5 and K6 summed over every thread
 // of every launch since the last call, as kSections unsigned 64-bit ints
 // copied to out (on the card), and the sums cleared, on the stream.

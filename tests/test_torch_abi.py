@@ -196,6 +196,19 @@ def test_diff_and_di_clocks_entries_are_bound_by_the_smoke_test(entry):
     assert len(ENTRIES["fyp_restir_di_k4"]) == 28 and len(ENTRIES["fyp_diff_megakernel"]) == 25
 
 
+@pytest.mark.parametrize("entry", ["fyp_restir_di_k3_clocks", "fyp_restir_gi_k7_clocks"])
+def test_k3_and_k7_clocks_entries_are_bound_by_the_smoke_test(entry):
+    """K3's and K7's section clocks and block spans (built with
+    ``-DFYP_DI_CLOCKS`` and ``-DFYP_GI_CLOCKS``; K7's sums end with its
+    visibility-walk counters) hand them over through an entry that takes
+    both outputs, the blocks to copy and the stream, as K4's does, and
+    ``chip_smoke.py``'s ``di_attribution`` and ``k7_attribution`` bind it;
+    K3's and the ReSTIR GI entry keep their parameters."""
+    assert ENTRIES[entry] == ["pointer", "pointer", "int", "pointer"]
+    assert [w.split(":")[0] for name, _, w in BINDINGS if name == entry] == ["chip_smoke.py"]
+    assert len(ENTRIES["fyp_restir_di_k3"]) == 44 and len(ENTRIES["fyp_restir_gi"]) == 44
+
+
 def test_parameter_kinds_are_read_as_declared():
     """The reader of the prototypes: pointers whatever their constness,
     ``unsigned int`` apart from ``int``; a type it does not know fails."""

@@ -743,6 +743,119 @@ def test_k4_bounded_shadow_walk_equals_the_unbounded_walk(cuda, monkeypatch):
         assert torch.equal(state, u_state) and torch.equal(hdr, u_hdr), f"frame {frame}"
 
 
+def _many_emitters(builder):
+    """The rough sphere's material made emissive: 578 emitters on the
+    Cornell box at ``sphere_res=(12, 24)``, 122 at (6, 10), far more than
+    K3's 9 p-hat evaluations a pixel."""
+    from fypraytracer_tpu_torch.scene.manager import SceneManager
+
+    SceneManager(builder).set_material(4, emission_color=(1.0, 0.8, 0.6), emission_power=3.0)
+    return builder
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["untextured", "textured"])
+def test_k3_matches_plain_with_many_emitters(cuda, textured):
+    """K3 with an emissive list longer than its p-hat table (a p-hat a
+    candidate) against ``restir_di_k3_plain``, after two frames of history:
+    the stage within 1e-3 relative on 99% of pixels; split and one block a
+    tile, the same bits; untextured and textured."""
+    if textured:
+        from torch_textured_scene import SEED, SPHERES
+
+        builder, _ = tproc.textured_cornell_box(W, H, big=512, seed=SEED, sphere_res=SPHERES)
+    else:
+        builder, _ = tproc.cornell_box(W, H)
+    scene = tmk.morton_permuted_scene(_many_emitters(builder).compile())[0].to(cuda)
+    cam = Camera(position=(0.0, 1.0, 2.6), forward=(0, 0, -1), width=W, height=H)
+    em = tmr.prepare_emissive_table(scene)
+    assert em.n > 4 * (DI.light_candidates + 1) and (scene.tex is not None) == textured
+    state = torch.zeros((tmr.ST_ROWS, W * H), device=cuda)
+    tmr.restir_di_megakernel_plain(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
+    stage = _launched(tmr.restir_di_k3, True)(scene, em, cam, 3, DI, state, cam.proj_view)
+    assert torch.equal(stage, _launched(tmr.restir_di_k3, False)(scene, em, cam, 3, DI, state, cam.proj_view))
+    ref = tmr.restir_di_k3_plain(scene, em, cam, 3, DI, state, cam.proj_view)
+    assert float((ref[tmr.S_SHADE] > 0.5).float().mean()) > 0.25
+    assert _elements_off(stage, ref) < 0.01
+
+
+# the shapes at which chip_smoke.py times K3-K7
+K7_SHAPES = [("cornell", 256, 256), ("stress", 128, 128), ("cornell", 1920, 1088)]
+
+
+@pytest.mark.parametrize("scene_name, w, h", K7_SHAPES, ids=[f"{n} {w}x{h}" for n, w, h in K7_SHAPES])
+def test_k7_equals_its_plain_version_bit_for_bit(cuda, scene_name, w, h):
+    """K7 against ``restir_gi_k2_plain`` on the same stage (frame 3 of
+    K6, after two frames of the ``mono=False`` loop) at the default five
+    neighbours of radius 30: the state and the accum bit for bit, as K5's
+    second half equals its plain version's."""
+    import chip_smoke
+
+    if scene_name == "stress":
+        builder, cam = tproc.stress(w, h)
+        scene = tmk.morton_permuted_scene(builder.compile(native=True))[0].to(cuda)
+    else:
+        builder, cam = tproc.cornell_box(w, h)
+        scene = tmk.morton_permuted_scene(builder.compile())[0].to(cuda)
+    gi = chip_smoke.settings_for("RESTIR_GI")
+    B = w * h
+    z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
+    _, state, _ = tmg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view, mono=False)
+    stage = tmg.restir_gi_k1(scene, cam, 3, gi, state, cam.proj_view)
+    outs = []
+    for fn in (tmg.restir_gi_k2, tmg.restir_gi_k2_plain):
+        acc, st = torch.zeros((B, 3), device=cuda), state.clone()
+        fn(scene, cam, 3, gi, stage, st, acc)
+        outs.append((acc, st))
+    torch.cuda.synchronize()
+    for got, ref, name in zip(outs[0], outs[1], ("accum", "state")):
+        off = (got != ref).any(-1 if name == "accum" else 0).nonzero().flatten()
+        assert off.numel() == 0, f"{name} differs at {off.numel()} pixels, first {off[:16].tolist()}"
+    ttrav.check_overflow(scene)
+
+
+def _k3_k7_outputs(cuda):
+    """K3's stage and K7's state and accum at frame 3, after two frames of
+    their own loops, on the Cornell box at 64² and the stress scene at 32²,
+    the camera static and moved."""
+    out = []
+    for scene_name, w, h in (("cornell", 64, 64), ("stress", W, H)):
+        for move in (False, True):
+            scene, em, cam = _di_setup(cuda, w, h, scene_name)
+            B = w * h
+            state = torch.zeros((tmr.ST_ROWS, B), device=cuda)
+            tmr.restir_di_megakernel(scene, em, cam, state, 1, 2, DI, cam.proj_view, cam.proj_view)
+            gi = RenderSettings(technique=SamplingTechnique.RESTIR_GI, sky_color=(0.05, 0.06, 0.08))
+            z = (torch.zeros((tmg.GT_ROWS, B), device=cuda), torch.zeros((tmg.GS_ROWS, B), device=cuda))
+            _, gstate, _ = tmg.restir_gi_megakernel(scene, cam, *z, 1, 2, gi, cam.proj_view, cam.proj_view,
+                                                    mono=False)
+            ppv = _moved(cam, move)
+            out.append(tmr.restir_di_k3(scene, em, cam, 3, DI, state, ppv))
+            stage = tmg.restir_gi_k1(scene, cam, 3, gi, gstate, ppv)
+            acc, st = torch.zeros((B, 3), device=cuda), gstate.clone()
+            tmg.restir_gi_k2(scene, cam, 3, gi, stage, st, acc)
+            out += [st, acc]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("family, variant", [("di", "loop"), ("di", "phat"), ("gi", "vislist"), ("gi", "chained")])
+def test_k3_and_k7_designs_give_the_same_bits(cuda, monkeypatch, family, variant):
+    """K3 with a p-hat a candidate (``kernel_variants.py di loop``, the
+    design before the committed table) and with ``p_prev`` read from the
+    table too (``di phat``), K7 walking each thread's own list of segments
+    (``gi vislist``) and reading its neighbours' rows test by test, as
+    before its eager reads (``gi chained``), against the committed
+    kernels: K3's stage and K7's state and accum bit for bit."""
+    import kernel_variants
+
+    kept = _k3_k7_outputs(cuda)
+    monkeypatch.setattr(kernels, "CSRC", kernels.CSRC)      # restored after the test
+    monkeypatch.setattr(kernels, "_libs", {})
+    kernel_variants.use_variant(family, variant)
+    for i, (a, b) in enumerate(zip(kept, _k3_k7_outputs(cuda))):
+        assert torch.equal(a, b), i
+
+
 @pytest.mark.parametrize("lib, kernel", [("restir_di", "k4_shade"), ("megakernel_diff", "diff_kernel")])
 def test_k4_and_k8_spill_nothing(cuda, lib, kernel):
     """ptxas's report of every instantiation of K4 and K8 (each bounce

@@ -23,13 +23,15 @@ def _variants():
 
 
 kv = _variants()
-CASES = [(family, name) for family, (_, _, _, variants) in kv.FAMILIES.items() for name in ["mb3", "mb5", *variants]]
+CASES = [(family, name) for family, (_, _, bounds, variants) in kv.FAMILIES.items()
+         for name in [f"{prefix}{n}" for prefix in bounds for n in (3, 5)] + list(variants)]
 
 
 @pytest.mark.parametrize("family,name", CASES, ids=[f"{f}-{n}" for f, n in CASES])
 def test_every_variant_changes_the_committed_source(family, name):
-    _, _, mb, variants = kv.FAMILIES[family]
-    subs = mb(int(name[2:])) if name.startswith("mb") else variants[name]
+    _, _, bounds, variants = kv.FAMILIES[family]
+    prefix = name.rstrip("0123456789")
+    subs = bounds[prefix](int(name[len(prefix):])) if prefix in bounds and prefix != name else variants[name]
     for fn, old, new in subs:
         with open(os.path.join(CSRC, fn)) as f:
             text = f.read()
@@ -91,3 +93,43 @@ def test_k8_warps_walk_tiles_and_keep_one_ratio_a_level():
     assert "float rg[NL][3], ct[NL][3];" in k8
     assert re.search(r"\bd?g\[", k8) is None
     assert "((width + 7) / 8 * ((height + 3) / 4) + kWarps - 1) / kWarps" in text
+
+
+def test_k3_reads_its_candidates_from_a_table_and_loop_restores_the_parents():
+    """K3 evaluates p-hat once per emitter into a table, at one site in a
+    loop that is not unrolled, and reads the candidates' values by compares
+    (``phat_of``) where the list is short, else a p-hat a candidate, and
+    ``p_prev`` evaluated; ``di loop`` puts back a p-hat a candidate, and
+    ``di phat`` reads ``p_prev`` from the table too (the card test holds
+    all three bit for bit)."""
+    with open(os.path.join(CSRC, "restir_di.cu")) as f:
+        text = f.read()
+    k3 = _kernel(text, "k3_candidates(K3Params P) {", "\n// K4: blocks of")
+    assert k3.count("p_hat(") == 3 and k3.count("phat_of(ph_e, cand)") == 1
+    assert "const bool table = ne <= kPhatTable;" in k3 and "#pragma unroll 1" in k3
+    for name, p_hats, tables in (("loop", 2, 0), ("phat", 3, 2)):
+        out = text
+        for fn, old, new in kv.FAMILIES["di"][3][name]:
+            out = kv.substitute(out, fn, old, new)
+        k3 = _kernel(out, "k3_candidates(K3Params P) {", "\n// K4: blocks of")
+        assert k3.count("p_hat(") == p_hats and k3.count("phat_of(") == tables, name
+
+
+def test_k7_reads_its_neighbours_eagerly_and_walks_lists_at_one_site():
+    """K7 reads every row of a neighbour and computes its Jacobian before
+    testing it (``K7Laps::kEager`` 2) while K5 keeps its chain of tests
+    (0); ``gi chained`` and ``gi eager`` set K7's to 0 and 1; ``gi
+    vislist`` walks each thread's list at one site in a loop that is not
+    unrolled, over the set bits of a mask."""
+    with open(os.path.join(CSRC, "restir_gi.cu")) as f:
+        text = f.read()
+    assert re.search(r"struct K5Laps \{[^}]*kEager = 0;", text) and re.search(r"struct K7Laps \{[^}]*kEager = 2;", text)
+    for name, level in (("chained", 0), ("eager", 1)):
+        out = kv.substitute(text, *kv.FAMILIES["gi"][3][name][0])
+        assert re.search(r"struct K7Laps \{[^}]*kEager = %d;" % level, out)
+    out = text
+    for fn, old, new in kv.FAMILIES["gi"][3]["vislist"]:
+        out = kv.substitute(out, fn, old, new)
+    lists = _kernel(out, "__device__ uint32_t spatial_list(", "\n// The shade")
+    assert lists.count("tr.visible(") == 1 and "#pragma unroll 1" in lists and "__ffs(" in lists
+    assert "walked = spatial_list<K7Laps>(" in out and "walked = spatial<K7Laps>(" not in out
