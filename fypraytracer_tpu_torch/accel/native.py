@@ -30,6 +30,7 @@ import subprocess
 import numpy as np
 
 from fypraytracer_tpu_torch.scene.types import FlatBVH, LightTreeArrays
+from fypraytracer_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(os.path.dirname(_PKG), "native", "builders.cpp")
@@ -89,7 +90,8 @@ def _load():
     if _LIB is not None or _LIB_FAILED:
         return _LIB
     try:
-        lib = ctypes.CDLL(build())
+        with profiling.setup_span("native.load"):     # the g++ build, where there is none, and the load
+            lib = ctypes.CDLL(build())
         lib.build_scene_bvh.restype = ctypes.c_int
         lib.build_scene_bvh.argtypes = [
             _f32p, _f32p, ctypes.c_int64, _i64p, ctypes.c_int, ctypes.c_int,

@@ -41,7 +41,10 @@ differences:
     --nproc-per-node N``; each rank prints its scene line, the training
     lines come from shard 0); the albedo perturbation is a
     ``torch.Generator`` seeded 0;
-  * no compile cache to enable: the kernels are cached in ``_build/``.
+  * no compile cache to enable: the kernels are cached in ``_build/``;
+  * ``render --trace-dir DIR`` writes ``DIR/trace.json``, the profiler's
+    trace of the command with the package's spans merged in
+    (``utils/profiling.py::device_trace``).
 """
 
 from __future__ import annotations
@@ -280,6 +283,17 @@ def _save(outdir, name, hdr, settings, avg_ms, minutes, golden=None):
 
 
 def cmd_render(args):
+    if args.trace_dir:
+        from fypraytracer_tpu_torch.utils.profiling import device_trace
+
+        with device_trace(args.trace_dir, args.device):
+            _render(args)
+        print(json.dumps({"trace": os.path.join(args.trace_dir, "trace.json")}))
+    else:
+        _render(args)
+
+
+def _render(args):
     scene, cam = _load_scene(args)
     settings = _settings(args, _TECH[args.technique])
     if args.checkpoint_dir:
@@ -522,6 +536,9 @@ def main(argv=None):
                    help="checkpoint/resume directory for long renders: saves accumulation + reservoir state "
                         "every --checkpoint-every frames and resumes from an existing checkpoint")
     r.add_argument("--checkpoint-every", type=int, default=64)
+    r.add_argument("--trace-dir", default=None,
+                   help="write DIR/trace.json: a torch.profiler trace of the whole command (scene build, "
+                        "renders, save) with the package's spans on a track of their own (Perfetto)")
     r.add_argument("-o", "--out", default="RenderedImages")
     r.set_defaults(fn=cmd_render)
 

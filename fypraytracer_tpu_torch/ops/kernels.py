@@ -22,6 +22,8 @@ import time
 
 import torch
 
+from fypraytracer_tpu_torch.utils import profiling
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 
@@ -65,7 +67,8 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists; returns
     the library path.  Raises on any compiler failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{name}_{_source_hash()}.so")
+    with profiling.setup_span("kernels.hash"):
+        out = os.path.join(BUILD_DIR, f"lib{name}_{_source_hash()}.so")
     if os.path.exists(out):
         if build_info.get(name, {}).get("path") != out:     # the library last built or loaded
             log = ""
@@ -78,7 +81,8 @@ def build(name: str) -> str:
     cmd = [find_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with profiling.setup_span("kernels.nvcc"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
@@ -94,18 +98,40 @@ def build(name: str) -> str:
 def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of library ``name`` with its argtypes set
     (every pointer and the stream must be ``c_void_p``); returns int.  The
-    library is built and loaded, and the entry bound, once."""
+    library is built and loaded (span ``kernels.load``), and the entry
+    bound, once; the entry's first call in the process, where CUDA loads
+    the library's module, is span ``kernels.first_launch``."""
     flags = tuple(EXTRA_FLAGS.get(name, ()))
     if name not in _libs or _libs[name][2] != flags:
-        _libs[name] = (ctypes.CDLL(build(name)), {}, flags)
+        with profiling.setup_span("kernels.load"):
+            path = build(name)
+            with profiling.setup_span("kernels.dlopen"):
+                _libs[name] = (ctypes.CDLL(path), {}, flags)
     lib, fns, _ = _libs[name]
     fn = fns.get(symbol)
     if fn is None:
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns[symbol] = fn
+        fn = fns[symbol] = _first_launch(fn, fns, symbol)
     return fn
+
+
+def _first_launch(entry, fns: dict, symbol: str):
+    """``entry`` behind a one-shot wrapper: its first call is span
+    ``kernels.first_launch`` and puts the bare ``entry`` in ``fns`` for
+    every later lookup, so later launches pay nothing for the span."""
+
+    def first(*args):
+        if fns.get(symbol) is entry:        # a caller that kept the wrapper
+            return entry(*args)
+        with profiling.setup_span("kernels.first_launch"):
+            rc = entry(*args)
+        fns[symbol] = entry
+        return rc
+
+    first.argtypes = entry.argtypes
+    return first
 
 
 def check(rc: int, what: str) -> None:

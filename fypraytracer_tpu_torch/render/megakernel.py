@@ -49,6 +49,7 @@ from fypraytracer_tpu_torch.ops.traverse import OverflowWatch, stack_depth, trac
 from fypraytracer_tpu_torch.render.renderer import pixels_hdr
 from fypraytracer_tpu_torch.render.restir_common import BLOCK_SMEM
 from fypraytracer_tpu_torch.scene.types import Scene
+from fypraytracer_tpu_torch.utils import profiling
 
 # megakernel.py:2566; the int is csrc/megakernel.cu's Sampler
 SAMPLER_OF = {
@@ -88,6 +89,7 @@ def k2_lanes(n_frames: int) -> int:
     return 4 if n_frames >= 4 else 2 if n_frames >= 2 else 1
 
 
+@profiling.setup_spanned("scene.morton")
 def morton_permuted_scene(scene: Scene):
     """Host scene with its triangles reordered along the Z-order curve of
     their centroids, every triangle-id field remapped (megakernel.py:
@@ -203,35 +205,39 @@ def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, pix0, n_p
     """Check the inputs, allocate the output and launch ``fyp_megakernel``
     on the slab of ``n_pix`` pixels at ``pix0`` with ``lanes`` threads a
     pixel on the current stream; textured with the scene's levels
-    (``Scene.tex``) unless they are None."""
-    g, m, lt, tex = scene.geometry, scene.materials, scene.light_tree, scene.tex
-    wide = k2_walk_records(scene)
-    dev = g.positions.device
-    cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
-                          device=dev)
-    emission = m.emission().contiguous()
-    kernels.check_inputs(
-        "megakernel",
-        floats=(cam, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, emission,
-                wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi)
-        + (() if tex is None else (tex.prim, tex.bounce)),
-        ints=(g.tri_v, g.tri_mat, m.albedo_map, wide.overflow, lt.left, lt.right, lt.tri, lt.parent,
-              lt.leaf_of_tri))
-    # brute force traces exactly 1 path a frame whatever the sample count
-    # (megakernel.py:2603, Renderer.cu:565-701)
-    samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
-    fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
-    out = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
+    (``Scene.tex``) unless they are None.  Spans ``k2.prepare`` (all
+    before the ctypes call) and ``k2.launch`` (the call and its rc check)
+    while tracing is on."""
+    with profiling.span("k2.prepare"):
+        g, m, lt, tex = scene.geometry, scene.materials, scene.light_tree, scene.tex
+        wide = k2_walk_records(scene)
+        dev = g.positions.device
+        cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
+                              device=dev)
+        emission = m.emission().contiguous()
+        kernels.check_inputs(
+            "megakernel",
+            floats=(cam, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, emission,
+                    wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi)
+            + (() if tex is None else (tex.prim, tex.bounce)),
+            ints=(g.tri_v, g.tri_mat, m.albedo_map, wide.overflow, lt.left, lt.right, lt.tri, lt.parent,
+                  lt.leaf_of_tri))
+        # brute force traces exactly 1 path a frame whatever the sample count
+        # (megakernel.py:2603, Renderer.cu:565-701)
+        samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
+        fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
+        out = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
     P = kernels.ptr
-    rc = fn(sampler, lanes, P(cam), camera.width, camera.height, pix0, n_pix, int(frame0) & 0xFFFFFFFF, n_frames,
-            settings.bounces, samples, *(float(c) for c in settings.sky_color),
-            P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
-            P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
-            P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
-            P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
-            P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
-            P(out), kernels.stream_ptr(dev))
-    kernels.check(rc, "megakernel")
+    with profiling.span("k2.launch"):
+        rc = fn(sampler, lanes, P(cam), camera.width, camera.height, pix0, n_pix, int(frame0) & 0xFFFFFFFF,
+                n_frames, settings.bounces, samples, *(float(c) for c in settings.sky_color),
+                P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
+                P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
+                P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
+                P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
+                P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
+                P(out), kernels.stream_ptr(dev))
+        kernels.check(rc, "megakernel")
     return out
 
 
@@ -266,11 +272,17 @@ class MegakernelRenderer:
 
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Add ``n_frames`` frames to the accumulator; return the running
-        average HDR image (H, W, 3)."""
-        self.overflow.poll()
-        self.accum += megakernel(self.scene, self.camera, self.frame_index, n_frames,
-                                 self.settings)
-        self.overflow.queue()
-        self.frame_index += n_frames
-        h, w = self.camera.height, self.camera.width
-        return (self.accum / float(self.frame_index - 1)).reshape(h, w, 3)
+        average HDR image (H, W, 3).  Spans ``mk.call``, and in it
+        ``mk.poll``, K2's ``k2.prepare`` and ``k2.launch`` (on a card) and
+        ``mk.accumulate``, while tracing is on."""
+        with profiling.span("mk.call"):
+            with profiling.span("mk.poll"):
+                self.overflow.poll()
+            frames = megakernel(self.scene, self.camera, self.frame_index, n_frames, self.settings)
+            with profiling.span("mk.accumulate"):
+                self.accum += frames
+                del frames          # freed before the average is allocated: one image less at the peak
+                self.overflow.queue()
+                self.frame_index += n_frames
+                h, w = self.camera.height, self.camera.width
+                return (self.accum / float(self.frame_index - 1)).reshape(h, w, 3)

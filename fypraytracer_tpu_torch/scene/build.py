@@ -32,6 +32,7 @@ from fypraytracer_tpu_torch.scene.types import (
     Scene,
     TextureAtlas,
 )
+from fypraytracer_tpu_torch.utils import profiling
 
 ATLAS_PAGE = 256  # atlas page resolution (textures resampled to this)
 
@@ -131,6 +132,7 @@ class SceneBuilder:
 
     # -- compilation -------------------------------------------------------
 
+    @profiling.setup_spanned("scene.compile")
     def compile(self, leaf_size: int = 4, light_tree: bool = True, native: bool = False) -> Scene:
         """Bake transforms, flatten SoA, build BVH/light tree/atlas, and the
         kernels' wide BVH (``Scene.wide``) and texture levels (``Scene.tex``).
@@ -191,31 +193,35 @@ class SceneBuilder:
         tri_hi = np.maximum(np.maximum(p0, p1), p2)
 
         flat_bvh = None
-        if native and len(tri_v) > 0:
-            from fypraytracer_tpu_torch.accel import native as native_mod
-            flat_bvh = native_mod.build_scene_bvh_native(tri_lo, tri_hi, mesh_ranges, leaf_size)
-        self.last_builders = dict(bvh="numpy" if flat_bvh is None else "native", light_tree="none")
-        if flat_bvh is None:
-            flat_bvh = bvh_mod.build_scene_bvh(tri_lo, tri_hi, mesh_ranges, leaf_size)
+        with profiling.setup_span("scene.bvh"):
+            if native and len(tri_v) > 0:
+                from fypraytracer_tpu_torch.accel import native as native_mod
+                flat_bvh = native_mod.build_scene_bvh_native(tri_lo, tri_hi, mesh_ranges, leaf_size)
+            self.last_builders = dict(bvh="numpy" if flat_bvh is None else "native", light_tree="none")
+            if flat_bvh is None:
+                flat_bvh = bvh_mod.build_scene_bvh(tri_lo, tri_hi, mesh_ranges, leaf_size)
 
         # emissive triangle list (InitSceneEmissiveTriangles, Scene.cpp:209-221)
         emission = materials.emission_color * materials.emission_power[:, None]
         emissive_mat = (np.abs(emission).sum(axis=-1) > 0.0)
         emissive_tris = np.nonzero(emissive_mat[tri_mat])[0].astype(np.int32)
 
-        if light_tree and len(emissive_tris) > 0:
-            lt, self.last_builders["light_tree"] = build_light_tree(positions, tri_v, tri_mat, emission,
-                                                                     mesh_ranges, native)
-        else:
-            lt = empty_light_tree(len(tri_v))
-
-        atlas = pack_atlas(self.textures)
+        with profiling.setup_span("scene.light_tree"):
+            if light_tree and len(emissive_tris) > 0:
+                lt, self.last_builders["light_tree"] = build_light_tree(positions, tri_v, tri_mat, emission,
+                                                                         mesh_ranges, native)
+            else:
+                lt = empty_light_tree(len(tri_v))
 
         from fypraytracer_tpu_torch.ops.texture import make_kernel_tex
 
+        with profiling.setup_span("scene.tex"):
+            atlas = pack_atlas(self.textures)
+            tex = make_kernel_tex(materials, atlas)
+        with profiling.setup_span("scene.wide"):
+            wide = build_wide(flat_bvh, geometry)
         return Scene(geometry=geometry, materials=materials, bvh=flat_bvh,
-                     light_tree=lt, emissive_tris=emissive_tris, textures=atlas,
-                     wide=build_wide(flat_bvh, geometry), tex=make_kernel_tex(materials, atlas))
+                     light_tree=lt, emissive_tris=emissive_tris, textures=atlas, wide=wide, tex=tex)
 
 
 def build_light_tree(positions, tri_v, tri_mat, emission, mesh_ranges, native: bool):

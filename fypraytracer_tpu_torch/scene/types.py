@@ -23,6 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from fypraytracer_tpu_torch.utils import profiling
+
 Array = Any
 
 
@@ -194,6 +196,7 @@ class Scene:
     def num_emissive(self) -> int:
         return self.emissive_tris.shape[0]
 
+    @profiling.setup_spanned("scene.upload")
     def to(self, device) -> "Scene":
         """Every leaf as a torch tensor on ``device``."""
         return Scene(

@@ -8,7 +8,6 @@ table, the Morton-permuted scene, the material ids, the overflow watch);
 an ``albedo_map`` edit alone rebuilds the kernels' texture levels.
 """
 
-import json
 import os
 
 import numpy as np
@@ -96,7 +95,7 @@ def test_add_mesh_mid_session_renders(tmp_path):
 def test_frame_timer_and_rays_counter():
     import time
 
-    from fypraytracer_tpu_torch.utils.profiling import FrameTimer, RaysCounter
+    from fypraytracer_tpu_torch.utils.profiling import FrameTimer
 
     t = FrameTimer(device="cpu")
     with t.frame():
@@ -105,11 +104,6 @@ def test_frame_timer_and_rays_counter():
         time.sleep(0.03)
     assert t.frames == 2
     assert 5 < t.avg_ms < 100
-
-    c = RaysCounter()
-    c.add_frame(64, 64, samples=2, bounces=3, shadow_rays_per_bounce=1)
-    assert c.rays == 64 * 64 * 2 * (1 + 3 * 2)
-    assert c.rays_per_second(1.0) == c.rays
 
 
 def test_add_texture_mid_session_repacks_atlas():
@@ -308,15 +302,10 @@ def test_albedo_map_edit_alone_rebuilds_the_kernel_levels():
 
 def test_device_trace_and_log_event(tmp_path):
     """``device_trace`` writes a torch.profiler trace of the block (CPU
-    activity only here); ``log_event`` appends JSON lines with a time."""
-    from fypraytracer_tpu_torch.utils.profiling import device_trace, log_event
+    activity only here)."""
+    from fypraytracer_tpu_torch.utils.profiling import device_trace
 
     with device_trace(str(tmp_path / "trace"), device="cpu") as prof:
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
     assert any("mm" in e.key for e in prof.key_averages())
-    log = tmp_path / "events.jsonl"
-    log_event(str(log), what="frame", ms=1.5)
-    log_event(str(log), what="frame", ms=2.5, ts=7)
-    rec = [json.loads(line) for line in open(log)]
-    assert [r["ms"] for r in rec] == [1.5, 2.5] and rec[1]["ts"] == 7 and rec[0]["ts"] > 0
