@@ -2800,9 +2800,9 @@ def launch_log():
     log = {"k2": [], "gi": []}
     k2, gi = mk._launch, mg._launch
 
-    def k2_logged(scene, camera, frame0, n_frames, settings, sampler, *rest):
-        log["k2"].append((int(settings.technique), sampler))
-        return k2(scene, camera, frame0, n_frames, settings, sampler, *rest)
+    def k2_logged(prep, *rest):
+        log["k2"].append((int(prep.settings.technique), prep.sampler))
+        return k2(prep, *rest)
 
     def gi_logged(which, *rest):
         log["gi"].append(which)

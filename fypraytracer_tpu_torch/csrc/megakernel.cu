@@ -100,13 +100,23 @@
 // bit for bit.  parallel/shard.py::sharded_megakernel_render gives each rank
 // its slab.
 //
-// C interface (loaded with ctypes by render/megakernel.py::megakernel):
-//   fyp_megakernel           writes the (n_pix, 3) float32 HDR of pixels
-//                            pix0 .. pix0 + n_pix - 1 summed over n_frames,
-//                            returns cudaGetLastError() after the
-//                            asynchronous launch (cudaErrorInvalidValue for an
-//                            unknown sampler or lane count, or a slab outside
-//                            the image);
+// C interface (loaded with ctypes by render/megakernel.py::PreparedK2):
+//   fyp_megakernel_prepare   packs a launch's argument block once: the kernel
+//                            of the sampler, lane count and texturing, its
+//                            grid and shared memory (opted in above 48 KB),
+//                            and Params with every pointer and int but the
+//                            frames (cudaErrorInvalidValue for an unknown
+//                            sampler or lane count, or a slab outside the
+//                            image); the block is the caller's, of
+//                            fyp_megakernel_prepared_bytes bytes;
+//   fyp_megakernel_launch    launches a packed block with its first frame,
+//                            frame count and output: writes the (n_pix, 3)
+//                            float32 HDR of pixels pix0 .. pix0 + n_pix - 1
+//                            summed over n_frames, returns cudaGetLastError()
+//                            after the asynchronous launch.  The kernel and
+//                            what it is given are those of one call that
+//                            took every argument; only the host's work
+//                            between two launches is less;
 //   fyp_megakernel_occupancy the blocks of the same kernel a multiprocessor
 //                            holds at once, by the CUDA runtime;
 //   fyp_megakernel_clocks    (built with -DFYP_K2_CLOCKS) the sections'
@@ -562,11 +572,21 @@ Kernel kernel_of(int sampler, int lanes, bool textured) {
   return textured ? sampler_kernel<true>(sampler) : sampler_kernel<false>(sampler);
 }
 
+// A launch packed by fyp_megakernel_prepare: Params' frame0 and n_frames are
+// set by each fyp_megakernel_launch
+struct Prepared {
+  Kernel kernel;
+  int grid;
+  size_t smem;
+  Params P;
+};
+
 }  // namespace
 
-extern "C" int fyp_megakernel(
-    int sampler, int lanes, const void* cam, int width, int height, int pix0, int n_pix, unsigned int frame0,
-    int n_frames, int bounces,
+extern "C" int fyp_megakernel_prepared_bytes() { return static_cast<int>(sizeof(Prepared)); }
+
+extern "C" int fyp_megakernel_prepare(
+    int sampler, int lanes, const void* cam, int width, int height, int pix0, int n_pix, int bounces,
     int samples, float sky_r, float sky_g, float sky_b,
     const void* positions, const void* normals, const void* tri_v, const void* tri_mat, const void* uvs,
     const void* albedo, const void* roughness, const void* metallic, const void* emission, const void* albedo_map,
@@ -577,23 +597,23 @@ extern "C" int fyp_megakernel(
     const void* lt_cos_e, const void* lt_sin_e, const void* lt_box_lo, const void* lt_box_hi,
     const void* lt_left, const void* lt_right, const void* lt_tri, const void* lt_parent,
     const void* lt_leaf_of_tri, int lt_max_depth,
-    void* out, void* stream) {
-  if (n_pix <= 0) return 0;
-  if (pix0 < 0 || pix0 + static_cast<long long>(n_pix) > static_cast<long long>(width) * height) {
+    void* prepared) {
+  if (n_pix > 0 && (pix0 < 0 || pix0 + static_cast<long long>(n_pix) > static_cast<long long>(width) * height)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Kernel k = kernel_of(sampler, lanes, textured != 0);
   if (k == nullptr || wide_stack_depth < 1 || (textured && tex_k < 1)) return static_cast<int>(cudaErrorInvalidValue);
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto I = [](const void* p) { return static_cast<const int*>(p); };
-  Params P;
+  Prepared& prep = *static_cast<Prepared*>(prepared);
+  Params& P = prep.P;
   P.cam = F(cam);
   P.width = width;
   P.height = height;
   P.pix0 = pix0;
   P.n_pix = n_pix;
-  P.frame0 = frame0;
-  P.n_frames = n_frames;
+  P.frame0 = 0;
+  P.n_frames = 0;
   P.bounces = bounces;
   P.samples = samples;
   P.lanes = lanes;
@@ -607,12 +627,20 @@ extern "C" int fyp_megakernel(
   P.lt = LightTree{F(lt_energy), F(lt_axis), F(lt_cos_o), F(lt_sin_o), F(lt_cos_e), F(lt_sin_e),
                    F(lt_box_lo), F(lt_box_hi), I(lt_left), I(lt_right), I(lt_tri), I(lt_parent),
                    I(lt_leaf_of_tri), lt_max_depth};
-  const size_t smem = smem_of(wide_stack_depth);
-  const cudaError_t e = allow_stack_smem(k, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = static_cast<int>((static_cast<long long>(lanes) * n_pix + kBlock - 1) / kBlock);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k<<<grid, kBlock, smem, st>>>(P, static_cast<float*>(out));
+  prep.kernel = k;
+  prep.smem = smem_of(wide_stack_depth);
+  prep.grid = static_cast<int>((static_cast<long long>(lanes) * (n_pix > 0 ? n_pix : 0) + kBlock - 1) / kBlock);
+  return static_cast<int>(allow_stack_smem(k, prep.smem));
+}
+
+extern "C" int fyp_megakernel_launch(const void* prepared, unsigned int frame0, int n_frames, void* out,
+                                     void* stream) {
+  const Prepared& prep = *static_cast<const Prepared*>(prepared);
+  if (prep.P.n_pix <= 0) return 0;
+  Params P = prep.P;
+  P.frame0 = frame0;
+  P.n_frames = n_frames;
+  prep.kernel<<<prep.grid, kBlock, prep.smem, static_cast<cudaStream_t>(stream)>>>(P, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

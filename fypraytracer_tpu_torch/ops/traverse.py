@@ -306,20 +306,24 @@ class OverflowWatch:
     walk sets when it drops a stack entry, without a host wait.
 
     At the end of each call ``queue()`` puts a copy of the flag into pinned
-    host memory on the stream, behind the call's launches, and records an
-    event; at the start of the next call ``poll()`` raises if that copy
-    has landed (the event has completed: a query, never a wait) and shows
-    the flag set.  The flag is never cleared, so a copy that has not landed
-    yet is read by a later call.  ``check()`` waits for the card and reads
-    the flag itself, for a caller that reads the image on the host anyway.
-    On CPU tensors the flag is read directly: the plain walks never set it.
+    host memory on the stream, behind the call's launches, and records the
+    watch's one event again; at the start of the next call ``poll()``
+    raises if that copy has landed (the event has completed: a query,
+    never a wait) and shows the flag set.  The flag is never cleared, so
+    every copy writes the same or a later value, and a copy that has not
+    landed yet is read by a later call.  ``check()`` waits for the card and
+    reads the flag itself, for a caller that reads the image on the host
+    anyway.  On CPU tensors the flag is read directly: the plain walks
+    never set it.
     """
 
     def __init__(self, scene):
         self.flag = None if scene.wide is None else scene.wide.overflow
         self.cuda = self.flag is not None and self.flag.device.type == "cuda"
         self.host = torch.zeros(1, dtype=torch.int32).pin_memory() if self.cuda else None
-        self.event = None
+        self.seen = None if self.host is None else self.host.numpy()      # the pinned copy, read without torch
+        self.event = torch.cuda.Event() if self.cuda else None
+        self.queued = False
 
     def poll(self) -> None:
         """Raise if a copy queued by an earlier call has landed and is set."""
@@ -329,9 +333,9 @@ class OverflowWatch:
             if int(self.flag[0]) != 0:
                 raise RuntimeError(_OVERFLOW_MSG)
             return
-        if self.event is not None and self.event.query():
-            self.event = None
-            if int(self.host[0]) != 0:
+        if self.queued and self.event.query():
+            self.queued = False
+            if self.seen[0] != 0:
                 raise RuntimeError(_OVERFLOW_MSG)
 
     def queue(self) -> None:
@@ -340,8 +344,8 @@ class OverflowWatch:
         if not self.cuda:
             return
         self.host.copy_(self.flag, non_blocking=True)
-        self.event = torch.cuda.Event()
         self.event.record()
+        self.queued = True
 
     def check(self) -> None:
         """Wait for the card and raise if the flag is set."""

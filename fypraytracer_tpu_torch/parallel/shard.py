@@ -48,7 +48,7 @@ from fypraytracer_tpu_torch.parallel.distributed import (  # noqa: F401  (make_p
     make_pixel_mesh,
 )
 from fypraytracer_tpu_torch.render.integrators import radiance_hemisphere, radiance_nee_mis
-from fypraytracer_tpu_torch.render.megakernel import megakernel
+from fypraytracer_tpu_torch.render.megakernel import K2Launcher, megakernel
 from fypraytracer_tpu_torch.scene.types import FLOAT_MATERIAL_FIELDS, MaterialTable, Scene, with_materials
 
 
@@ -133,12 +133,13 @@ def sharded_megakernel_render(scene: Scene, mesh: PixelMesh, width: int, height:
     ids = shard_pixels(mesh, width * height, "cpu")
     pix0, n_pix = int(ids[0]), ids.numel()
     overflow = OverflowWatch(scene)
+    launcher = K2Launcher()         # the slab's launch, prepared at the first call
 
     def render(camera: Camera, frame0: int):
         if (camera.width, camera.height) != (width, height):
             raise ValueError(f"the camera is {camera.width}x{camera.height}, the mesh's image {width}x{height}")
         overflow.poll()
-        out = megakernel(scene, camera, frame0, n_frames, settings, pix0=pix0, n_pix=n_pix)
+        out = megakernel(scene, camera, frame0, n_frames, settings, pix0=pix0, n_pix=n_pix, launcher=launcher)
         overflow.queue()
         return out
 

@@ -21,7 +21,13 @@ each rank its slab, and slabs join into the whole image bit for bit.
 frames of the matching wavefront integrator (``renderer.pixels_hdr``) with
 the plain BVH walk.  The wrapper takes it for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  ``megakernel.launches`` counts
-kernel launches.
+kernel launches.  A launch is prepared once (``PreparedK2``: the checked
+inputs, the emission table, the walk records, the texture arguments and
+the C entries' argument block) and kept by a ``K2Launcher`` while the
+scene object, the settings' values, the lane count, the slab and the
+camera's size stay as they were; ``MegakernelRenderer`` and
+``sharded_megakernel_render`` keep one, and a call then uploads the
+camera's matrices if they changed and makes one short C call.
 
 The TPU kernel's packed tables (``P``/``AT``/``L``), frames-in-sublanes and
 dispatch planning exist for the TPU and are not carried over: the kernel
@@ -163,20 +169,25 @@ def megakernel_plain(scene: Scene, camera: Camera, frame0: int, n_frames: int,
     return out
 
 
-_ARGTYPES = (
-    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+_PREPARE_ARGTYPES = (
+    [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
     + [ctypes.c_void_p] * 5          # geometry
     + [ctypes.c_void_p] * 5          # materials
     + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5         # texture
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]                # wide bvh
     + [ctypes.c_void_p] * 13 + [ctypes.c_int]               # light tree
-    + [ctypes.c_void_p] * 2)         # out, stream
+    + [ctypes.c_void_p])             # the packed block
+_LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _runs_plain(scene: Scene) -> bool:
+    """Whether K2's calls on ``scene`` take the plain version: CPU tensors."""
+    return scene.geometry.positions.device.type == "cpu"
 
 
 def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
                settings: RenderSettings, lanes: int | None = None, pix0: int = 0,
-               n_pix: int | None = None) -> torch.Tensor:
+               n_pix: int | None = None, launcher: "K2Launcher | None" = None) -> torch.Tensor:
     """(n_pix, 3) HDR of the pixel slab ``pix0 .. pix0+n_pix-1`` (by default
     the whole image, (H*W, 3)) summed over ``n_frames`` frames of
     ``settings.technique`` starting at ``frame0``, through the CUDA kernel
@@ -184,16 +195,19 @@ def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
     default ``k2_lanes``) (plain version for CPU tensors).  A slab's pixels
     are the same bits as the whole image's (the JAX kernel's chunk entry,
     ``pix0``).  A textured scene launches the textured instantiation with
-    the levels of ``Scene.tex``."""
-    sampler = _sampler(settings)
+    the levels of ``Scene.tex``.  ``launcher`` keeps the launch prepared
+    for the next call (``K2Launcher``); without it the launch is prepared
+    for this call alone."""
+    _sampler(settings)
     n_pix = slab(camera, pix0, n_pix)
-    if scene.geometry.positions.device.type == "cpu":
+    if _runs_plain(scene):
         return megakernel_plain(scene, camera, frame0, n_frames, settings, pix0, n_pix)
     if lanes is None:
         lanes = k2_lanes(n_frames)
     if lanes not in (1, 2, 4):
         raise ValueError(f"megakernel: lanes must be 1, 2 or 4, got {lanes}")
-    out = _launch(scene, camera, frame0, n_frames, settings, _SAMPLER_ID[sampler], lanes, pix0, n_pix)
+    launcher = K2Launcher() if launcher is None else launcher
+    out = launcher(scene, camera, frame0, n_frames, settings, lanes, pix0, n_pix)
     megakernel.launches += 1
     return out
 
@@ -201,23 +215,33 @@ def megakernel(scene: Scene, camera: Camera, frame0: int, n_frames: int,
 megakernel.launches = 0
 
 
-def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, pix0, n_pix):
-    """Check the inputs, allocate the output and launch ``fyp_megakernel``
-    on the slab of ``n_pix`` pixels at ``pix0`` with ``lanes`` threads a
-    pixel on the current stream; textured with the scene's levels
-    (``Scene.tex``) unless they are None.  Spans ``k2.prepare`` (all
-    before the ctypes call) and ``k2.launch`` (the call and its rc check)
-    while tracing is on."""
-    with profiling.span("k2.prepare"):
+class PreparedK2:
+    """One K2 launch with everything but its frames and output fixed.
+
+    It holds the checked inputs (``check_inputs`` runs here, once), the
+    emission table, the walk records and their stack depth, the texture
+    arguments, the loaded C entries, and the argument block that
+    ``fyp_megakernel_prepare`` packs from them: every pointer and int of a
+    launch but its first frame, frame count, output and stream.  The block
+    points at ``cam``, the (2, 4, 4) device tensor that holds the camera's
+    inverse projection and view (``K2Launcher.set_camera``).  A launch
+    then passes the block, its frames, its output and the stream
+    (``_launch``).  What the kernel is given is what one call with every
+    argument gave it."""
+
+    def __init__(self, scene: Scene, cam: torch.Tensor, camera: Camera, settings: RenderSettings, lanes: int,
+                 pix0: int, n_pix: int):
         g, m, lt, tex = scene.geometry, scene.materials, scene.light_tree, scene.tex
         wide = k2_walk_records(scene)
-        dev = g.positions.device
-        cam = torch.as_tensor(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32),
-                              device=dev)
-        emission = m.emission().contiguous()
+        self.scene, self.settings, self.lanes, self.pix0, self.n_pix = scene, settings, lanes, pix0, n_pix
+        self.size = (camera.width, camera.height)
+        self.sampler = _SAMPLER_ID[_sampler(settings)]
+        self.device = g.positions.device
+        self.cam = cam
+        self.emission = m.emission().contiguous()
         kernels.check_inputs(
             "megakernel",
-            floats=(cam, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, emission,
+            floats=(self.cam, g.positions, g.normals, g.uvs, m.albedo, m.roughness, m.metallic, self.emission,
                     wide.nodes, wide.tris, lt.energy, lt.axis, *lt.cone_trig, lt.box_lo, lt.box_hi)
             + (() if tex is None else (tex.prim, tex.bounce)),
             ints=(g.tri_v, g.tri_mat, m.albedo_map, wide.overflow, lt.left, lt.right, lt.tri, lt.parent,
@@ -225,20 +249,86 @@ def _launch(scene, camera, frame0, n_frames, settings, sampler, lanes, pix0, n_p
         # brute force traces exactly 1 path a frame whatever the sample count
         # (megakernel.py:2603, Renderer.cu:565-701)
         samples = 1 if settings.technique == SamplingTechnique.BRUTE_FORCE else settings.samples
-        fn = kernels.load("megakernel", "fyp_megakernel", _ARGTYPES)
-        out = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
-    P = kernels.ptr
+        n_bytes = kernels.load("megakernel", "fyp_megakernel_prepared_bytes", [])()
+        self.block = (ctypes.c_uint64 * -(-n_bytes // 8))()          # 8-byte aligned, as the block's pointers
+        self.block_ptr = ctypes.c_void_p(ctypes.addressof(self.block))
+        P = kernels.ptr
+        pack = kernels.load("megakernel", "fyp_megakernel_prepare", _PREPARE_ARGTYPES)
+        kernels.check(pack(self.sampler, lanes, P(self.cam), camera.width, camera.height, pix0, n_pix,
+                           settings.bounces, samples, *(float(c) for c in settings.sky_color),
+                           P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
+                           P(m.albedo), P(m.roughness), P(m.metallic), P(self.emission), P(m.albedo_map),
+                           *tex_args(tex),
+                           P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
+                           P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
+                           P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
+                           self.block_ptr), "megakernel")
+        self.fn = kernels.load("megakernel", "fyp_megakernel_launch", _LAUNCH_ARGTYPES)
+
+    def fits(self, scene: Scene, camera: Camera, settings: RenderSettings, lanes: int, pix0: int,
+             n_pix: int) -> bool:
+        """Whether this launch renders ``scene``'s slab with ``settings``'
+        values and ``lanes`` threads a pixel, for a camera of its size."""
+        return (scene is self.scene and (settings is self.settings or settings == self.settings)
+                and lanes == self.lanes and pix0 == self.pix0 and n_pix == self.n_pix
+                and (camera.width, camera.height) == self.size)
+
+
+class K2Launcher:
+    """K2's launches, each prepared (``PreparedK2``) only when the last
+    prepared one does not fit: another scene object (``set_scene``), other
+    settings values, lane count or slab, or a camera of another size.  A
+    call then uploads the camera's matrices into the launcher's one camera
+    tensor if they changed, takes an output and makes one short C call.
+    ``builds`` and ``camera_uploads`` count both.  Spans ``k2.prepare``
+    (all before the C call) and ``k2.launch`` (``_launch``) while tracing
+    is on."""
+
+    def __init__(self):
+        self.prepared: PreparedK2 | None = None
+        self.cam: torch.Tensor | None = None        # the camera's matrices on the device
+        self.cam_values = None                      # their bytes at the last upload
+        self.builds = 0
+        self.camera_uploads = 0
+
+    def __call__(self, scene: Scene, camera: Camera, frame0: int, n_frames: int, settings: RenderSettings,
+                 lanes: int, pix0: int, n_pix: int) -> torch.Tensor:
+        with profiling.span("k2.prepare"):
+            prep = self.prepared
+            if prep is None or not prep.fits(scene, camera, settings, lanes, pix0, n_pix):
+                dev = scene.geometry.positions.device
+                if self.cam is None or self.cam.device != dev:
+                    self.cam = torch.empty((2, 4, 4), dtype=torch.float32, device=dev)
+                    self.cam_values = None
+                prep = self.prepared = PreparedK2(scene, self.cam, camera, settings, lanes, pix0, n_pix)
+                self.builds += 1
+            self.camera_uploads += self.set_camera(camera)
+            out = torch.empty((n_pix, 3), dtype=torch.float32, device=prep.device)
+            stream = kernels.stream_ptr(prep.device)
+        _launch(prep, frame0, n_frames, out, stream)
+        return out
+
+    def set_camera(self, camera: Camera) -> bool:
+        """Upload the camera's inverse projection and view where their 32
+        floats differ from the last upload's (``Camera`` is mutable, so
+        its values are compared, not the object), through pinned memory
+        on a card, behind the launches queued before; whether it did."""
+        values = camera.inv_projection.tobytes() + camera.inv_view.tobytes()
+        if values == self.cam_values:
+            return False
+        host = torch.from_numpy(np.stack([camera.inv_projection, camera.inv_view]).astype(np.float32))
+        self.cam.copy_(host.pin_memory() if self.cam.is_cuda else host, non_blocking=True)
+        self.cam_values = values
+        return True
+
+
+def _launch(prep: PreparedK2, frame0: int, n_frames: int, out: torch.Tensor, stream) -> None:
+    """Launch ``prep`` over ``n_frames`` frames from ``frame0`` into
+    ``out`` on ``stream``: the C call and its rc check, span
+    ``k2.launch``."""
     with profiling.span("k2.launch"):
-        rc = fn(sampler, lanes, P(cam), camera.width, camera.height, pix0, n_pix, int(frame0) & 0xFFFFFFFF,
-                n_frames, settings.bounces, samples, *(float(c) for c in settings.sky_color),
-                P(g.positions), P(g.normals), P(g.tri_v), P(g.tri_mat), P(g.uvs),
-                P(m.albedo), P(m.roughness), P(m.metallic), P(emission), P(m.albedo_map), *tex_args(tex),
-                P(wide.nodes), P(wide.tris), P(wide.overflow), stack_depth(wide),
-                P(lt.energy), P(lt.axis), *map(P, lt.cone_trig), P(lt.box_lo), P(lt.box_hi),
-                P(lt.left), P(lt.right), P(lt.tri), P(lt.parent), P(lt.leaf_of_tri), lt.max_depth,
-                P(out), kernels.stream_ptr(dev))
-        kernels.check(rc, "megakernel")
-    return out
+        kernels.check(prep.fn(prep.block_ptr, int(frame0) & 0xFFFFFFFF, n_frames, out.data_ptr(), stream),
+                      "megakernel")
 
 
 class MegakernelRenderer:
@@ -256,15 +346,28 @@ class MegakernelRenderer:
         self.settings = settings
         self.accum = torch.zeros((camera.height * camera.width, 3), dtype=torch.float32,
                                  device=self.device)
+        self.k2 = K2Launcher()
         self.set_scene(scene)
 
     def set_scene(self, scene: Scene):
         """Render ``scene`` from now on (``SceneManager.apply``): on the
-        device, with a new overflow watch; accumulation restarts."""
+        device, with a new overflow watch and K2's launch prepared anew;
+        accumulation restarts."""
         self.scene = scene.to(self.device)
         self.overflow = OverflowWatch(self.scene)
         check_scene_tex(self.scene)
+        self.k2.prepared = None
         self.reset()
+
+    @property
+    def prepared_builds(self) -> int:
+        """K2 launches prepared so far (``K2Launcher.builds``)."""
+        return self.k2.builds
+
+    @property
+    def camera_uploads(self) -> int:
+        """Uploads of the camera's matrices so far (``K2Launcher``)."""
+        return self.k2.camera_uploads
 
     def reset(self):
         self.frame_index = 1
@@ -272,13 +375,15 @@ class MegakernelRenderer:
 
     def render_many(self, n_frames: int) -> torch.Tensor:
         """Add ``n_frames`` frames to the accumulator; return the running
-        average HDR image (H, W, 3).  Spans ``mk.call``, and in it
+        average HDR image (H, W, 3).  K2's launch is prepared once and kept
+        while it fits (``K2Launcher``).  Spans ``mk.call``, and in it
         ``mk.poll``, K2's ``k2.prepare`` and ``k2.launch`` (on a card) and
         ``mk.accumulate``, while tracing is on."""
         with profiling.span("mk.call"):
             with profiling.span("mk.poll"):
                 self.overflow.poll()
-            frames = megakernel(self.scene, self.camera, self.frame_index, n_frames, self.settings)
+            frames = megakernel(self.scene, self.camera, self.frame_index, n_frames, self.settings,
+                                launcher=self.k2)
             with profiling.span("mk.accumulate"):
                 self.accum += frames
                 del frames          # freed before the average is allocated: one image less at the peak

@@ -99,7 +99,7 @@ def test_every_entry_is_bound_and_every_binding_has_an_entry():
     bound = {name for name, _, _ in BINDINGS}
     assert sorted(set(ENTRIES) - bound) == []
     assert sorted(bound - set(ENTRIES)) == []
-    assert {"fyp_restir_di_k3", "fyp_restir_di_k4", "fyp_restir_gi", "fyp_megakernel"} <= set(ENTRIES)
+    assert {"fyp_restir_di_k3", "fyp_restir_di_k4", "fyp_restir_gi", "fyp_megakernel_prepare"} <= set(ENTRIES)
 
 
 @pytest.mark.parametrize("where", [w for _, _, w in BINDINGS])
@@ -151,17 +151,27 @@ def test_restir_gi_takes_no_threaded_bvh():
 
 
 def test_megakernel_takes_no_threaded_bvh():
-    """K2's entry takes the wide BVH's four arguments (nodes, triangles,
-    overflow flag, stack depth) after the texture, and no threaded BVH:
-    the sampler and lanes, camera, width, height, slab start and size,
-    frame, frames, bounces and samples, 3 sky floats, 10 geometry and
-    material pointers, the texture (a flag, 2 pointers and 5 ints), 3
-    pointers and an int, the light tree (13 pointers and its depth), out
-    and the stream."""
-    want = (["int", "int", "pointer", "int", "int", "int", "int", "unsigned", "int", "int", "int"] + ["float"] * 3
+    """K2's packing entry takes the wide BVH's four arguments (nodes,
+    triangles, overflow flag, stack depth) after the texture, and no
+    threaded BVH: the sampler and lanes, camera, width, height, slab start
+    and size, bounces and samples, 3 sky floats, 10 geometry and material
+    pointers, the texture (a flag, 2 pointers and 5 ints), 3 pointers and
+    an int, the light tree (13 pointers and its depth), and the block it
+    packs."""
+    want = (["int", "int", "pointer"] + ["int"] * 6 + ["float"] * 3
             + ["pointer"] * 10 + ["int"] + ["pointer"] * 2 + ["int"] * 5 + ["pointer"] * 3 + ["int"]
-            + ["pointer"] * 13 + ["int"] + ["pointer"] * 2)
-    assert ENTRIES["fyp_megakernel"] == want
+            + ["pointer"] * 13 + ["int"] + ["pointer"])
+    assert ENTRIES["fyp_megakernel_prepare"] == want
+
+
+def test_megakernel_launch_takes_the_packed_block_and_the_frames():
+    """A launch of K2 takes only what changes between launches: the block
+    ``fyp_megakernel_prepare`` packed, the first frame (unsigned), the
+    frame count, the output and the stream; the block's size is asked of
+    the library, whose entry takes nothing."""
+    assert ENTRIES["fyp_megakernel_launch"] == ["pointer", "unsigned", "int", "pointer", "pointer"]
+    assert ENTRIES["fyp_megakernel_prepared_bytes"] == []
+    assert "fyp_megakernel" not in ENTRIES
 
 
 def test_megakernel_clocks_entry_is_bound_by_the_smoke_test():

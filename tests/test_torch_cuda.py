@@ -1223,3 +1223,93 @@ def test_sharded_paths_on_one_process(cuda):
     cos = SETTINGS.replace(technique=SamplingTechnique.COSINE)
     got = shard.sharded_render(scene, mesh, 64, 48, cos)(cam.inv_projection, cam.inv_view, 1)
     assert torch.equal(got, frame_hdr(scene, cam, 1, cos).reshape(-1, 3))
+
+
+# ---- K2's prepared launch (render/megakernel.py: PreparedK2, K2Launcher) --------------
+
+def _unchanged(r, manager, cam):
+    pass
+
+
+def _camera_moved(r, manager, cam):
+    cam.move_to(np.float32([0.1, 1.0, 3.2]), forward=np.float32([0.05, -0.1, -1.0]))
+    r.reset()
+
+
+def _material_edited(r, manager, cam):
+    manager.set_material(0, emission_power=2.5, albedo=(0.9, 0.2, 0.1))
+    manager.apply(r)
+
+
+def _bounces_changed(r, manager, cam):
+    r.settings = r.settings.replace(bounces=3)
+    r.reset()
+
+
+# (change, builds and camera uploads after it)
+K2_CHANGES = [(_unchanged, 1, 1), (_camera_moved, 1, 2), (_material_edited, 2, 1), (_bounces_changed, 2, 1)]
+
+
+@pytest.mark.parametrize("change, builds, uploads", K2_CHANGES, ids=[c[0].__name__[1:] for c in K2_CHANGES])
+def test_render_many_keeps_its_prepared_launch_bit_for_bit(cuda, change, builds, uploads):
+    """``render_many`` through its kept launch, three calls after each
+    change (the unchanged renderer keeps accumulating, the others restart),
+    gives the accumulator and the average of a renderer made afresh on the
+    changed scene, camera and settings, bit for bit, and prepares or
+    uploads only what the change needs."""
+    import copy
+
+    from fypraytracer_tpu_torch.scene.manager import SceneManager
+
+    builder, cam = tproc.cornell_box(W, H, sphere_res=(6, 10))
+    manager = SceneManager(builder, native=False)
+    r = MegakernelRenderer(manager.scene, cam, SETTINGS, device=cuda)
+    for _ in range(3):
+        r.render_many(4)
+    change(r, manager, cam)
+    for _ in range(3):
+        got = r.render_many(4)
+    fresh = MegakernelRenderer(manager.scene, copy.deepcopy(cam), r.settings, device=cuda)
+    for _ in range((r.frame_index - 1) // 4):          # every call since the renderer's last restart
+        want = fresh.render_many(4)
+    torch.cuda.synchronize()
+    assert torch.equal(r.accum, fresh.accum) and torch.equal(got, want)
+    assert (r.prepared_builds, r.camera_uploads) == (builds, uploads)
+    assert (fresh.prepared_builds, fresh.camera_uploads) == (1, 1)
+    r.overflow.check()
+
+
+def test_render_many_equals_one_shot_launches_bit_for_bit(cuda):
+    """Five calls of ``render_many(8)`` through the kept launch sum to the
+    one-shot ``megakernel`` launches of the same frames, added in the
+    same order, bit for bit (the same kernel and arguments)."""
+    scene, cam = _scene()
+    r = MegakernelRenderer(scene, cam, SETTINGS, device=cuda)
+    want = torch.zeros_like(r.accum)
+    for i in range(5):
+        r.render_many(8)
+        want += tmk.megakernel(r.scene, cam, 1 + 8 * i, 8, SETTINGS)
+    torch.cuda.synchronize()
+    assert torch.equal(r.accum, want)
+    assert (r.prepared_builds, r.camera_uploads) == (1, 1)
+
+
+def test_sharded_megakernel_slabs_join_through_kept_launches(cuda):
+    """``sharded_megakernel_render`` on each of 3 shards of one process (a
+    mesh of 3 seen from each index, no collectives): each slab's launch is
+    kept across calls, and the slabs join into the one-launch image bit
+    for bit, before and after a camera move."""
+    from fypraytracer_tpu_torch.parallel import shard
+    from fypraytracer_tpu_torch.parallel.distributed import PixelMesh
+
+    builder, cam = tproc.cornell_box(72, 40, sphere_res=(6, 10))
+    scene = builder.compile().to(cuda)
+    renders = [shard.sharded_megakernel_render(scene, PixelMesh(None, i, 3, cuda, (0, 1, 2)), 72, 40, SETTINGS, 4)
+               for i in range(3)]
+    for frame0 in (1, 5):
+        joined = torch.cat([render(cam, frame0) for render in renders])
+        assert torch.equal(joined, tmk.megakernel(scene, cam, frame0, 4, SETTINGS))
+    cam.move_to(np.float32([0.2, 1.1, 3.0]))
+    joined = torch.cat([render(cam, 9) for render in renders])
+    assert torch.equal(joined, tmk.megakernel(scene, cam, 9, 4, SETTINGS))
+    ttrav.check_overflow(scene)
