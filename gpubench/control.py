@@ -21,7 +21,9 @@ window holds) at the pixels its check samples for that seed.  A training
 cell's readings are taken at both of its check's stages: from the seed's
 albedo (``start``), and from the program's own state after a window of
 ``--seconds`` (``window``), where the program's own reading is printed
-beside them.  The sound readings are also what the benchmark's runs print.
+beside them, and whether a step of the stage began at an albedo clamped
+to 0 (``from_zero``).  The sound readings are also what the benchmark's
+runs print.
 """
 
 from __future__ import annotations
@@ -42,20 +44,44 @@ from gpubench.run import Cell, load_module, manifest  # noqa: E402
 from gpubench.seeds import frame0_of  # noqa: E402
 
 # Cells kept out of BENCHMARK.json while the program fails them, with the
-# entries they would have there; their harness is kept whole, and this tool
-# and the tests still drive them.  cornell-train-1080p: K8 returns a NaN
-# gradient once the metallic sphere's albedo is clamped to 0 (PERF.md §7).
-HELD_OUT = [
-    {"name": "cornell-train-1080p", "config": "cornell", "traffic": "train-1080p", "chips": 1,
-     "why": "1920x1088 DiffRenderer.step, cosine, 2 bounces, SGD lr 0.2 clamped to [0,1], loss read every 16 steps: "
-            "K8, segment sum, update; not K2"},
-]
+# entries they and the metrics only they report would have there, grouped as
+# in BENCHMARK.json: a metric's list may name only cells that the manifest
+# has.  Their harness is kept whole, and this tool and the tests still drive
+# them.  A cell is admitted by appending these entries to BENCHMARK.json
+# alone: an entry the manifest has is no longer held out.
+# cornell-train-1080p: K8 returns a NaN gradient on some steps once the
+# metallic sphere's albedo is clamped to 0 (PERF.md §7); its limits are set
+# from readings of windows that end before K8's first NaN, and step_ms's
+# bound from two sets of 6 runs at 40 s (PERF.md §2).
+HELD_OUT = {
+    "workloads": [
+        {"name": "cornell-train-1080p", "config": "cornell", "traffic": "train-1080p", "chips": 1,
+         "why": "1920x1088 DiffRenderer.step, cosine, 2 bounces, SGD lr 0.2 clamped to [0,1], loss read every "
+                "16 steps: K8, segment sum, update; not K2"},
+    ],
+    "end_to_end": [
+        {"name": "step_ms", "unit": "ms", "better": "lower", "bound": 0.025, "source": "host_clock",
+         "workloads": ["cornell-train-1080p"]},
+    ],
+    "per_layer": [
+        {"name": "host_ms.step", "unit": "ms", "better": "lower", "source": "host_clock", "layer": "entry points",
+         "moves": "step_ms", "workloads": ["cornell-train-1080p"]},
+        {"name": "k8_roofline", "unit": "%", "better": "higher", "source": "device_trace", "layer": "kernels",
+         "moves": "step_ms", "workloads": ["cornell-train-1080p"]},
+        {"name": "idle_share.step", "unit": "%", "better": "lower", "source": "device_trace", "layer": "device",
+         "moves": "step_ms", "workloads": ["cornell-train-1080p"]},
+    ],
+}
 
 
 def bench_with_held_out() -> dict:
-    """BENCHMARK.json with the held-out cells among its workloads."""
+    """BENCHMARK.json with each held-out entry it does not have appended."""
     b = manifest()
-    return dict(b, workloads=b["workloads"] + HELD_OUT)
+    out = dict(b)
+    for key, entries in HELD_OUT.items():
+        have = {e["name"] for e in b[key]}
+        out[key] = b[key] + [e for e in entries if e["name"] not in have]
+    return out
 
 
 def render_readings(cell, seed, frames, device) -> dict:
@@ -134,6 +160,8 @@ def train_readings(cell, seed, device, seconds: float) -> dict:
         base = judged[stage]
         ref = ds.reference_steps(cell, base, device)
         out[f"{stage}.program"] = ds.gaps(base, *ref, lr)
+        # whether a step began at an albedo clamped to 0, where K8's fault lies (PERF.md §7)
+        out[f"{stage}.from_zero"] = any(bool((a == 0).any()) for a in [base["albedo0"]] + base["albedos"][:-1])
         for name, (losses, albedos, _) in (("control", ds.reference_steps(cell, base, device, torch.bfloat16)),
                                            ("half_batch", _planted_sgd(cell, base, device, "half_batch")),
                                            ("altered", _planted_sgd(cell, base, device, "altered"))):

@@ -59,12 +59,12 @@ def test_a_bare_copy_of_the_benchmark_fails(tmp_path):
 @pytest.mark.parametrize("cell,trace", [("cornell-nee-1080p", 0), ("cornell-nee-1080p", 1),
                                         ("cornell-train-1080p", 0)])
 def test_result_line(cell, trace):
-    out = run.run_cell(cell, 2 ** 31 + 11, 0.2, bool(trace), "cpu", size=(16, 8), bench=bench_with_held_out())
+    b = bench_with_held_out()
+    out = run.run_cell(cell, 2 ** 31 + 11, 0.2, bool(trace), "cpu", size=(16, 8), bench=b)
     line = json.loads(json.dumps(out))
     assert list(line)[-1] == "checks"
     assert {"correct", "attempted", "failed", "metrics", "device"} <= set(line)
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] > 0
-    b = run.manifest()
     group = b["per_layer"] if trace else b["end_to_end"]
     allowed = {m["name"]: m["unit"] for m in group if m.get("workloads") is None or cell in m["workloads"]}
     assert set(line["metrics"]) <= set(allowed)

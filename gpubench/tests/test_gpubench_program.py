@@ -154,14 +154,23 @@ def test_calls_that_do_not_pair_map_nothing(port):
     assert read("idle_in_port_ms.frame", run) is None
 
 
-def test_a_traced_cpu_run_reports_the_port_s_set_up():
+def test_a_traced_cpu_run_reports_the_port_s_set_up(monkeypatch):
     """The harness's own traced run on the port's plain CPU path: of the
-    port's spans it has set-up spans, and no launch, kernel or library."""
+    port's spans it has set-up spans, and no launch, kernel or library.
+    The run's clock starts where the run does, as a command's starts with
+    its process: a library that the process loaded before (as an earlier
+    test in the same worker does) is none of this run's."""
     import json
+    import time
 
     from gpubench import run as bench_run
     from gpubench.control import bench_with_held_out
+    from fypraytracer_tpu_torch.utils import profiling
 
+    with profiling.setup_span("native.load"):
+        pass
+    time.sleep(0.01)                # what an earlier test ran, and this run's start
+    monkeypatch.setattr(bench_run, "T_START", time.perf_counter())
     out = bench_run.run_cell("cornell-nee-1080p", 2 ** 31 + 11, 0.2, True, "cpu", size=(16, 8),
                              bench=bench_with_held_out())
     line = json.loads(json.dumps(out))
